@@ -1,0 +1,537 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card (an H100).
+
+    python3 chip_smoke.py [--profile]
+
+Run from the root of a checkout. Phases, in order; any failure exits
+non-zero before the result lines are printed:
+
+1. environment: the card, its power limit, torch and nvcc versions, and the
+   build of the port's CUDA source (timed);
+2. kernel ``cholesky_solve_batched`` against its plain PyTorch version at
+   k=64: B=65,536 systems, the main path's 256-row block, the flat
+   dense-block entry at the main path's dense width, and identity-padded /
+   all-zero systems;
+3. kernel ``cholesky_solve_hot`` against its plain version at k=64, C=128,
+   B=65,536 and the 256-row block, with rows of the ML-25M-shaped data's
+   bf16 hot slab;
+4. ML-1M-shaped rank-64 fits through ``ALS.fit``, 10 sweeps, against the
+   JAX package's histories recorded on a CPU (rtol 1e-3 per sweep);
+5. the main path as a user runs it: ``ALS(rank=64).fit(R)`` on ML-25M-shaped
+   data (auto layout, 10 sweeps), train RMSE within 3% of the reference's
+   0.3170; the kernels' launch counts come from this run. Then
+   epoch_seconds as ``bench.py`` times it: the solver's whole-fit loop on
+   uploaded layouts, which must reproduce the fit's history;
+6. one JSON line describing every kernel, then the result line.
+
+``--profile`` adds one profiled main-path sweep and prints its device time
+by kernel and the device's idle share (not run by default).
+
+Tolerances: a kernel agrees with its plain version when
+|x - x_plain| <= 5e-4 * scale + 5e-4 * |x_plain|, scale = max(|x_plain|, 1)
+(the reference's tests/test_pallas_cholesky.py tolerance).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s without
+# tensor cores; bounds are stated against them at the card's power limit.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+ATOL_SCALE = 5e-4
+RTOL = 5e-4
+
+ML1M = (6_040, 3_706, 1_000_209)
+ML25M = (162_541, 62_423, 25_000_000)
+RANK = 64
+SWEEPS = 10
+RMSE_ANCHOR = 0.3170        # BENCH_r05.json train_rmse, ML-25M rank 64
+RMSE_ANCHOR_RTOL = 0.03
+HISTORY_RTOL = 1e-3
+
+# ML-1M-shaped rank-64 train-RMSE histories of the JAX package, recorded on
+# a CPU with (MODE = "separate" and "auto"):
+#   JAX_PLATFORMS=cpu python -c '
+#   import numpy as np, scipy.sparse as sp
+#   from recommendation_models_tpu.data.synthetic import synthetic_ratings
+#   from recommendation_models_tpu import ALS
+#   u, i, r = synthetic_ratings(6040, 3706, 1_000_209, rank=16, seed=0)
+#   R = sp.csr_matrix((r, (u, i)), shape=(6040, 3706))
+#   g = np.random.default_rng(0)
+#   U0 = 0.01 * g.standard_normal((6040, 64)).astype(np.float32)
+#   V0 = 0.01 * g.standard_normal((3706, 64)).astype(np.float32)
+#   m = ALS(rank=64, reg=0.1, n_sweeps=10, solver="xla",
+#           compute_dtype="float32", sse_mode=MODE,
+#           platform="cpu").fit(R, U0=U0, V0=V0)
+#   print([float(x) for x in m.history_])'
+# Every sweep of the exact (separate masked_sse) history is checked. Of the
+# auto (riding-identity) history only the first three sweeps are: its later
+# sweeps carry the identity's own f32 cancellation error (sweep 10: 0.217656
+# against a direct RMSE of the same factors of 0.217412), which differs
+# between summation orders by about that much.
+REF_ML1M_SEPARATE = [
+    0.8559578061103821, 0.477059543132782, 0.3594265878200531,
+    0.31086301803588867, 0.2821512818336487, 0.2622409462928772,
+    0.24724319577217102, 0.23535947501659393, 0.22561043500900269,
+    0.21741198003292084]
+REF_ML1M_AUTO = [
+    0.8559545874595642, 0.4769742488861084, 0.3592991530895233,
+    0.3109422028064728, 0.2821660339832306, 0.26207029819488525,
+    0.2472238838672638, 0.23537057638168335, 0.22535580396652222,
+    0.21765612065792084]
+
+TPU_KERNEL = {
+    "cholesky_solve_batched":
+        "recommendation_models_tpu/ops/pallas/cholesky.py:226",
+    "cholesky_solve_hot":
+        "recommendation_models_tpu/ops/pallas/cholesky.py:286",
+}
+SOURCE = "recommendation_models_tpu_torch/csrc/cholesky_solve.cu"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class Failed(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise Failed(msg)
+
+
+# ---------------------------------------------------------------- helpers
+
+def time_ms(torch, fn, reps: int, warm: int = 2) -> float:
+    """Mean device time of ``fn`` in ms (CUDA events around ``reps`` calls,
+    after ``warm`` warm-up calls)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare(torch, x, ref):
+    """(max abs error, within tolerance?) of x against the plain ref."""
+    scale = max(float(ref.abs().max()), 1.0)
+    err = (x - ref).abs()
+    ok = bool(torch.isfinite(x).all()) and bool(
+        (err <= ATOL_SCALE * scale + RTOL * ref.abs()).all())
+    return float(err.max()), ok
+
+
+def bound(n_bytes: float, n_flops: float):
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def solve_flops(b: int, k: int) -> float:
+    # Cholesky factor k^3/3 + forward and back substitution 2 k^2
+    return b * (k ** 3 / 3.0 + 2.0 * k * k)
+
+
+def solve_bytes(b: int, k: int) -> float:
+    # G is symmetric, so a solve must read its lower triangle, k(k+1)/2
+    # floats, plus rhs (k) and reg (1), and write x (k)
+    return 4.0 * b * (k * (k + 1) / 2.0 + 2 * k + 1)
+
+
+def random_systems(torch, gen, b, k, degree, dev):
+    """Grams of ``degree`` random factor rows per system (rank-deficient
+    when degree < k, as ALS rows are) plus rhs and a 0.1 ridge."""
+    X = 0.3 * torch.randn(b, degree, k, generator=gen, device=dev)
+    G = torch.bmm(X.transpose(1, 2), X)
+    rhs = torch.randn(b, k, generator=gen, device=dev)
+    reg = torch.full((b,), 0.1, device=dev)
+    return G.contiguous(), rhs, reg
+
+
+# ----------------------------------------------------------------- phases
+
+def phase_environment(torch):
+    from recommendation_models_tpu_torch.ops import build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    ver = subprocess.run([build.nvcc(), "--version"], capture_output=True,
+                         text=True, timeout=60)
+    log(f"# torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"nvcc: {ver.stdout.strip().splitlines()[-1]}")
+    t0 = time.perf_counter()
+    build.build("cholesky_solve")
+    log(f"# build: csrc/cholesky_solve.cu in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return card
+
+
+def phase_b1(torch, dev, flat_w, b=65_536, k=RANK):
+    """B1 at B=65,536, at the main path's row block (``block_batch`` rows)
+    and through the flat entry at the main path's dense-block width."""
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.ops.solve import solve_spd_flat
+    gen = torch.Generator(device=dev).manual_seed(1)
+    G, rhs, reg = random_systems(torch, gen, b, k, 48, dev)
+    x = ch.cholesky_solve_batched(G, rhs, reg)
+    ref = ch.cholesky_solve_plain(G, rhs, reg)
+    err, ok = compare(torch, x, ref)
+    check(ok, f"cholesky_solve_batched disagrees with its plain version "
+              f"(max abs err {err:.3e})")
+    rb = ch.block_batch(k)
+    Gb, rhsb, regb = G[:rb].contiguous(), rhs[:rb], reg[:rb]
+    err_b, ok_b = compare(torch, ch.cholesky_solve_batched(Gb, rhsb, regb),
+                          ch.cholesky_solve_plain(Gb, rhsb, regb))
+    check(ok_b, f"{rb}-row block disagrees (max abs err {err_b:.3e})")
+    # the flat (W, k*k) dense-block entry with a per-row ridge
+    Gf, rf, _ = random_systems(torch, gen, flat_w, k, 600, dev)
+    regf = 0.1 * (1.0 + torch.rand(flat_w, generator=gen, device=dev))
+    xf = solve_spd_flat(Gf.reshape(flat_w, k * k), rf, k, "auto",
+                        reg_vec=regf)
+    err_f, ok_f = compare(torch, xf, ch.cholesky_solve_plain(Gf, rf, regf))
+    check(ok_f, f"flat entry disagrees (max abs err {err_f:.3e})")
+    # identity-padded and all-zero systems with rhs 0 solve to exactly 0
+    Gz = torch.zeros(8, k, k, device=dev)
+    Gz[4:] = torch.eye(k, device=dev)
+    z = ch.cholesky_solve_batched(Gz, torch.zeros(8, k, device=dev),
+                                  torch.zeros(8, device=dev))
+    check(bool((z == 0).all()), "zero / identity systems did not solve to 0")
+
+    def library():
+        A = G + reg[:, None, None] * torch.eye(k, device=dev)
+        return torch.cholesky_solve(rhs[:, :, None],
+                                    torch.linalg.cholesky(A))
+
+    ms = time_ms(torch, lambda: ch.cholesky_solve_batched(G, rhs, reg), 10)
+    plain_ms = time_ms(torch, lambda: ch.cholesky_solve_plain(G, rhs, reg),
+                       2, warm=1)
+    lib_ms = time_ms(torch, library, 5)
+    lib_err, _ = compare(torch, library()[:, :, 0], ref)
+    block_ms = time_ms(torch, lambda: ch.cholesky_solve_batched(
+        Gb, rhsb, regb), 50)
+    flat_ms = time_ms(torch, lambda: ch.cholesky_solve_batched(
+        Gf, rf, regf), 20)
+    bound_ms, bound_by = bound(solve_bytes(b, k), solve_flops(b, k))
+    log(f"# B1 cholesky_solve_batched k={k} B={b}: max_abs_err={err:.3e} "
+        f"(B={rb}: {err_b:.3e}; flat W={flat_w}: {err_f:.3e}; library vs "
+        f"plain {lib_err:.3e}) ms={ms:.4f} plain_ms={plain_ms:.3f} "
+        f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}); "
+        f"B={rb} ms={block_ms:.4f}; B={flat_w} ms={flat_ms:.4f}")
+    return dict(batch=b, max_abs_err=max(err, err_b, err_f), ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def hot_slab_sample(torch, layout, b, dev):
+    """``b`` real rows, drawn at random, of the layout's hot slabs (bf16,
+    (b, C)): the main path's own hot sparsity."""
+    import numpy as np
+    hv = np.concatenate([bk.hot_vals[bk.row_ids < layout.n_rows]
+                         for bk in layout.buckets])
+    check(hv.shape[0] >= b, "not enough hot-slab rows")
+    take = np.sort(np.random.default_rng(3).choice(hv.shape[0], b,
+                                                   replace=False))
+    return torch.from_numpy(hv[take].astype(np.float32)).to(
+        dev, torch.bfloat16)
+
+
+def phase_b2(torch, dev, hv, k=RANK):
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    b, c = hv.shape
+    gen = torch.Generator(device=dev).manual_seed(2)
+    G, rhs, reg = random_systems(torch, gen, b, k, 40, dev)
+    vh = 0.3 * torch.randn(c, k, generator=gen, device=dev)
+    x = ch.cholesky_solve_hot(G, rhs, reg, hv, vh)
+    ref = ch.cholesky_solve_hot_plain(G, rhs, reg, hv, vh)
+    err, ok = compare(torch, x, ref)
+    check(ok, f"cholesky_solve_hot disagrees with its plain version "
+              f"(max abs err {err:.3e})")
+    xi = ch.cholesky_solve_hot(G, rhs, reg, hv, vh, alpha=2.0)
+    err_i, ok_i = compare(torch, xi, ch.cholesky_solve_hot_plain(
+        G, rhs, reg, hv, vh, alpha=2.0))
+    check(ok_i, f"implicit hot solve disagrees (max abs err {err_i:.3e})")
+    rb = ch.block_batch(k)
+    blk = (G[:rb].contiguous(), rhs[:rb], reg[:rb], hv[:rb].contiguous(), vh)
+    err_b, ok_b = compare(torch, ch.cholesky_solve_hot(*blk),
+                          ch.cholesky_solve_hot_plain(*blk))
+    check(ok_b, f"{rb}-row hot block disagrees (max abs err {err_b:.3e})")
+
+    def library():
+        G2, rhs2 = ch.fold_hot(G, rhs, hv, vh, None)
+        A = G2 + reg[:, None, None] * torch.eye(k, device=dev)
+        return torch.cholesky_solve(rhs2[:, :, None],
+                                    torch.linalg.cholesky(A))
+
+    nnz = int((hv != 0).sum())
+    ms = time_ms(torch, lambda: ch.cholesky_solve_hot(G, rhs, reg, hv, vh),
+                 10)
+    plain_ms = time_ms(
+        torch, lambda: ch.cholesky_solve_hot_plain(G, rhs, reg, hv, vh), 2,
+        warm=1)
+    lib_ms = time_ms(torch, library, 5)
+    block_ms = time_ms(torch, lambda: ch.cholesky_solve_hot(*blk), 50)
+    # each nonzero hot entry adds a symmetric rank-1 term, k(k+1) flops for
+    # its lower triangle, and 2k flops to the rhs
+    n_bytes = solve_bytes(b, k) + 2.0 * b * c + 4.0 * c * k
+    n_flops = solve_flops(b, k) + (k * (k + 1) + 2.0 * k) * nnz
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    log(f"# B2 cholesky_solve_hot k={k} C={c} B={b} hot nnz={nnz} "
+        f"({nnz / (b * c):.3f} dense): max_abs_err={err:.3e} "
+        f"(implicit {err_i:.3e}; B={rb}: {err_b:.3e}) ms={ms:.4f} "
+        f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}); B={rb} ms={block_ms:.4f}")
+    return dict(batch=b, max_abs_err=max(err, err_i, err_b), ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def warm_start(n_users, n_items):
+    """The bench's warm start: 0.01 N(0, 1) from default_rng(0)."""
+    import numpy as np
+    g = np.random.default_rng(0)
+    U0 = 0.01 * g.standard_normal((n_users, RANK)).astype(np.float32)
+    V0 = 0.01 * g.standard_normal((n_items, RANK)).astype(np.float32)
+    return U0, V0
+
+
+def phase_ml1m(torch, dev):
+    """ML-1M-shaped rank-64 fits through ``ALS.fit`` against the recorded
+    JAX histories: the separate-SSE history sweep by sweep, and the first
+    three sweeps of the auto (riding-identity) history."""
+    import scipy.sparse as sp
+    from recommendation_models_tpu_torch import ALS
+    from recommendation_models_tpu_torch.data.synthetic import (
+        synthetic_ratings)
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    n_users, n_items, n_obs = ML1M
+    u, i, r = synthetic_ratings(n_users, n_items, n_obs, rank=16, seed=0)
+    R = sp.csr_matrix((r, (u, i)), shape=(n_users, n_items))
+    U0, V0 = warm_start(n_users, n_items)
+    for mode, ref, n_check in (("separate", REF_ML1M_SEPARATE, SWEEPS),
+                               ("auto", REF_ML1M_AUTO, 3)):
+        ch.reset_counts()
+        t0 = time.perf_counter()
+        m = ALS(rank=RANK, reg=0.1, n_sweeps=SWEEPS, sse_mode=mode,
+                platform=dev.type).fit(R, U0=U0, V0=V0)
+        secs = time.perf_counter() - t0
+        launches = dict(ch.LAUNCHES)
+        hist = [float(h) for h in m.history_]
+        rel = [abs(a - b) / b for a, b in zip(hist, ref)]
+        log(f"# ML-1M rank {RANK} sse_mode={mode}: nnz={R.nnz} fit "
+            f"{secs:.2f}s history={hist} rel diff vs JAX CPU="
+            f"{[float(f'{x:.2e}') for x in rel]} (checked: first "
+            f"{n_check}) launches={launches}")
+        check(len(hist) == SWEEPS, "ML-1M fit ran too few sweeps")
+        check(max(rel[:n_check]) <= HISTORY_RTOL,
+              f"ML-1M {mode} history differs from the reference: {rel}")
+        check(all(n > 0 for n in launches.values()),
+              f"a kernel was not launched in the ML-1M fit: {launches}")
+
+
+def build_main_path_data():
+    """ML-25M-shaped data and both auto layouts (host side, as bench.py)."""
+    from recommendation_models_tpu_torch.config import (
+        DataConfig, bucket_growth_for_rank, dense_min_degree_for_rank)
+    from recommendation_models_tpu_torch.data.layout import layout_from_coo
+    from recommendation_models_tpu_torch.data.synthetic import (
+        synthetic_ratings)
+    from recommendation_models_tpu_torch.ops.cholesky import hot_cols_auto
+    n_users, n_items, n_obs = ML25M
+    t0 = time.perf_counter()
+    u, i, r = synthetic_ratings(n_users, n_items, n_obs, rank=16, seed=0)
+    dcfg = DataConfig(hot_cols=hot_cols_auto(RANK),
+                      dense_min_degree=dense_min_degree_for_rank(RANK),
+                      bucket_growth=bucket_growth_for_rank(RANK))
+    ul = layout_from_coo(u, i, r, n_users, n_items, config=dcfg)
+    il = layout_from_coo(u, i, r, n_users, n_items, transpose=True,
+                         config=dcfg)
+    log(f"# ML-25M data: {r.shape[0]} obs, layouts in "
+        f"{time.perf_counter() - t0:.1f}s; user {len(ul.buckets)} buckets "
+        f"waste {ul.padding_waste():.2%} dense "
+        f"{0 if ul.dense_ids is None else ul.dense_ids.shape[0]}; item "
+        f"{len(il.buckets)} buckets waste {il.padding_waste():.2%} dense "
+        f"{0 if il.dense_ids is None else il.dense_ids.shape[0]}; hot C="
+        f"{0 if ul.hot_ids is None else ul.hot_ids.shape[0]}")
+    return (u, i, r), ul, il
+
+
+def phase_main_path(torch, coo):
+    """The main path as a user runs it: ``ALS(rank=64).fit(R)`` on the card
+    (auto layout, 10 sweeps). The kernels' launch counts come from here."""
+    import numpy as np
+    import scipy.sparse as sp
+    from recommendation_models_tpu_torch import ALS
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    u, i, r = coo
+    n_users, n_items = ML25M[:2]
+    R = sp.csr_matrix((r, (u, i)), shape=(n_users, n_items))
+    U0, V0 = warm_start(n_users, n_items)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ch.reset_counts()
+    t0 = time.perf_counter()
+    m = ALS(rank=RANK, reg=0.1, n_sweeps=SWEEPS).fit(R, U0=U0, V0=V0)
+    fit_s = time.perf_counter() - t0
+    launches = dict(ch.LAUNCHES)
+    routed = dict(ch.ROUTED)
+    peak = torch.cuda.max_memory_allocated()
+    hist = [float(h) for h in m.history_]
+    rmse = hist[-1]
+    log(f"# main path ALS(rank={RANK}).fit, ML-25M shape: fit_seconds="
+        f"{fit_s:.2f} (layout build and upload included) history={hist} "
+        f"train_rmse={rmse:.4f} max_memory_allocated={peak} "
+        f"launches={launches} routed={routed}")
+    check(len(hist) == SWEEPS, "main path ran too few sweeps")
+    check(np.isfinite(m.U_).all() and np.isfinite(m.V_).all()
+          and m.U_.shape == (n_users, RANK) and m.V_.shape == (n_items, RANK),
+          "main path factors are not finite or have the wrong shape")
+    check(abs(rmse - RMSE_ANCHOR) <= RMSE_ANCHOR_RTOL * RMSE_ANCHOR,
+          f"train RMSE {rmse:.4f} is not within 3% of {RMSE_ANCHOR}")
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel was not launched on the main path: {launches}")
+    check(not any(routed.values()), f"main-path calls were routed: {routed}")
+    return launches, hist
+
+
+def phase_epoch(torch, dev, nnz, ul, il, main_hist, profile=False):
+    """epoch_seconds as bench.py times it: the solver's whole-fit loop on
+    uploaded layouts, warmed up, clocked from the first sweep to the
+    history readback (the fit's only sync)."""
+    import numpy as np
+    from recommendation_models_tpu_torch.config import SolveConfig
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.solver.als_sweep import (
+        device_buckets, make_scanned_fit)
+    n_users, n_items = ul.n_rows, il.n_rows
+    ub = device_buckets(ul, ch.block_batch(RANK), dev)
+    ib = device_buckets(il, ch.block_batch(RANK), dev)
+    cfg = SolveConfig(rank=RANK, reg=0.1)
+    U0, V0 = (torch.from_numpy(a).to(dev) for a in warm_start(n_users,
+                                                                 n_items))
+    warm = make_scanned_fit(ub, ib, n_users, n_items, cfg, 1, nnz=nnz)
+    warm(U0.clone(), V0.clone())
+    fit = make_scanned_fit(ub, ib, n_users, n_items, cfg, SWEEPS, nnz=nnz)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    U, V, sse, n_done = fit(U0.clone(), V0.clone())
+    sse_h = sse.cpu().numpy()              # the one readback: the fence
+    elapsed = time.perf_counter() - t0
+    hist = [float(h) for h in np.sqrt(np.maximum(sse_h[:n_done], 0) / nnz)]
+    rel = max(abs(a - b) / b for a, b in zip(hist, main_hist))
+    log(f"# main path epoch_seconds={elapsed / SWEEPS:.4f} "
+        f"({SWEEPS} sweeps in {elapsed:.3f}s; history max rel diff vs "
+        f"ALS.fit {rel:.2e})")
+    check(n_done == SWEEPS and rel <= HISTORY_RTOL,
+          "the timed fit does not reproduce ALS.fit's history")
+    if profile:
+        profile_sweep(torch, ub, ib, n_users, n_items, cfg, nnz, U, V,
+                      elapsed / SWEEPS)
+    return elapsed / SWEEPS
+
+
+def profile_sweep(torch, ub, ib, n_users, n_items, cfg, nnz, U, V,
+                  epoch_s):
+    """Device time of one main-path sweep by kernel (torch.profiler, device
+    activity only), and the device's idle share of the unprofiled
+    epoch_seconds."""
+    from torch.profiler import ProfilerActivity, profile
+    from recommendation_models_tpu_torch.solver.als_sweep import (
+        make_scanned_fit)
+    one = make_scanned_fit(ub, ib, n_users, n_items, cfg, 1, nnz=nnz)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one(U, V)
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        # device rows only (kernels and copies, not runtime calls)
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us, ev.count, ev.key[:70]))
+    rows.sort(reverse=True)
+    total_ms = sum(r[0] for r in rows) / 1e3
+    log(json.dumps({"profile": {
+        "device_ms_per_sweep": round(total_ms, 3),
+        "epoch_ms": round(epoch_s * 1e3, 3),
+        "idle_share": round(1.0 - total_ms / (epoch_s * 1e3), 4),
+        "top": [{"name": n, "ms": round(t / 1e3, 3), "calls": c}
+                for t, c, n in rows[:15]]}}))
+
+
+def main(argv) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        import recommendation_models_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: the port is not importable here: {exc}",
+              file=sys.stderr)
+        return 2
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.ops.gram import full_f32
+    dev = torch.device("cuda")
+    full_f32()
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    t_start = time.perf_counter()
+    phase_environment(torch)
+    coo, ul, il = build_main_path_data()
+    results = {"cholesky_solve_batched": phase_b1(
+        torch, dev, flat_w=il.dense_ids.shape[0])}
+    results["cholesky_solve_hot"] = phase_b2(
+        torch, dev, hot_slab_sample(torch, ul, 65_536, dev))
+    torch.cuda.empty_cache()
+    phase_ml1m(torch, dev)
+    launches, hist = phase_main_path(torch, coo)
+    torch.cuda.empty_cache()
+    phase_epoch(torch, dev, coo[2].shape[0], ul, il, hist,
+                profile="--profile" in argv)
+    kernels = []
+    for name in ("cholesky_solve_batched", "cholesky_solve_hot"):
+        r = results[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": TPU_KERNEL[name], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "batch": r["batch"]})
+    check(all(k["launches"] > 0 for k in kernels), "a kernel never ran")
+    log(f"# total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main(sys.argv[1:]))
+    except Failed as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        sys.exit(1)

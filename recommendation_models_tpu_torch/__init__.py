@@ -1,0 +1,19 @@
+"""recommendation_models_tpu_torch — the PyTorch/CUDA port of
+``recommendation_models_tpu``.
+
+The JAX package stays the reference; this package runs the same system on
+an NVIDIA H100 with PyTorch, and its two batched Cholesky solve kernels are
+hand-written CUDA C++ (``csrc/``). It imports neither JAX nor the JAX
+package. Entry points run on the CUDA card unless the caller passes
+``platform='cpu'``.
+
+Ported so far: the single-device explicit/implicit ALS fit (layout, grams,
+solves, sweeps, estimator). Serving, IMC, checkpoints and the sharded
+programs are still to come (ROADMAP.md).
+"""
+
+__version__ = "0.1.0"
+
+from recommendation_models_tpu_torch.models.als import ALS
+
+__all__ = ["ALS", "__version__"]

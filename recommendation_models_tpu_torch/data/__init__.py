@@ -1,0 +1,17 @@
+from recommendation_models_tpu_torch.data.layout import (
+    Bucket,
+    PaddedLayout,
+    build_layout,
+    csr_arrays,
+    layout_from_coo,
+)
+from recommendation_models_tpu_torch.data.synthetic import synthetic_ratings
+
+__all__ = [
+    "Bucket",
+    "PaddedLayout",
+    "build_layout",
+    "csr_arrays",
+    "layout_from_coo",
+    "synthetic_ratings",
+]

@@ -1,0 +1,385 @@
+"""ALS estimator of the PyTorch port: the single-device fit.
+
+The same sklearn-style surface as the JAX package's ``ALS`` (same kwargs,
+so ``get_params()`` is identical), with NumPy / scipy.sparse in and NumPy
+out. The fit runs on the CUDA card unless ``platform='cpu'``; with no card
+and no ``platform``, ``fit`` raises rather than run on the host.
+
+Objectives: ``alpha=None`` is explicit least squares on ratings, ``alpha=a``
+the Hu-Koren-Volinsky confidence-weighted implicit objective. ``score``
+returns the negative RMSE.
+
+Not ported yet (each raises ``NotImplementedError``): sharded fits
+(``n_shards > 1``, ``topology``), checkpointing and ``resume``, and
+serving (``recommend``, ``top_n``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from recommendation_models_tpu_torch.config import (
+    DataConfig, SolveConfig, bucket_growth_for_rank, dense_min_degree_for_rank,
+)
+from recommendation_models_tpu_torch.data.layout import (
+    build_layout, csr_arrays, layout_from_coo,
+)
+from recommendation_models_tpu_torch.device import resolve_device
+from recommendation_models_tpu_torch.models.base import (
+    BaseEstimator, resolve_alias,
+)
+from recommendation_models_tpu_torch.ops.cholesky import (
+    block_batch, hot_cols_auto,
+)
+from recommendation_models_tpu_torch.solver.als_sweep import (
+    device_buckets, half_sweep, make_scanned_fit, make_sweep_fns,
+)
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP.md, {item}); use "
+        "recommendation_models_tpu.ALS for it")
+
+
+class ALS(BaseEstimator):
+    """Alternating least squares matrix factorization on a CUDA card.
+
+    Parameters mirror the JAX package's estimator (rank, reg/lambda_,
+    n_sweeps/max_iter, tol, seed, solver, chunk, compute_dtype, layout
+    knobs). ``platform``: None (the card) or 'cpu'.
+    """
+
+    def __init__(
+        self,
+        rank: int = 10,
+        reg: Optional[float] = None,        # None => 0.1 (alias sentinel)
+        alpha: Optional[float] = None,
+        n_sweeps: Optional[int] = None,     # None => 10 (alias sentinel)
+        tol: float = 0.0,
+        reg_by_degree: bool = False,
+        solver: str = "auto",
+        chunk: int = 512,
+        gather_budget_mb: int = 0,
+        compute_dtype: str = "auto",
+        sse_mode: str = "auto",
+        n_shards: Optional[int] = None,
+        num_slices: Optional[int] = None,
+        topology: str = "1d",
+        exchange: str = "allgather",
+        exchange_head: Optional[int] = None,
+        platform: Optional[str] = None,
+        seed: int = 0,
+        init_scale: float = 0.01,
+        min_bucket: int = 8,
+        max_bucket: int = 4096,
+        bucket_growth: Optional[float] = None,
+        hot_cols: Optional[int] = None,
+        dense_min_degree: Optional[int] = None,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 0,
+        layout_cache: Optional[str] = None,
+        verbose: int = 0,
+        lambda_: Optional[float] = None,
+        max_iter: Optional[int] = None,
+        data_config: Optional[DataConfig] = None,
+    ):
+        self.rank = rank
+        self.reg = reg
+        self.alpha = alpha
+        self.n_sweeps = n_sweeps
+        self.tol = tol
+        self.reg_by_degree = reg_by_degree
+        self.solver = solver
+        self.chunk = chunk
+        self.gather_budget_mb = gather_budget_mb
+        self.compute_dtype = compute_dtype
+        self.sse_mode = sse_mode
+        self.n_shards = n_shards
+        self.num_slices = num_slices
+        self.topology = topology
+        self.exchange = exchange
+        self.exchange_head = exchange_head
+        self.platform = platform
+        self.seed = seed
+        self.init_scale = init_scale
+        self.min_bucket = min_bucket
+        self.max_bucket = max_bucket
+        self.bucket_growth = bucket_growth
+        self.hot_cols = hot_cols
+        self.dense_min_degree = dense_min_degree
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
+        self.layout_cache = layout_cache
+        self.verbose = verbose
+        # full structured layout config (overrides the layout kwargs)
+        self.data_config = data_config
+        # reference-name aliases; take precedence over reg / n_sweeps
+        self.lambda_ = lambda_
+        self.max_iter = max_iter
+
+    @property
+    def _reg(self) -> float:
+        return resolve_alias(self.reg, self.lambda_, 0.1, "reg", "lambda_")
+
+    @property
+    def _n_sweeps(self) -> int:
+        return resolve_alias(self.n_sweeps, self.max_iter, 10,
+                             "n_sweeps", "max_iter")
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_configs(cls, solve=None, mesh=None, data=None, fit=None):
+        """Build an estimator from the frozen config dataclasses."""
+        from recommendation_models_tpu_torch.config import (
+            FitConfig, MeshConfig,
+        )
+        solve = solve or SolveConfig()
+        mesh = mesh or MeshConfig()
+        data = data or DataConfig()
+        fit = fit or FitConfig()
+        return cls(
+            rank=solve.rank, reg=solve.reg, alpha=solve.alpha,
+            reg_by_degree=solve.reg_by_degree, solver=solve.solver,
+            chunk=solve.chunk, gather_budget_mb=solve.gather_budget_mb,
+            compute_dtype=solve.compute_dtype, sse_mode=solve.sse_mode,
+            n_shards=mesh.n_shards, num_slices=mesh.num_slices,
+            topology=mesh.topology,
+            exchange=mesh.exchange, exchange_head=mesh.exchange_head,
+            platform=mesh.platform,
+            data_config=data, layout_cache=data.layout_cache,
+            n_sweeps=fit.n_sweeps, tol=fit.tol, seed=fit.seed,
+            init_scale=fit.init_scale,
+            checkpoint_dir=fit.checkpoint_dir,
+            checkpoint_every=fit.checkpoint_every,
+        )
+
+    @classmethod
+    def from_reference_state(cls, state: dict) -> "ALS":
+        """A fitted port estimator from the JAX estimator's fitted state.
+
+        ``state`` holds NumPy ``U_``, ``V_``, ``n_users_``, ``n_items_``,
+        ``history_`` and ``params`` (the JAX estimator's ``get_params()``).
+        A ``data_config`` in the params is converted field by field."""
+        params = dict(state["params"])
+        dc = params.get("data_config")
+        if dc is not None and not isinstance(dc, DataConfig):
+            params["data_config"] = DataConfig(**dataclasses.asdict(dc))
+        model = cls(**params)
+        model.U_ = np.asarray(state["U_"], np.float32)
+        model.V_ = np.asarray(state["V_"], np.float32)
+        model.n_users_ = int(state["n_users_"])
+        model.n_items_ = int(state["n_items_"])
+        model.history_ = list(np.asarray(state["history_"], np.float32))
+        return model
+
+    def _solve_config(self) -> SolveConfig:
+        return SolveConfig(
+            rank=self.rank, reg=self._reg, reg_by_degree=self.reg_by_degree,
+            alpha=self.alpha, chunk=self.chunk, solver=self.solver,
+            gather_budget_mb=self.gather_budget_mb,
+            compute_dtype=self.compute_dtype, sse_mode=self.sse_mode,
+        )
+
+    def _data_config(self) -> DataConfig:
+        if self.data_config is not None:
+            # taken verbatim except the two documented autos
+            dcfg = self.data_config
+            if dcfg.bucket_growth is None:
+                dcfg = dataclasses.replace(
+                    dcfg, bucket_growth=bucket_growth_for_rank(self.rank))
+            if dcfg.dense_min_degree is None:
+                dcfg = dataclasses.replace(
+                    dcfg, dense_min_degree=dense_min_degree_for_rank(
+                        self.rank, dcfg.max_bucket))
+            return dcfg
+        hot = self.hot_cols
+        if hot is None:
+            hot = hot_cols_auto(self.rank)
+        dmd = self.dense_min_degree
+        if dmd is None:
+            dmd = dense_min_degree_for_rank(self.rank, self.max_bucket)
+        growth = self.bucket_growth
+        if growth is None:
+            growth = bucket_growth_for_rank(self.rank)
+        return DataConfig(min_bucket=self.min_bucket,
+                          max_bucket=self.max_bucket, hot_cols=hot,
+                          bucket_growth=growth,
+                          dense_min_degree=dmd)
+
+    def _build_layouts(self, indptr, indices, data, n_users, n_items, dcfg):
+        """Both orientations' padded layouts, optionally through the packed
+        on-disk cache (tagged by the full DataConfig and, with a prefix, a
+        data fingerprint)."""
+        from recommendation_models_tpu_torch.data.layout_cache import (
+            cached_layout, config_tag, data_fingerprint,
+        )
+
+        def build_user():
+            return build_layout(indptr, indices, data, n_users, n_items, dcfg)
+
+        def build_item():
+            rows = np.repeat(np.arange(n_users), np.diff(indptr))
+            return layout_from_coo(rows, indices, data, n_users, n_items,
+                                   dcfg, transpose=True)
+
+        prefix = self.layout_cache
+        tag = f".cfg{config_tag(dcfg)}"
+        if prefix:
+            tag += "." + data_fingerprint(indptr, indices, data)
+        user_layout = cached_layout(
+            f"{prefix}{tag}.user.npz" if prefix else None, build_user)
+        item_layout = cached_layout(
+            f"{prefix}{tag}.item.npz" if prefix else None, build_item)
+        return user_layout, item_layout
+
+    def _init_factors_host(self, n_users, n_items):
+        rng = np.random.default_rng(self.seed)
+        U = self.init_scale * rng.standard_normal((n_users, self.rank))
+        V = self.init_scale * rng.standard_normal((n_items, self.rank))
+        return U.astype(np.float32), V.astype(np.float32)
+
+    # ------------------------------------------------------------------
+    def fit(self, R, U0=None, V0=None):
+        """Fit factors to the ratings matrix R (scipy sparse or dense).
+
+        Optional U0/V0 warm starts (both or neither)."""
+        if self.rank < 1:
+            raise ValueError(f"rank must be >= 1, got {self.rank}")
+        if self._reg < 0:
+            raise ValueError(f"reg must be >= 0, got {self._reg}")
+        if self._n_sweeps < 1:
+            raise ValueError(f"n_sweeps must be >= 1, got {self._n_sweeps}")
+        if (U0 is None) != (V0 is None):
+            raise ValueError("warm starts need BOTH U0 and V0")
+        if self.n_shards is not None and self.n_shards > 1:
+            raise _not_ported("a sharded fit (n_shards > 1)",
+                              "Queue 1 item 13")
+        if self.topology != "1d":
+            raise _not_ported(f"topology={self.topology!r}",
+                              "Queue 1 item 13")
+        if self.checkpoint_dir and self.checkpoint_every:
+            raise _not_ported("checkpointing", "Queue 1 item 11")
+        device = resolve_device(self.platform)
+        indptr, indices, data, n_users, n_items = csr_arrays(R)
+        self.n_users_, self.n_items_ = n_users, n_items
+        self._train_indptr, self._train_indices = indptr, indices
+        dcfg, scfg = self._data_config(), self._solve_config()
+        nnz = indices.shape[0]
+
+        user_layout, item_layout = self._build_layouts(
+            indptr, indices, data, n_users, n_items, dcfg)
+        ub = device_buckets(user_layout, block_batch(self.rank), device)
+        ib = device_buckets(item_layout, block_batch(self.rank), device)
+
+        if U0 is None:
+            U0, V0 = self._init_factors_host(n_users, n_items)
+        U = torch.as_tensor(np.asarray(U0, np.float32), device=device)
+        V = torch.as_tensor(np.asarray(V0, np.float32), device=device)
+
+        if not self.verbose:
+            # one loop over sweeps with no host readback (tol == 0) or one
+            # scalar per sweep (tol > 0); sweeps never run come back as -1
+            fit_fn = make_scanned_fit(ub, ib, n_users, n_items, scfg,
+                                      self._n_sweeps, tol=self.tol,
+                                      nnz=max(nnz, 1))
+            U, V, sse, n_done = fit_fn(U, V)
+            # clamp: near-interpolation fits can give tiny negative SSE
+            # from f32 cancellation in the riding identity
+            sse_h = np.maximum(sse.cpu().numpy()[:n_done], 0.0)
+            self.history_ = list(np.sqrt(sse_h / max(nnz, 1)))
+        else:
+            sweep, train_sse = make_sweep_fns(ub, ib, n_users, n_items, scfg)
+            self.history_ = []
+            prev = None
+            for s in range(self._n_sweeps):
+                U, V = sweep(U, V)
+                cur = float(torch.sqrt(train_sse(U, V) / max(nnz, 1)))
+                self.history_.append(cur)
+                print(f"[ALS] sweep {s + 1}: train_rmse={cur:.6f}")
+                if self.tol > 0 and prev is not None and abs(prev - cur) < self.tol:
+                    break
+                prev = cur
+
+        self.U_ = U.cpu().numpy()
+        self.V_ = V.cpu().numpy()
+        return self
+
+    def resume(self, checkpoint_dir: Optional[str] = None):
+        raise _not_ported("checkpoint resume", "Queue 1 item 11")
+
+    # ------------------------------------------------------------------
+    def _check_fitted(self):
+        if getattr(self, "U_", None) is None:
+            raise RuntimeError("this ALS instance is not fitted yet")
+
+    def predict(self, users, items=None) -> np.ndarray:
+        """Predicted ratings for (user, item) pairs: ``predict(pairs)`` with
+        an (n, 2) array or ``predict(users, items)``."""
+        self._check_fitted()
+        if items is None:
+            pairs = np.asarray(users)
+            users, items = pairs[:, 0], pairs[:, 1]
+        users = np.asarray(users, np.int64)
+        items = np.asarray(items, np.int64)
+        return np.einsum("ok,ok->o", self.U_[users], self.V_[items])
+
+    def fold_in(self, R_new, side: str = "user") -> np.ndarray:
+        """Factors for NEW rows against the fixed fitted opposite table (one
+        ridge solve per new row, through the training half-sweep).
+
+        ``R_new``: (n_new, n_items) for ``side='user'``, or (n_users, n_new)
+        for ``side='item'``. Returns the (n_new, rank) factor block."""
+        self._check_fitted()
+        if side not in ("user", "item"):
+            raise ValueError(f"side must be 'user' or 'item', got {side!r}")
+        indptr, indices, data, a, b = csr_arrays(R_new)
+        if side == "item" and a != self.n_users_:
+            raise ValueError(f"R_new has {a} rows but the fitted user "
+                             f"space is {self.n_users_}")
+        if side == "user" and b != self.n_items_:
+            raise ValueError(f"R_new has {b} columns but the fitted "
+                             f"item space is {self.n_items_}")
+        device = resolve_device(self.platform)
+        cfg = DataConfig(dense_whales=False, hot_cols=0)
+        if side == "item":
+            rows = np.repeat(np.arange(a), np.diff(indptr))
+            layout = layout_from_coo(rows, indices, data, a, b, cfg,
+                                     transpose=True)
+            n_new, opp = b, self.U_
+        else:
+            layout = build_layout(indptr, indices, data, a, b, cfg)
+            n_new, opp = a, self.V_
+        buckets = device_buckets(layout, block_batch(self.rank), device)
+        x = half_sweep(torch.tensor(opp, device=device), buckets, n_new,
+                       self._solve_config())
+        return x.cpu().numpy()
+
+    def predict_all(self, user: int) -> np.ndarray:
+        """Scores for every item for one user."""
+        self._check_fitted()
+        return self.U_[user] @ self.V_.T
+
+    def rmse(self, R) -> float:
+        indptr, indices, data, _, _ = csr_arrays(R)
+        users = np.repeat(np.arange(len(indptr) - 1), np.diff(indptr))
+        pred = self.predict(users, indices)
+        return float(np.sqrt(np.mean((data - pred) ** 2)))
+
+    def score(self, R, y=None) -> float:
+        """Negative RMSE over the observed entries of R (higher is better)."""
+        return -self.rmse(R)
+
+    def recommend(self, user_ids, n: int = 10, exclude_seen: bool = True,
+                  method: str = "auto", recall_target: float = 0.99):
+        raise _not_ported("recommend", "Queue 1 item 8")
+
+    def top_n(self, user: int, n: int = 10, exclude_seen: bool = True):
+        raise _not_ported("top_n", "Queue 1 item 8")
+
+
+__all__ = ["ALS"]
