@@ -15,6 +15,18 @@ non-zero before the result lines are printed:
 3. kernel ``cholesky_solve_hot`` against its plain version at k=64, C=128,
    B=65,536 and the 256-row block, with rows of the ML-25M-shaped data's
    bf16 hot slab;
+3b. the solve-variant kernels against their plain versions at k=64,
+   B=65,536 and the 256-row block: ``cholesky_solve_2g`` (two grams summed
+   on load), ``cholesky_solve_rank1`` in its three (fcols, srows)
+   instantiations, ``cholesky_solve_panel``, ``cholesky_solve_schur``
+   (srows 1 and 2) and ``cholesky_solve_dual``. Then the solve-variant path
+   as a user runs it, with the launch counts set to 0 just before and read
+   just after: ``solve_spd_t(Gt2=)`` at k=64, B=65,536, and the variant
+   probe (``probes/solve_variants.py``) at k=128, B=65,536 with pair, rank1,
+   pair_s1, panel, schur, schur_s1 and dual. After the counts are read,
+   every kernel and instantiation the probe ran is held against its plain
+   version on the probe's own k=128 systems (the kernel on all 65,536, the
+   first 4,096 compared) and timed there;
 4. ML-1M-shaped rank-64 fits through ``ALS.fit``, 10 sweeps, against the
    JAX package's histories recorded on a CPU (rtol 1e-3 per sweep);
 5. the main path as a user runs it: ``ALS(rank=64).fit(R)`` on ML-25M-shaped
@@ -22,7 +34,9 @@ non-zero before the result lines are printed:
    0.3170; the kernels' launch counts come from this run. Then
    epoch_seconds as ``bench.py`` times it: the solver's whole-fit loop on
    uploaded layouts, which must reproduce the fit's history;
-6. one JSON line describing every kernel, then the result line.
+6. one JSON line describing every kernel, then the result line. Each
+   entry's numbers are at its ``k`` and ``batch``; a kernel the probe runs
+   also has ``at_probe_shape``, its numbers at the probe's k=128.
 
 ``--profile`` adds one profiled main-path sweep and prints its device time
 by kernel and the device's idle share (not run by default).
@@ -86,13 +100,40 @@ REF_ML1M_AUTO = [
     0.2472238838672638, 0.23537057638168335, 0.22535580396652222,
     0.21765612065792084]
 
+_PALLAS = "recommendation_models_tpu/ops/pallas/cholesky.py"
 TPU_KERNEL = {
-    "cholesky_solve_batched":
-        "recommendation_models_tpu/ops/pallas/cholesky.py:226",
-    "cholesky_solve_hot":
-        "recommendation_models_tpu/ops/pallas/cholesky.py:286",
+    "cholesky_solve_batched": f"{_PALLAS}:226",
+    "cholesky_solve_hot": f"{_PALLAS}:286",
+    "cholesky_solve_2g": f"{_PALLAS}:239",
+    "cholesky_solve_rank1": f"{_PALLAS}:198",
+    "cholesky_solve_panel": f"{_PALLAS}:107",
+    "cholesky_solve_schur": f"{_PALLAS}:697",
+    "cholesky_solve_dual": f"{_PALLAS}:675",
 }
-SOURCE = "recommendation_models_tpu_torch/csrc/cholesky_solve.cu"
+_CSRC = "recommendation_models_tpu_torch/csrc/"
+SOURCE = {
+    "cholesky_solve_batched": _CSRC + "cholesky_solve.cu",
+    "cholesky_solve_hot": _CSRC + "cholesky_solve.cu",
+    "cholesky_solve_2g": _CSRC + "cholesky_solve.cu",
+    "cholesky_solve_rank1": _CSRC + "cholesky_variants.cu",
+    "cholesky_solve_panel": _CSRC + "cholesky_variants.cu",
+    "cholesky_solve_schur": _CSRC + "cholesky_variants.cu",
+    "cholesky_solve_dual": _CSRC + "cholesky_variants.cu",
+}
+MAIN_PATH = "ALS(rank=64).fit, ML-25M shape"
+PATH = {
+    "cholesky_solve_batched": MAIN_PATH,
+    "cholesky_solve_hot": MAIN_PATH,
+    "cholesky_solve_2g": "ops.solve.solve_spd_t(Gt2=), k=64, B=65,536",
+    "cholesky_solve_rank1": "probes.solve_variants, k=128, B=65,536",
+    "cholesky_solve_panel": "probes.solve_variants, k=128, B=65,536",
+    "cholesky_solve_schur": "probes.solve_variants, k=128, B=65,536",
+    "cholesky_solve_dual": "probes.solve_variants, k=128, B=65,536",
+}
+MAIN_KERNELS = ("cholesky_solve_batched", "cholesky_solve_hot")
+PROBE_VARIANTS = "pair,rank1,pair_s1,panel,schur,schur_s1,dual"
+PROBE_K, PROBE_B, PROBE_REG = 128, 65_536, 0.05   # the probe's defaults
+N_CHECK = 4_096       # systems of the k=128 check held against plain
 
 
 def log(msg: str) -> None:
@@ -177,9 +218,10 @@ def phase_environment(torch):
                          text=True, timeout=60)
     log(f"# torch {torch.__version__} cuda {torch.version.cuda}; "
         f"nvcc: {ver.stdout.strip().splitlines()[-1]}")
+    sources = sorted({os.path.basename(p)[:-3] for p in SOURCE.values()})
     t0 = time.perf_counter()
-    build.build("cholesky_solve")
-    log(f"# build: csrc/cholesky_solve.cu in "
+    build.build(*sources)        # one nvcc per source, all started together
+    log(f"# build: {', '.join(f'csrc/{n}.cu' for n in sources)} in "
         f"{time.perf_counter() - t0:.1f}s")
     return card
 
@@ -235,7 +277,7 @@ def phase_b1(torch, dev, flat_w, b=65_536, k=RANK):
         f"plain {lib_err:.3e}) ms={ms:.4f} plain_ms={plain_ms:.3f} "
         f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}); "
         f"B={rb} ms={block_ms:.4f}; B={flat_w} ms={flat_ms:.4f}")
-    return dict(batch=b, max_abs_err=max(err, err_b, err_f), ms=ms,
+    return dict(k=k, batch=b, max_abs_err=max(err, err_b, err_f), ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -298,9 +340,189 @@ def phase_b2(torch, dev, hv, k=RANK):
         f"(implicit {err_i:.3e}; B={rb}: {err_b:.3e}) ms={ms:.4f} "
         f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.4f} "
         f"bound_ms={bound_ms:.4f} ({bound_by}); B={rb} ms={block_ms:.4f}")
-    return dict(batch=b, max_abs_err=max(err, err_i, err_b), ms=ms,
+    return dict(k=k, batch=b, max_abs_err=max(err, err_i, err_b), ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
+
+
+def variant_systems(torch, dev, b=65_536, k=RANK):
+    """The variant phase's inputs: k=64 systems as phase 2's, and a second
+    gram (16 random factor rows a system) for the two-operand kernel."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    G, rhs, reg = random_systems(torch, gen, b, k, 48, dev)
+    G2, _, _ = random_systems(torch, gen, b, k, 16, dev)
+    return G, G2, rhs, reg
+
+
+def phase_variants(torch, dev, G, G2, rhs, reg):
+    """Each solve-variant kernel (every instantiation) against its plain
+    version at k=64, B=65,536 and at the 256-row block, with its time, its
+    plain version's, the library solve's and its bound."""
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    b, k, _ = G.shape
+    rb = ch.block_batch(k)
+    eye = torch.eye(k, device=dev)
+
+    def library(A):
+        return lambda: torch.cholesky_solve(
+            rhs[:, :, None], torch.linalg.cholesky(
+                A + reg[:, None, None] * eye))
+
+    lib_ms = {"one": time_ms(torch, library(G), 5)}
+    G12 = G + G2
+    lib_ms["two"] = time_ms(torch, library(G12), 5)
+    del G12
+    runs = [("cholesky_solve_2g", "", ch.cholesky_solve_2g,
+             ch.cholesky_solve_2g_plain, (G, G2, rhs, reg), ())]
+    runs += [("cholesky_solve_rank1", f"fcols={f},srows={r}",
+              ch.cholesky_solve_rank1, ch.cholesky_solve_rank1_plain,
+              (G, rhs, reg), (f, r)) for f, r in ch.RANK1_SCHEDULES]
+    runs.append(("cholesky_solve_panel", "", ch.cholesky_solve_panel,
+                 ch.cholesky_solve_panel_plain, (G, rhs, reg), ()))
+    runs += [("cholesky_solve_schur", f"srows={r}", ch.cholesky_solve_schur,
+              ch.cholesky_solve_schur_plain, (G, rhs, reg), (r,))
+             for r in (1, 2)]
+    runs.append(("cholesky_solve_dual", "", ch.cholesky_solve_dual,
+                 ch.cholesky_solve_dual_plain, (G, rhs, reg), ()))
+    # the entry reported per kernel: the TPU kernel's own default schedule
+    # (rank1: pair=False, subs2=False; schur: subs2=True)
+    reported = {"cholesky_solve_rank1": "fcols=1,srows=1",
+                "cholesky_solve_schur": "srows=2"}
+    results = {}
+    for name, label, fn, plain, args, extra in runs:
+        x = fn(*args, *extra)
+        ref = plain(*args, *extra)
+        err, ok = compare(torch, x, ref)
+        check(ok, f"{name} {label} disagrees with its plain version "
+                  f"(max abs err {err:.3e})")
+        blk = tuple(a[:rb].contiguous() for a in args)
+        err_b, ok_b = compare(torch, fn(*blk, *extra), plain(*blk, *extra))
+        check(ok_b, f"{name} {label}: {rb}-row block disagrees "
+                    f"(max abs err {err_b:.3e})")
+        del x, ref
+        ms = time_ms(torch, lambda: fn(*args, *extra), 10)
+        plain_ms = time_ms(torch, lambda: plain(*args, *extra), 2, warm=1)
+        block_ms = time_ms(torch, lambda: fn(*blk, *extra), 50)
+        two = name == "cholesky_solve_2g"
+        n_bytes = solve_bytes(b, k) + (4.0 * b * k * (k + 1) / 2 if two
+                                       else 0.0)
+        n_flops = solve_flops(b, k) + (b * k * (k + 1) / 2 if two else 0.0)
+        bound_ms, bound_by = bound(n_bytes, n_flops)
+        lms = lib_ms["two" if two else "one"]
+        log(f"# {' '.join(filter(None, (name, label)))} k={k} B={b}: "
+            f"max_abs_err={err:.3e} "
+            f"(B={rb}: {err_b:.3e}) ms={ms:.4f} plain_ms={plain_ms:.3f} "
+            f"library_ms={lms:.4f} bound_ms={bound_ms:.4f} ({bound_by}); "
+            f"B={rb} ms={block_ms:.4f}")
+        r = results.setdefault(name, dict(k=k, batch=b, max_abs_err=0.0,
+                                          instantiations={}))
+        r["max_abs_err"] = max(r["max_abs_err"], err, err_b)
+        if label:
+            r["instantiations"][label] = ms
+        if reported.get(name, label) == label:
+            r.update(ms=ms, plain_ms=plain_ms, library_ms=lms,
+                     bound_ms=bound_ms, bound_by=bound_by)
+    for r in results.values():
+        if not r["instantiations"]:
+            del r["instantiations"]
+    return results
+
+
+def phase_variant_path(torch, dev, G, G2, rhs, reg):
+    """The solve-variant path as a user runs it, counted: the public
+    two-operand solve ``solve_spd_t(Gt2=)`` at k=64, B=65,536 (batch-minor
+    views, as its callers hold them), then the variant probe at k=128,
+    B=65,536 through its ``main``."""
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.ops.solve import solve_spd_t
+    from recommendation_models_tpu_torch.probes import solve_variants
+    torch.cuda.synchronize()
+    ch.reset_counts()
+    x = solve_spd_t(G.permute(1, 2, 0), rhs.t(), "auto", reg_vec=reg,
+                    Gt2=G2.permute(1, 2, 0))
+    torch.cuda.synchronize()
+    err, ok = compare(torch, x.t(), ch.cholesky_solve_2g_plain(G, G2, rhs,
+                                                               reg))
+    check(ok and tuple(x.shape) == (RANK, G.shape[0]),
+          f"solve_spd_t(Gt2=) disagrees (max abs err {err:.3e})")
+    del x
+    t0 = time.perf_counter()
+    rc = solve_variants.main(["--platform", "cuda"], env=dict(
+        PSV_K=str(PROBE_K), PSV_B=str(PROBE_B), PSV_ITERS="10",
+        PSV_VARIANTS=PROBE_VARIANTS))
+    torch.cuda.synchronize()
+    launches, routed = dict(ch.LAUNCHES), dict(ch.ROUTED)
+    log(f"# solve-variant path: solve_spd_t(Gt2=) max_abs_err={err:.3e}; "
+        f"probe k={PROBE_K} in {time.perf_counter() - t0:.1f}s rc={rc}; "
+        f"launches={launches} routed={routed}")
+    check(rc == 0, "the solve-variant probe failed")
+    check(not any(routed.values()), f"variant-path calls were routed: "
+                                    f"{routed}")
+    return launches
+
+
+def phase_probe_shape(torch, dev):
+    """Every kernel and instantiation the probe runs, on the probe's own
+    k=128, B=65,536 systems (``make_systems``, ridge 0.05): the kernel
+    solves all of them, and its first ``N_CHECK`` solutions are held
+    against the plain version on those systems. Timed there, beside the
+    bound and the library solve at that shape. Run after the path's counts
+    are read, so these launches are not counted."""
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.probes.solve_variants import (
+        make_systems)
+    k, b = PROBE_K, PROBE_B
+    G, rhs = make_systems(k, b, dev)
+    reg = torch.full((b,), PROBE_REG, device=dev)
+    n = N_CHECK
+    Gc, rhsc, regc = G[:n].contiguous(), rhs[:n].contiguous(), reg[:n]
+    runs = [("cholesky_solve_batched", "", ch.cholesky_solve_batched,
+             ch.cholesky_solve_plain, ())]
+    runs += [("cholesky_solve_rank1", f"fcols={f},srows={r}",
+              ch.cholesky_solve_rank1, ch.cholesky_solve_rank1_plain, (f, r))
+             for f, r in ch.RANK1_SCHEDULES]
+    runs.append(("cholesky_solve_panel", "", ch.cholesky_solve_panel,
+                 ch.cholesky_solve_panel_plain, ()))
+    runs += [("cholesky_solve_schur", f"srows={r}", ch.cholesky_solve_schur,
+              ch.cholesky_solve_schur_plain, (r,)) for r in (1, 2)]
+    runs.append(("cholesky_solve_dual", "", ch.cholesky_solve_dual,
+                 ch.cholesky_solve_dual_plain, ()))
+    reported = {"cholesky_solve_rank1": "fcols=1,srows=1",
+                "cholesky_solve_schur": "srows=2"}
+    eye = torch.eye(k, device=dev)
+
+    def library():
+        return torch.cholesky_solve(rhs[:, :, None], torch.linalg.cholesky(
+            G + reg[:, None, None] * eye))
+
+    lib_ms = time_ms(torch, library, 2, warm=1)
+    bound_ms, bound_by = bound(solve_bytes(b, k), solve_flops(b, k))
+    results = {}
+    for name, label, fn, plain, extra in runs:
+        x = fn(G, rhs, reg, *extra)
+        err, ok = compare(torch, x[:n], plain(Gc, rhsc, regc, *extra))
+        check(ok, f"{name} {label} at k={k}, B={b} disagrees with its plain "
+                  f"version on the first {n} systems (max abs err "
+                  f"{err:.3e})")
+        del x
+        ms = time_ms(torch, lambda: fn(G, rhs, reg, *extra), 3, warm=1)
+        log(f"# {' '.join(filter(None, (name, label)))} k={k} B={b}: "
+            f"max_abs_err={err:.3e} (first {n} vs plain) ms={ms:.4f} "
+            f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+        r = results.setdefault(name, dict(k=k, batch=b, checked=n,
+                                          max_abs_err=0.0, bound_ms=bound_ms,
+                                          bound_by=bound_by,
+                                          library_ms=lib_ms,
+                                          instantiations={}))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if label:
+            r["instantiations"][label] = ms
+        if reported.get(name, label) == label:
+            r["ms"] = ms
+    for r in results.values():
+        if not r["instantiations"]:
+            del r["instantiations"]
+    return results
 
 
 def warm_start(n_users, n_items):
@@ -342,7 +564,7 @@ def phase_ml1m(torch, dev):
         check(len(hist) == SWEEPS, "ML-1M fit ran too few sweeps")
         check(max(rel[:n_check]) <= HISTORY_RTOL,
               f"ML-1M {mode} history differs from the reference: {rel}")
-        check(all(n > 0 for n in launches.values()),
+        check(all(launches[n] > 0 for n in MAIN_KERNELS),
               f"a kernel was not launched in the ML-1M fit: {launches}")
 
 
@@ -405,7 +627,7 @@ def phase_main_path(torch, coo):
           "main path factors are not finite or have the wrong shape")
     check(abs(rmse - RMSE_ANCHOR) <= RMSE_ANCHOR_RTOL * RMSE_ANCHOR,
           f"train RMSE {rmse:.4f} is not within 3% of {RMSE_ANCHOR}")
-    check(all(n > 0 for n in launches.values()),
+    check(all(launches[n] > 0 for n in MAIN_KERNELS),
           f"a kernel was not launched on the main path: {launches}")
     check(not any(routed.values()), f"main-path calls were routed: {routed}")
     return launches, hist
@@ -505,21 +727,34 @@ def main(argv) -> int:
     results["cholesky_solve_hot"] = phase_b2(
         torch, dev, hot_slab_sample(torch, ul, 65_536, dev))
     torch.cuda.empty_cache()
+    systems = variant_systems(torch, dev)
+    results.update(phase_variants(torch, dev, *systems))
+    launches = phase_variant_path(torch, dev, *systems)
+    del systems
+    torch.cuda.empty_cache()
+    at_probe = phase_probe_shape(torch, dev)
+    torch.cuda.empty_cache()
     phase_ml1m(torch, dev)
-    launches, hist = phase_main_path(torch, coo)
+    main_launches, hist = phase_main_path(torch, coo)
+    launches.update({n: main_launches[n] for n in MAIN_KERNELS})
     torch.cuda.empty_cache()
     phase_epoch(torch, dev, coo[2].shape[0], ul, il, hist,
                 profile="--profile" in argv)
     kernels = []
-    for name in ("cholesky_solve_batched", "cholesky_solve_hot"):
+    for name in TPU_KERNEL:
         r = results[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": TPU_KERNEL[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": TPU_KERNEL[name], "path": PATH[name],
+            "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "batch": r["batch"]})
+            "k": r["k"], "batch": r["batch"],
+            **({"instantiations": r["instantiations"]}
+               if "instantiations" in r else {}),
+            **({"at_probe_shape": at_probe[name]} if name in at_probe
+               else {})})
     check(all(k["launches"] > 0 for k in kernels), "a kernel never ran")
     log(f"# total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -2,13 +2,14 @@
 ``recommendation_models_tpu``.
 
 The JAX package stays the reference; this package runs the same system on
-an NVIDIA H100 with PyTorch, and its two batched Cholesky solve kernels are
+an NVIDIA H100 with PyTorch, and its batched Cholesky solve kernels are
 hand-written CUDA C++ (``csrc/``). It imports neither JAX nor the JAX
 package. Entry points run on the CUDA card unless the caller passes
 ``platform='cpu'``.
 
 Ported so far: the single-device explicit/implicit ALS fit (layout, grams,
-solves, sweeps, estimator). Serving, IMC, checkpoints and the sharded
+solves, sweeps, estimator) and the solve variants (``ops.cholesky``
+entries and ``probes.solve_variants``). Serving, IMC, checkpoints and the sharded
 programs are still to come (ROADMAP.md).
 """
 

@@ -2,9 +2,10 @@
 // (sm_90a). Built by nvcc into a shared library with a plain C interface
 // and called through ctypes (recommendation_models_tpu_torch/ops/cholesky.py).
 //
-// Replaces two TPU kernels of recommendation_models_tpu/ops/pallas/cholesky.py:
+// Replaces three TPU kernels of recommendation_models_tpu/ops/pallas/cholesky.py:
 //   cholesky_solve_batched <- _cholesky_solve_kernel_pair (via _cholesky_solve_t)
 //   cholesky_solve_hot     <- _cholesky_solve_kernel_hot  (via _cholesky_solve_t_hot)
+//   cholesky_solve_2g      <- _cholesky_solve_kernel_2g   (via _cholesky_solve_t(Gt2=))
 //
 // Contract (both kernels, as on the TPU): every system is factored in f32;
 // the ridge is added on load (A = G + reg_b I); pivots are clamped at
@@ -16,6 +17,13 @@
 //   A   += sum_c wg[b,c] v_c v_c^T,   rhs += sum_c wr[b,c] v_c,
 // with (explicit) wg = [hv != 0], wr = hv or (implicit) wg = alpha hv,
 // wr = [hv != 0] + alpha hv, in full f32 (no TF32), then solves as above.
+//
+// The two-operand kernel (TWO_G) loads A = G + G2 + reg_b I, the second
+// gram's lower-triangle tile summed in f32 on load, and then solves as the
+// plain kernel does. It must read two lower triangles per system, so its
+// bound is about twice the plain solve's bytes; the sum costs one add per
+// loaded element and no pass over device memory (G + G2 never exists
+// there). With TWO_G false the kernel is the plain solve unchanged.
 //
 // What bounds it on an H100: at k = 64 the plain solve must read 8.6 KB per
 // system (the lower triangle of the symmetric G, plus rhs and reg) and write
@@ -47,24 +55,24 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "cholesky_common.cuh"
+
 namespace {
 
-constexpr int KMAX = 128;   // largest system order
+using chol::KMAX;
+using chol::PIVOT_FLOOR;
+using chol::pick4;
+
 constexpr int CMAX = 1024;  // widest hot block (the layout policy's cap)
 // largest dynamic shared memory of one block on sm_90 (227 KB); a hot block
 // whose vh does not fit with the rest is refused (the wrapper routes it)
 constexpr size_t SMEM_MAX = 227 * 1024;
-constexpr float PIVOT_FLOOR = 1e-30f;
-
-__device__ __forceinline__ float pick4(const float (&v)[4], int s) {
-    // select without dynamic register indexing (keeps the tile in registers)
-    return s == 0 ? v[0] : s == 1 ? v[1] : s == 2 ? v[2] : v[3];
-}
 
 // NTH threads per block, NT lower-triangle tiles per thread.
-template <int NTH, int NT, bool HOT>
+template <int NTH, int NT, bool HOT, bool TWO_G>
 __global__ void __launch_bounds__(NTH)
-chol_solve_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
+chol_solve_kernel(const float* __restrict__ G, const float* __restrict__ G2,
+                  const float* __restrict__ rhs,
                   const float* __restrict__ reg,
                   const __nv_bfloat16* __restrict__ hv,
                   const float* __restrict__ vh, float* __restrict__ out,
@@ -91,7 +99,11 @@ chol_solve_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
     const int ld = kp + 1;
 
     // threads own the lower-triangle tiles (ti >= tl) only: the update and
-    // the hot gram are symmetric, and the substitutions read L's lower half
+    // the hot gram are symmetric, and the substitutions read L's lower half.
+    // (The ownership and the tile load stay written out here, not shared
+    // with csrc/cholesky_variants.cu: as shared functions they change this
+    // kernel's register allocation, and the main path's code stays as it
+    // was measured.)
     int ti[NT], tl[NT];
     bool live[NT];
 #pragma unroll
@@ -132,10 +144,21 @@ chol_solve_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
                         const float4 q = *reinterpret_cast<const float4*>(
                             Gb + (size_t)i * k + l0);
                         v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+                        if (TWO_G) {
+                            const float4 q2 = *reinterpret_cast<const float4*>(
+                                G2 + (size_t)b * k * k + (size_t)i * k + l0);
+                            v[0] += q2.x; v[1] += q2.y; v[2] += q2.z;
+                            v[3] += q2.w;
+                        }
                     } else {
 #pragma unroll
                         for (int s = 0; s < 4; ++s)
-                            if (l0 + s < k) v[s] = Gb[(size_t)i * k + l0 + s];
+                            if (l0 + s < k) {
+                                v[s] = Gb[(size_t)i * k + l0 + s];
+                                if (TWO_G)
+                                    v[s] += G2[(size_t)b * k * k
+                                               + (size_t)i * k + l0 + s];
+                            }
                     }
                 }
 #pragma unroll
@@ -313,68 +336,46 @@ size_t smem_bytes(int kp, int hc, int warps) {
            + sizeof(int) * warps;
 }
 
-template <int NTH, int NT, bool HOT>
-cudaError_t launch(const float* G, const float* rhs, const float* reg,
-                   const __nv_bfloat16* hv, const float* vh, float* out,
-                   int B, int k, int kp, int C, int vec, int has_alpha,
-                   float alpha, cudaStream_t stream) {
-    auto kern = chol_solve_kernel<NTH, NT, HOT>;
-    const size_t smem = smem_bytes(kp, HOT ? C : 0, NTH / 32);
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    // ask for the largest shared-memory carveout, so that residency is set
-    // by the occupancy computed below and not by a smaller carveout
-    err = cudaFuncSetAttribute(kern,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return err;
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess)
-        return err;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kern, NTH, smem)) != cudaSuccess)
-        return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    const long long resident = (long long)per_sm * sms;
-    const int grid = (int)(B < resident ? B : resident);
-    kern<<<grid, NTH, smem, stream>>>(G, rhs, reg, hv, vh, out, B, k, kp, C,
-                                      vec, has_alpha, alpha);
-    return cudaGetLastError();
+template <int NTH, int NT, bool HOT, bool TWO_G>
+cudaError_t launch(const float* G, const float* G2, const float* rhs,
+                   const float* reg, const __nv_bfloat16* hv,
+                   const float* vh, float* out, int B, int k, int kp, int C,
+                   int vec, int has_alpha, float alpha, cudaStream_t stream) {
+    return chol::launch_persistent(
+        chol_solve_kernel<NTH, NT, HOT, TWO_G>, NTH,
+        smem_bytes(kp, HOT ? C : 0, NTH / 32), B, stream, G, G2, rhs, reg,
+        hv, vh, out, B, k, kp, C, vec, has_alpha, alpha);
 }
 
-template <bool HOT>
-cudaError_t dispatch(const void* G, const void* rhs, const void* reg,
-                     const void* hv, const void* vh, void* out, int B, int k,
-                     int C, int has_alpha, float alpha, void* stream) {
+template <bool HOT, bool TWO_G>
+cudaError_t dispatch(const void* G, const void* G2, const void* rhs,
+                     const void* reg, const void* hv, const void* vh,
+                     void* out, int B, int k, int C, int has_alpha,
+                     float alpha, void* stream) {
     if (k < 1 || k > KMAX || B < 0) return cudaErrorInvalidValue;
     const int kp = (k + 3) & ~3;
-    const int T = kp / 4;
-    const int tiles = T * (T + 1) / 2;        // lower-triangle 4x4 tiles
+    const int config = chol::tile_config(k);
     if (HOT && (C < 1 || C > CMAX
-                || smem_bytes(kp, C, (tiles <= 160 ? 160 : 256) / 32)
+                || smem_bytes(kp, C, chol::config_threads(config) / 32)
                        > SMEM_MAX))
         return cudaErrorInvalidValue;
     if (B == 0) return cudaSuccess;
-    const int vec = (k % 4 == 0) && (((uintptr_t)G & 15) == 0);
+    const int vec = (k % 4 == 0) && (((uintptr_t)G & 15) == 0)
+                    && (((uintptr_t)G2 & 15) == 0);
     auto g = static_cast<const float*>(G);
+    auto g2 = static_cast<const float*>(G2);
     auto r = static_cast<const float*>(rhs);
     auto rg = static_cast<const float*>(reg);
     auto h = static_cast<const __nv_bfloat16*>(hv);
     auto v = static_cast<const float*>(vh);
     auto o = static_cast<float*>(out);
     auto s = static_cast<cudaStream_t>(stream);
-    // 160 threads cover every tile up to k = 68 (136 tiles at k = 64);
-    // larger systems take 256 threads with up to 3 tiles each
-    if (tiles <= 160)
-        return launch<160, 1, HOT>(g, r, rg, h, v, o, B, k, kp, C, vec, has_alpha, alpha, s);
-    if (tiles <= 256)
-        return launch<256, 1, HOT>(g, r, rg, h, v, o, B, k, kp, C, vec, has_alpha, alpha, s);
-    if (tiles <= 512)
-        return launch<256, 2, HOT>(g, r, rg, h, v, o, B, k, kp, C, vec, has_alpha, alpha, s);
-    return launch<256, 3, HOT>(g, r, rg, h, v, o, B, k, kp, C, vec, has_alpha, alpha, s);
+    switch (config) {
+    case 0: return launch<160, 1, HOT, TWO_G>(g, g2, r, rg, h, v, o, B, k, kp, C, vec, has_alpha, alpha, s);
+    case 1: return launch<256, 1, HOT, TWO_G>(g, g2, r, rg, h, v, o, B, k, kp, C, vec, has_alpha, alpha, s);
+    case 2: return launch<256, 2, HOT, TWO_G>(g, g2, r, rg, h, v, o, B, k, kp, C, vec, has_alpha, alpha, s);
+    default: return launch<256, 3, HOT, TWO_G>(g, g2, r, rg, h, v, o, B, k, kp, C, vec, has_alpha, alpha, s);
+    }
 }
 
 }  // namespace
@@ -385,8 +386,17 @@ extern "C" {
 // all f32, contiguous, batch-major. 1 <= k <= 128.
 int cholesky_solve_batched(const void* G, const void* rhs, const void* reg,
                            void* out, int B, int k, void* stream) {
-    return (int)dispatch<false>(G, rhs, reg, nullptr, nullptr, out, B, k, 0,
-                                0, 0.f, stream);
+    return (int)dispatch<false, false>(G, nullptr, rhs, reg, nullptr, nullptr,
+                                       out, B, k, 0, 0, 0.f, stream);
+}
+
+// As cholesky_solve_batched for A = G + G2 + diag(reg): the second gram
+// G2 (B, k, k) f32 is summed on load.
+int cholesky_solve_2g(const void* G, const void* G2, const void* rhs,
+                      const void* reg, void* out, int B, int k,
+                      void* stream) {
+    return (int)dispatch<false, true>(G, G2, rhs, reg, nullptr, nullptr, out,
+                                      B, k, 0, 0, 0.f, stream);
 }
 
 // As cholesky_solve_batched, with the hot-column terms of hv (B, C) bf16
@@ -397,16 +407,12 @@ int cholesky_solve_hot(const void* G, const void* rhs, const void* reg,
                        const void* hv, const void* vh, void* out, int B,
                        int k, int C, int has_alpha, float alpha,
                        void* stream) {
-    return (int)dispatch<true>(G, rhs, reg, hv, vh, out, B, k, C, has_alpha,
-                               alpha, stream);
+    return (int)dispatch<true, false>(G, nullptr, rhs, reg, hv, vh, out, B, k,
+                                      C, has_alpha, alpha, stream);
 }
 
-int cholesky_kernel_kmax(void) { return KMAX; }
+// (cholesky_kernel_kmax and cholesky_error_string: cholesky_common.cuh)
 int cholesky_kernel_cmax(void) { return CMAX; }
 long long cholesky_kernel_smem_max(void) { return (long long)SMEM_MAX; }
-
-const char* cholesky_error_string(int err) {
-    return cudaGetErrorString((cudaError_t)err);
-}
 
 }  // extern "C"

@@ -2,10 +2,12 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, and loaded with ``ctypes``. The
-library name carries a hash of the source and the flags, so an edited
-source rebuilds and concurrent processes never load a half-written file
-(the build writes to a temporary name and renames it into place).
-Libraries go to ``build/kernels/`` at the root of the checkout.
+library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and concurrent
+processes never load a half-written file (the build writes to a temporary
+name and renames it into place). Libraries go to ``build/kernels/`` at the
+root of the checkout. ``build`` takes several sources and starts their
+``nvcc`` runs together.
 """
 
 from __future__ import annotations
@@ -45,26 +47,38 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.blake2b(src + repr(NVCC_FLAGS).encode(),
-                          digest_size=8).hexdigest()
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    h = hashlib.blake2b(digest_size=8)
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.read_bytes())
+    h.update(repr(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()}.so"
 
 
-def build(name: str) -> None:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    out = library_path(name)
-    if out.exists():
+def build(*names: str) -> None:
+    """Compile each ``csrc/<name>.cu`` whose library is not built yet, one
+    ``nvcc`` per source, all started together; raises if any fails."""
+    todo = [(n, library_path(n)) for n in names]
+    todo = [(n, out) for n, out in todo if not out.exists()]
+    if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)
+    runs = []
+    for name, out in todo:
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        runs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, out, tmp, proc in runs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu "
+                          f"(exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:

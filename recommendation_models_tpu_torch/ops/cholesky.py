@@ -1,14 +1,33 @@
 """Batched ridge-Cholesky solves: CUDA kernels, their wrappers and their
 plain PyTorch versions.
 
-Two kernels (``csrc/cholesky_solve.cu``) replace the two TPU kernels that
-the ALS sweep runs (``recommendation_models_tpu/ops/pallas/cholesky.py``):
+Six kernels replace the TPU kernels of
+``recommendation_models_tpu/ops/pallas/cholesky.py``. Two carry the ALS
+sweep (``csrc/cholesky_solve.cu``):
 
 - ``cholesky_solve_batched``: ``x = (G + diag(reg))⁻¹ rhs`` for a batch of
   SPD systems (TPU ``_cholesky_solve_kernel_pair``);
 - ``cholesky_solve_hot``: the same solve after adding the hot-column gram
   and rhs terms ``Σ_c wg[b,c] v_c v_cᵀ`` and ``Σ_c wr[b,c] v_c`` inside the
   kernel (TPU ``_cholesky_solve_kernel_hot``).
+
+Five run the solve-variant path, the public solve API with its variant
+options (``cholesky_solve_t``, ``cholesky_solve``, ``cholesky_solve_flat``,
+``ops/solve.py::solve_spd_t(Gt2=)``) and ``probes/solve_variants.py``:
+
+- ``cholesky_solve_2g``: ``A = G + G2 + diag(reg)`` summed on load, then the
+  ``cholesky_solve_batched`` solve (TPU ``_cholesky_solve_kernel_2g``,
+  ``csrc/cholesky_solve.cu``);
+- ``cholesky_solve_rank1``: a right-looking factor with ``fcols`` columns
+  per step and substitutions with ``srows`` rows per step (TPU
+  ``_cholesky_solve_kernel``; ``csrc/cholesky_variants.cu``);
+- ``cholesky_solve_panel``: the rank-8 panel factor (TPU
+  ``_cholesky_solve_kernel_panel``);
+- ``cholesky_solve_schur``: the two-level Schur factor, k % 16 == 0 (TPU
+  ``_cholesky_solve_kernel_schur``);
+- ``cholesky_solve_dual``: two systems per block with their rank-2 factors
+  interleaved, then two-row substitutions (TPU
+  ``_cholesky_solve_kernel_dual``).
 
 Shared contract: f32 factorization, ridge added on load, pivots clamped at
 ``max(d, 1e-30)``, so identity-padded and all-zero systems with rhs 0 solve
@@ -32,12 +51,17 @@ import torch
 from recommendation_models_tpu_torch.ops.gram import objective_weights
 
 PIVOT_FLOOR = 1e-30
-KMAX = 128              # csrc/cholesky_solve.cu KMAX
+KMAX = 128              # csrc/cholesky_common.cuh KMAX
 HOT_CMAX = 1024         # csrc/cholesky_solve.cu CMAX
 SMEM_MAX = 227 * 1024   # csrc/cholesky_solve.cu SMEM_MAX
 
-LAUNCHES = {"cholesky_solve_batched": 0, "cholesky_solve_hot": 0}
-ROUTED = {"cholesky_solve_batched": 0, "cholesky_solve_hot": 0}
+KERNELS = ("cholesky_solve_batched", "cholesky_solve_hot", "cholesky_solve_2g",
+           "cholesky_solve_rank1", "cholesky_solve_panel",
+           "cholesky_solve_schur", "cholesky_solve_dual")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+ROUTED = dict.fromkeys(KERNELS, 0)
+PANEL_WIDTH = 8         # csrc/cholesky_variants.cu PW: panel and Schur group
+RANK1_SCHEDULES = ((1, 1), (1, 2), (2, 1))   # (fcols, srows) of the kernel
 
 
 def reset_counts() -> None:
@@ -98,27 +122,9 @@ def cholesky_solve_plain(G: torch.Tensor, rhs: torch.Tensor,
                          reg: torch.Tensor) -> torch.Tensor:
     """Plain version of ``cholesky_solve_batched``: the kernel's
     right-looking factorization, pivot clamp and column-oriented
-    substitutions, vectorized over the batch."""
-    b, k, _ = G.shape
-    A = G.float().clone()
-    A.diagonal(dim1=1, dim2=2).add_(reg.float()[:, None])
-    Ld = torch.empty((b, k), dtype=torch.float32, device=G.device)
-    for j in range(k):
-        d = A[:, j, j].clone()
-        inv = torch.rsqrt(torch.clamp_min(d, PIVOT_FLOOR))
-        c = A[:, j + 1:, j] * inv[:, None]
-        A[:, j + 1:, j + 1:] -= c[:, :, None] * c[:, None, :]
-        A[:, j + 1:, j] = c
-        Ld[:, j] = d * inv
-    piv = torch.clamp_min(Ld, PIVOT_FLOOR)
-    y = rhs.float().clone()
-    for j in range(k):
-        y[:, j] /= piv[:, j]
-        y[:, j + 1:] -= A[:, j + 1:, j] * y[:, j:j + 1]
-    for j in range(k - 1, -1, -1):
-        y[:, j] /= piv[:, j]
-        y[:, :j] -= A[:, j, :j] * y[:, j:j + 1]
-    return y
+    substitutions, vectorized over the batch (the one-column, one-row
+    schedule of ``cholesky_solve_rank1_plain``)."""
+    return cholesky_solve_rank1_plain(G, rhs, reg, 1, 1)
 
 
 def fold_hot(G, rhs, hv, vh, alpha):
@@ -140,6 +146,178 @@ def cholesky_solve_hot_plain(G, rhs, reg, hv, vh, alpha=None):
     return cholesky_solve_plain(G2, rhs2, reg)
 
 
+def cholesky_solve_2g_plain(G, G2, rhs, reg):
+    """Plain version of ``cholesky_solve_2g``: the two grams summed in f32
+    on load, then the plain solve."""
+    return cholesky_solve_plain(G.float() + G2.float(), rhs, reg)
+
+
+def _load_plain(G, reg):
+    A = G.float().clone()
+    A.diagonal(dim1=1, dim2=2).add_(reg.float()[:, None])
+    return A
+
+
+def _step1_plain(A, Ld, j, end):
+    """One column step: L[:, j], then the rank-1 update of the trailing
+    rows against the columns (j, end)."""
+    d = A[:, j, j].clone()
+    inv = torch.rsqrt(torch.clamp_min(d, PIVOT_FLOOR))
+    c = A[:, j + 1:, j] * inv[:, None]
+    A[:, j + 1:, j + 1:end] -= c[:, :, None] * c[:, None, :end - j - 1]
+    A[:, j + 1:, j] = c
+    Ld[:, j] = d * inv
+
+
+def _step2_plain(A, Ld, j, end):
+    """One rank-2 step over columns (j, j+1): L[:, j], L[:, j+1] corrected
+    by it, then the two rank-1 terms against the columns [j+2, end)."""
+    d1 = A[:, j, j].clone()
+    inv1 = torch.rsqrt(torch.clamp_min(d1, PIVOT_FLOOR))
+    c1 = A[:, j + 1:, j] * inv1[:, None]
+    l12 = c1[:, 0]
+    d2 = A[:, j + 1, j + 1] - l12 * l12
+    inv2 = torch.rsqrt(torch.clamp_min(d2, PIVOT_FLOOR))
+    c2 = (A[:, j + 2:, j + 1] - c1[:, 1:] * l12[:, None]) * inv2[:, None]
+    trail = A[:, j + 2:, j + 2:end]
+    trail -= c1[:, 1:, None] * c1[:, None, 1:end - j - 1]
+    trail -= c2[:, :, None] * c2[:, None, :end - j - 2]
+    A[:, j + 1:, j] = c1
+    A[:, j + 2:, j + 1] = c2
+    Ld[:, j] = d1 * inv1
+    Ld[:, j + 1] = d2 * inv2
+
+
+def _rank_update_plain(A, L, r0, width):
+    """``A[r0:, r0:] -= L Lᵀ`` for the (B, k - r0, width) block L, the
+    rank-``width`` sum accumulated first (one term per column)."""
+    upd = torch.zeros_like(A[:, r0:, r0:])
+    for p in range(width):
+        upd += L[:, :, p, None] * L[:, None, :, p]
+    A[:, r0:, r0:] -= upd
+
+
+def _substitute_plain(A, Ld, rhs, srows):
+    """Forward (L y = rhs) and back (Lᵀ x = y) substitution against the
+    factor in A's lower triangle, column-oriented as the kernels run them,
+    ``srows`` rows per step."""
+    k = A.shape[1]
+    piv = torch.clamp_min(Ld, PIVOT_FLOOR)
+    y = rhs.float().clone()
+    j = 0
+    while srows == 2 and j + 1 < k:
+        yj = y[:, j] / piv[:, j]
+        yj1 = (y[:, j + 1] - A[:, j + 1, j] * yj) / piv[:, j + 1]
+        y[:, j], y[:, j + 1] = yj, yj1
+        y[:, j + 2:] -= A[:, j + 2:, j] * yj[:, None]
+        y[:, j + 2:] -= A[:, j + 2:, j + 1] * yj1[:, None]
+        j += 2
+    for j in range(j, k):
+        y[:, j] /= piv[:, j]
+        y[:, j + 1:] -= A[:, j + 1:, j] * y[:, j:j + 1]
+    j = k - 1
+    while srows == 2 and j >= 1:
+        xj = y[:, j] / piv[:, j]
+        xj1 = (y[:, j - 1] - A[:, j, j - 1] * xj) / piv[:, j - 1]
+        y[:, j], y[:, j - 1] = xj, xj1
+        y[:, :j - 1] -= A[:, j, :j - 1] * xj[:, None]
+        y[:, :j - 1] -= A[:, j - 1, :j - 1] * xj1[:, None]
+        j -= 2
+    for j in range(j, -1, -1):
+        y[:, j] /= piv[:, j]
+        y[:, :j] -= A[:, j, :j] * y[:, j:j + 1]
+    return y
+
+
+def _factor_plain(G, reg, fcols):
+    """A right-looking factor with ``fcols`` (1 or 2) columns per step (an
+    odd k ends on one column): L in A's lower triangle, its diagonal in
+    Ld."""
+    b, k, _ = G.shape
+    A = _load_plain(G, reg)
+    Ld = torch.empty((b, k), dtype=torch.float32, device=G.device)
+    j = 0
+    while fcols == 2 and j + 1 < k:
+        _step2_plain(A, Ld, j, k)
+        j += 2
+    for j in range(j, k):
+        _step1_plain(A, Ld, j, k)
+    return A, Ld
+
+
+def cholesky_solve_rank1_plain(G, rhs, reg, fcols=1, srows=1):
+    """Plain version of ``cholesky_solve_rank1``: a right-looking factor
+    with ``fcols`` (1 or 2) columns per step (an odd k ends on one column),
+    then the substitutions with ``srows`` rows per step."""
+    _check_schedule(fcols, srows)
+    return _substitute_plain(*_factor_plain(G, reg, fcols), rhs, srows)
+
+
+def cholesky_solve_dual_plain(G, rhs, reg):
+    """Plain version of ``cholesky_solve_dual``: each system's rank-2
+    factor and two-row substitutions, in the kernel's step order (the
+    kernel interleaves two systems' chains; each system's arithmetic is
+    its own)."""
+    return _substitute_plain(*_factor_plain(G, reg, 2), rhs, 2)
+
+
+def cholesky_solve_panel_plain(G, rhs, reg):
+    """Plain version of ``cholesky_solve_panel``: panels of 8 columns, each
+    factored left-looking (column jj takes the panel's earlier columns'
+    terms only when it comes up), then one rank-8 update of the trailing
+    block; one-row substitutions."""
+    b, k, _ = G.shape
+    A = _load_plain(G, reg)
+    Ld = torch.empty((b, k), dtype=torch.float32, device=G.device)
+    for j0 in range(0, k, PANEL_WIDTH):
+        pw = min(PANEL_WIDTH, k - j0)
+        P = A[:, j0:, j0:j0 + pw]          # a view: factored in place
+        for jj in range(pw):
+            d = P[:, jj, jj].clone()
+            for p in range(jj):
+                d -= P[:, jj, p] * P[:, jj, p]
+            inv = torch.rsqrt(torch.clamp_min(d, PIVOT_FLOOR))
+            v = P[:, jj + 1:, jj].clone()
+            for p in range(jj):
+                v -= P[:, jj + 1:, p] * P[:, jj, p][:, None]
+            P[:, jj + 1:, jj] = v * inv[:, None]
+            Ld[:, j0 + jj] = d * inv
+        _rank_update_plain(A, P[:, pw:], j0 + pw, pw)
+    return _substitute_plain(A, Ld, rhs, 1)
+
+
+def cholesky_solve_schur_plain(G, rhs, reg, srows=2):
+    """Plain version of ``cholesky_solve_schur`` (k % 16 == 0): rank-2
+    steps over the left half updating only columns < k/2, the deferred
+    ``A22 -= L21 L21ᵀ`` in rank-8 groups, rank-2 steps over the right half,
+    then the substitutions with ``srows`` rows per step."""
+    b, k, _ = G.shape
+    _check_schur(k, srows)
+    h = k // 2
+    A = _load_plain(G, reg)
+    Ld = torch.empty((b, k), dtype=torch.float32, device=G.device)
+    for j in range(0, h, 2):
+        _step2_plain(A, Ld, j, h)
+    for g in range(0, h, PANEL_WIDTH):
+        _rank_update_plain(A, A[:, h:, g:g + PANEL_WIDTH], h, PANEL_WIDTH)
+    for j in range(h, k, 2):
+        _step2_plain(A, Ld, j, k)
+    return _substitute_plain(A, Ld, rhs, srows)
+
+
+def _check_schedule(fcols, srows):
+    if (fcols, srows) not in RANK1_SCHEDULES:
+        raise ValueError(f"(fcols, srows) must be one of {RANK1_SCHEDULES}, "
+                         f"got {(fcols, srows)}")
+
+
+def _check_schur(k, srows):
+    if k % 16:
+        raise ValueError(f"schur variant requires k % 16 == 0, got k={k}")
+    if srows not in (1, 2):
+        raise ValueError(f"srows must be 1 or 2, got {srows}")
+
+
 def anchor_solve(G, rhs, reg):
     """The torch anchor: ``torch.linalg.cholesky`` and two triangular solves
     on ``G + diag(reg)``; a failed factorization gives NaN rows, as the
@@ -155,32 +333,50 @@ def anchor_solve(G, rhs, reg):
 # --------------------------------------------------------------------------
 # kernel wrappers
 
-_LIB = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C entry points of each source: name -> argument types (all return an
+# error code; 0 is success)
+SOURCES = {
+    "cholesky_solve": {
+        "cholesky_solve_batched": [_P, _P, _P, _P, _I, _I, _P],
+        "cholesky_solve_hot": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               ctypes.c_float, _P],
+        "cholesky_solve_2g": [_P, _P, _P, _P, _P, _I, _I, _P],
+    },
+    "cholesky_variants": {
+        "cholesky_solve_rank1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "cholesky_solve_panel": [_P, _P, _P, _P, _I, _I, _P],
+        "cholesky_solve_schur": [_P, _P, _P, _P, _I, _I, _I, _P],
+        "cholesky_solve_dual": [_P, _P, _P, _P, _I, _I, _P],
+    },
+}
+_LIBS = {}
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
+def _lib(source: str = "cholesky_solve"):
+    """The library of ``csrc/<source>.cu``, built and loaded on first use,
+    its limits checked against this module's."""
+    lib = _LIBS.get(source)
+    if lib is None:
         from recommendation_models_tpu_torch.ops.build import load
-        lib = load("cholesky_solve")
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.cholesky_solve_batched.argtypes = [P, P, P, P, I, I, P]
-        lib.cholesky_solve_batched.restype = I
-        lib.cholesky_solve_hot.argtypes = [P, P, P, P, P, P, I, I, I, I,
-                                           ctypes.c_float, P]
-        lib.cholesky_solve_hot.restype = I
-        lib.cholesky_error_string.argtypes = [I]
+        lib = load(source)
+        for name, argtypes in SOURCES[source].items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = _I
+        lib.cholesky_error_string.argtypes = [_I]
         lib.cholesky_error_string.restype = ctypes.c_char_p
-        lib.cholesky_kernel_kmax.restype = I
-        lib.cholesky_kernel_cmax.restype = I
-        lib.cholesky_kernel_smem_max.restype = ctypes.c_longlong
-        if (lib.cholesky_kernel_kmax() != KMAX
-                or lib.cholesky_kernel_cmax() != HOT_CMAX
-                or lib.cholesky_kernel_smem_max() != SMEM_MAX):
-            raise RuntimeError("csrc/cholesky_solve.cu limits disagree with "
+        lib.cholesky_kernel_kmax.restype = _I
+        ok = lib.cholesky_kernel_kmax() == KMAX
+        if source == "cholesky_solve":
+            lib.cholesky_kernel_cmax.restype = _I
+            lib.cholesky_kernel_smem_max.restype = ctypes.c_longlong
+            ok = ok and (lib.cholesky_kernel_cmax() == HOT_CMAX
+                         and lib.cholesky_kernel_smem_max() == SMEM_MAX)
+        if not ok:
+            raise RuntimeError(f"csrc/{source}.cu limits disagree with "
                                "ops/cholesky.py")
-        _LIB = lib
-    return _LIB
+        _LIBS[source] = lib
+    return lib
 
 
 def _check(name, t, shape, dtype, device):
@@ -195,9 +391,9 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _raise_on(err: int, name: str) -> None:
+def _raise_on(err: int, name: str, lib) -> None:
     if err:
-        msg = _lib().cholesky_error_string(err).decode()
+        msg = lib.cholesky_error_string(err).decode()
         raise RuntimeError(f"{name} kernel failed: CUDA error {err} ({msg})")
 
 
@@ -207,30 +403,41 @@ def _device_kind(t: torch.Tensor) -> str:
     return t.device.type
 
 
+def _launch_solve(name, source, G, rhs, reg, G2=None, ints=()):
+    """Checks and one launch of the batch-major solve kernel ``name`` of
+    ``csrc/<source>.cu``, of the C signature ``name(G, [G2,] rhs, reg, out,
+    B, k, *ints, stream)``; a failed launch raises."""
+    b, k, _ = G.shape
+    dev = G.device
+    _check("G", G, (b, k, k), torch.float32, dev)
+    if G2 is not None:
+        _check("G2", G2, (b, k, k), torch.float32, dev)
+    _check("rhs", rhs, (b, k), torch.float32, dev)
+    _check("reg", reg, (b,), torch.float32, dev)
+    out = torch.empty((b, k), dtype=torch.float32, device=dev)
+    if b == 0:
+        return out
+    grams = (G.data_ptr(),) if G2 is None else (G.data_ptr(), G2.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _lib(source)
+    err = getattr(lib, name)(*grams, rhs.data_ptr(), reg.data_ptr(),
+                             out.data_ptr(), b, k, *ints, stream)
+    _raise_on(err, name, lib)
+    LAUNCHES[name] += 1
+    return out
+
+
 def cholesky_solve_batched(G: torch.Tensor, rhs: torch.Tensor,
                            reg: torch.Tensor) -> torch.Tensor:
     """x (B, k) = (G + diag(reg))⁻¹ rhs for G (B, k, k) f32, rhs (B, k) f32,
     reg (B,) f32, all contiguous on one device."""
     if _device_kind(G) == "cpu":
         return cholesky_solve_plain(G, rhs, reg)
-    b, k, _ = G.shape
-    if not kernel_supported(k):
+    if not kernel_supported(G.shape[1]):
         ROUTED["cholesky_solve_batched"] += 1
         return anchor_solve(G, rhs, reg)
-    dev = G.device
-    _check("G", G, (b, k, k), torch.float32, dev)
-    _check("rhs", rhs, (b, k), torch.float32, dev)
-    _check("reg", reg, (b,), torch.float32, dev)
-    out = torch.empty((b, k), dtype=torch.float32, device=dev)
-    if b == 0:
-        return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().cholesky_solve_batched(G.data_ptr(), rhs.data_ptr(),
-                                        reg.data_ptr(), out.data_ptr(),
-                                        b, k, stream)
-    _raise_on(err, "cholesky_solve_batched")
-    LAUNCHES["cholesky_solve_batched"] += 1
-    return out
+    return _launch_solve("cholesky_solve_batched", "cholesky_solve", G, rhs,
+                         reg)
 
 
 def cholesky_solve_hot(G: torch.Tensor, rhs: torch.Tensor, reg: torch.Tensor,
@@ -257,19 +464,175 @@ def cholesky_solve_hot(G: torch.Tensor, rhs: torch.Tensor, reg: torch.Tensor,
     if b == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().cholesky_solve_hot(
+    lib = _lib()
+    err = lib.cholesky_solve_hot(
         G.data_ptr(), rhs.data_ptr(), reg.data_ptr(), hv.data_ptr(),
         vh.data_ptr(), out.data_ptr(), b, k, c,
         0 if alpha is None else 1, 0.0 if alpha is None else float(alpha),
         stream)
-    _raise_on(err, "cholesky_solve_hot")
+    _raise_on(err, "cholesky_solve_hot", lib)
     LAUNCHES["cholesky_solve_hot"] += 1
     return out
 
 
+def cholesky_solve_2g(G: torch.Tensor, G2: torch.Tensor, rhs: torch.Tensor,
+                      reg: torch.Tensor) -> torch.Tensor:
+    """x (B, k) = (G + G2 + diag(reg))⁻¹ rhs, the second gram G2 (B, k, k)
+    f32 summed inside the kernel on load."""
+    if _device_kind(G) == "cpu":
+        return cholesky_solve_2g_plain(G, G2, rhs, reg)
+    if not kernel_supported(G.shape[1]):
+        ROUTED["cholesky_solve_2g"] += 1
+        return anchor_solve(G.float() + G2.float(), rhs, reg)
+    return _launch_solve("cholesky_solve_2g", "cholesky_solve", G, rhs, reg,
+                         G2=G2)
+
+
+def cholesky_solve_rank1(G: torch.Tensor, rhs: torch.Tensor,
+                         reg: torch.Tensor, fcols: int = 1,
+                         srows: int = 1) -> torch.Tensor:
+    """The ``cholesky_solve_batched`` solve with a right-looking factor of
+    ``fcols`` columns per step and substitutions of ``srows`` rows per step,
+    (fcols, srows) in ``RANK1_SCHEDULES``."""
+    _check_schedule(fcols, srows)
+    if _device_kind(G) == "cpu":
+        return cholesky_solve_rank1_plain(G, rhs, reg, fcols, srows)
+    if not kernel_supported(G.shape[1]):
+        ROUTED["cholesky_solve_rank1"] += 1
+        return anchor_solve(G, rhs, reg)
+    return _launch_solve("cholesky_solve_rank1", "cholesky_variants", G, rhs,
+                         reg, ints=(fcols, srows))
+
+
+def cholesky_solve_panel(G: torch.Tensor, rhs: torch.Tensor,
+                         reg: torch.Tensor) -> torch.Tensor:
+    """The ``cholesky_solve_batched`` solve with the rank-8 panel factor and
+    one-row substitutions."""
+    if _device_kind(G) == "cpu":
+        return cholesky_solve_panel_plain(G, rhs, reg)
+    if not kernel_supported(G.shape[1]):
+        ROUTED["cholesky_solve_panel"] += 1
+        return anchor_solve(G, rhs, reg)
+    return _launch_solve("cholesky_solve_panel", "cholesky_variants", G, rhs,
+                         reg)
+
+
+def cholesky_solve_schur(G: torch.Tensor, rhs: torch.Tensor,
+                         reg: torch.Tensor, srows: int = 2) -> torch.Tensor:
+    """The ``cholesky_solve_batched`` solve with the two-level Schur factor
+    (k % 16 == 0) and substitutions of ``srows`` rows per step."""
+    k = G.shape[1]
+    _check_schur(k, srows)
+    if _device_kind(G) == "cpu":
+        return cholesky_solve_schur_plain(G, rhs, reg, srows)
+    if not kernel_supported(k):
+        ROUTED["cholesky_solve_schur"] += 1
+        return anchor_solve(G, rhs, reg)
+    return _launch_solve("cholesky_solve_schur", "cholesky_variants", G, rhs,
+                         reg, ints=(srows,))
+
+
+def cholesky_solve_dual(G: torch.Tensor, rhs: torch.Tensor,
+                        reg: torch.Tensor) -> torch.Tensor:
+    """The ``cholesky_solve_batched`` solve for two systems per block, their
+    rank-2 factors interleaved, with two-row substitutions; any B."""
+    if _device_kind(G) == "cpu":
+        return cholesky_solve_dual_plain(G, rhs, reg)
+    if not kernel_supported(G.shape[1]):
+        ROUTED["cholesky_solve_dual"] += 1
+        return anchor_solve(G, rhs, reg)
+    return _launch_solve("cholesky_solve_dual", "cholesky_variants", G, rhs,
+                         reg)
+
+
+# --------------------------------------------------------------------------
+# entries with the reference's names and flags
+
+def cholesky_solve_variant(G: torch.Tensor, rhs: torch.Tensor,
+                           reg: torch.Tensor, panel: bool = False,
+                           pair: bool = True, schur: bool = False,
+                           subs2: bool = True, dual: bool = False,
+                           G2: torch.Tensor = None) -> torch.Tensor:
+    """Batch-major solve with the reference's variant flags, in its order of
+    precedence (``_cholesky_solve_t``): ``G2`` (the two-operand kernel,
+    whatever the other flags say but ``dual``), then ``dual`` (whatever the
+    others say, as in the reference), ``schur``, ``panel`` and ``pair``.
+    ``subs2`` picks two-row substitutions where the kernel has the choice;
+    ``pair`` with ``subs2`` is ``cholesky_solve_batched``."""
+    if G2 is not None:
+        if dual:
+            raise ValueError("dual variant has no two-operand form")
+        return cholesky_solve_2g(G, G2, rhs, reg)
+    if dual:
+        return cholesky_solve_dual(G, rhs, reg)
+    srows = 2 if subs2 else 1
+    if schur:
+        return cholesky_solve_schur(G, rhs, reg, srows)
+    if panel:
+        return cholesky_solve_panel(G, rhs, reg)
+    if pair:
+        if subs2:
+            return cholesky_solve_batched(G, rhs, reg)
+        return cholesky_solve_rank1(G, rhs, reg, 2, 1)
+    return cholesky_solve_rank1(G, rhs, reg, 1, srows)
+
+
+def cholesky_solve_t(Gt: torch.Tensor, rhst: torch.Tensor,
+                     regv: torch.Tensor, panel: bool = False,
+                     pair: bool = True, schur: bool = False,
+                     subs2: bool = True, dual: bool = False,
+                     Gt2: torch.Tensor = None) -> torch.Tensor:
+    """Batch-minor entry (the reference's ``_cholesky_solve_t``): Gt
+    (k, k, B) with the ridge not yet added, rhst (k, B), regv (1, B) ->
+    x (k, B); ``Gt2`` an optional second (k, k, B) gram summed on load. Any
+    B; the systems are transposed to the kernels' batch-major layout."""
+    def batch_major(t):
+        return t.permute(2, 0, 1).float().contiguous()
+
+    x = cholesky_solve_variant(
+        batch_major(Gt), rhst.t().float().contiguous(),
+        regv.reshape(-1).float().contiguous(), panel=panel, pair=pair,
+        schur=schur, subs2=subs2, dual=dual,
+        G2=None if Gt2 is None else batch_major(Gt2))
+    return x.t()
+
+
+def cholesky_solve(G: torch.Tensor, rhs: torch.Tensor,
+                   panel: bool = False) -> torch.Tensor:
+    """Solve ``G x = rhs`` for G (B, k, k) with the ridge already added,
+    rhs (B, k) -> x (B, k); ``panel=True`` takes the rank-8 panel kernel."""
+    b = G.shape[0]
+    reg = torch.zeros((b,), dtype=torch.float32, device=G.device)
+    return cholesky_solve_variant(G.float().contiguous(),
+                                  rhs.float().contiguous(), reg, panel=panel)
+
+
+def cholesky_solve_flat(G_flat: torch.Tensor, rhs: torch.Tensor, k: int,
+                        reg_vec=None, panel: bool = False) -> torch.Tensor:
+    """``cholesky_solve`` on FLAT (B, k*k) row-major systems, with the
+    per-system ridge ``reg_vec`` (B,) added inside the kernel on load."""
+    b = G_flat.shape[0]
+    if reg_vec is None:
+        reg = torch.zeros((b,), dtype=torch.float32, device=G_flat.device)
+    else:
+        reg = torch.as_tensor(reg_vec, dtype=torch.float32,
+                              device=G_flat.device).reshape(b).contiguous()
+    return cholesky_solve_variant(
+        G_flat.float().reshape(b, k, k).contiguous(),
+        rhs.float().contiguous(), reg, panel=panel)
+
+
 __all__ = ["cholesky_solve_batched", "cholesky_solve_hot",
-           "cholesky_solve_plain", "cholesky_solve_hot_plain", "fold_hot",
+           "cholesky_solve_2g", "cholesky_solve_rank1",
+           "cholesky_solve_panel", "cholesky_solve_schur",
+           "cholesky_solve_dual",
+           "cholesky_solve_plain", "cholesky_solve_hot_plain",
+           "cholesky_solve_2g_plain", "cholesky_solve_rank1_plain",
+           "cholesky_solve_panel_plain", "cholesky_solve_schur_plain",
+           "cholesky_solve_dual_plain",
+           "cholesky_solve_variant", "cholesky_solve_t", "cholesky_solve",
+           "cholesky_solve_flat", "fold_hot",
            "anchor_solve", "block_batch", "kernel_supported",
            "hot_kernel_supported", "hot_smem_bytes", "hot_cols_cap",
-           "hot_cols_auto",
+           "hot_cols_auto", "KERNELS", "RANK1_SCHEDULES",
            "LAUNCHES", "ROUTED", "reset_counts"]

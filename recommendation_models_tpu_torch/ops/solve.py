@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from recommendation_models_tpu_torch.ops.cholesky import (
-    anchor_solve, cholesky_solve_batched, cholesky_solve_hot, fold_hot,
+    anchor_solve, cholesky_solve_2g, cholesky_solve_batched,
+    cholesky_solve_hot, fold_hot,
 )
 
 _SOLVERS = ("pallas", "xla", "lu")
@@ -138,12 +139,27 @@ def solve_spd_flat(G_flat: torch.Tensor, rhs: torch.Tensor, k: int,
 
 
 def solve_spd_t(Gt: torch.Tensor, rhst: torch.Tensor, solver: str = "auto",
-                reg_vec=None) -> torch.Tensor:
+                reg_vec=None, Gt2: torch.Tensor = None) -> torch.Tensor:
     """Batch-minor solve (the reference's signature): Gt (k, k, B),
-    rhst (k, B) -> x (k, B)."""
-    x = solve_spd_batched(Gt.permute(2, 0, 1), rhst.t(), solver,
-                          reg_vec=reg_vec)
-    return x.t()
+    rhst (k, B) -> x (k, B).
+
+    ``Gt2``: an optional second (k, k, B) gram term. On 'pallas' the
+    two-operand kernel sums it on load (``G + G2`` is never stored); the
+    other solvers upcast both operands to f32 and then add them."""
+    if Gt2 is None:
+        x = solve_spd_batched(Gt.permute(2, 0, 1), rhst.t(), solver,
+                              reg_vec=reg_vec)
+        return x.t()
+    solver = resolve_solver(solver)
+    b = Gt.shape[2]
+    if solver == "pallas":
+        x = cholesky_solve_2g(Gt.permute(2, 0, 1).float().contiguous(),
+                              Gt2.permute(2, 0, 1).float().contiguous(),
+                              rhst.t().float().contiguous(),
+                              _regv(reg_vec, b, Gt.device))
+        return x.t()
+    return solve_spd_t(Gt.float() + Gt2.float(), rhst, solver,
+                       reg_vec=reg_vec)
 
 
 def solve_spd_t_hot(Gt: torch.Tensor, rhst: torch.Tensor, hvT: torch.Tensor,

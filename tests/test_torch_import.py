@@ -34,6 +34,7 @@ _PROBE = textwrap.dedent("""
     import recommendation_models_tpu_torch.ops.build
     import recommendation_models_tpu_torch.ops.cholesky
     import recommendation_models_tpu_torch.ops.solve
+    import recommendation_models_tpu_torch.probes.solve_variants
     import recommendation_models_tpu_torch.solver.als_sweep
     new = set(sys.modules) - before
     # exact-key checks: "recommendation_models_tpu" is a prefix of the
