@@ -27,6 +27,17 @@ non-zero before the result lines are printed:
    every kernel and instantiation the probe ran is held against its plain
    version on the probe's own k=128 systems (the kernel on all 65,536, the
    first 4,096 compared) and timed there;
+3c. the row gather-and-sum kernel ``gather_rows_sum`` (P1) against its
+   plain version: at the gather probe's shape (62,423 x 128 f32 table,
+   200,000 ids) with 4, 8 and 16 slots; at the main path's gathers (one
+   launch over all of the user half's bucket ids into the item table, one
+   over the item half's into the user table, on the warm-start factors);
+   at 0, 1 and slots - 1 ids, k=13 and k=512, and an unaligned table; and
+   a bitwise repeat. Then the gather-rate path as a user runs it, with the
+   launch count set to 0 just before and read just after: the probes
+   ``probes.dma_gather``, ``probes.gather_rates`` (their defaults),
+   ``probes.ablate_epoch.run`` on the ML-25M layouts (3 iterations) and
+   ``probes.gather_budget.run`` on the item half, then the user half;
 4. ML-1M-shaped rank-64 fits through ``ALS.fit``, 10 sweeps, against the
    JAX package's histories recorded on a CPU (rtol 1e-3 per sweep);
 5. the main path as a user runs it: ``ALS(rank=64).fit(R)`` on ML-25M-shaped
@@ -36,14 +47,19 @@ non-zero before the result lines are printed:
    uploaded layouts, which must reproduce the fit's history;
 6. one JSON line describing every kernel, then the result line. Each
    entry's numbers are at its ``k`` and ``batch``; a kernel the probe runs
-   also has ``at_probe_shape``, its numbers at the probe's k=128.
+   also has ``at_probe_shape``, its numbers at the probe's k=128, and
+   ``gather_rows_sum`` has ``at_main_path``, its numbers at both halves'
+   gathers.
 
 ``--profile`` adds one profiled main-path sweep and prints its device time
 by kernel and the device's idle share (not run by default).
 
-Tolerances: a kernel agrees with its plain version when
+Tolerances: a solve kernel agrees with its plain version when
 |x - x_plain| <= 5e-4 * scale + 5e-4 * |x_plain|, scale = max(|x_plain|, 1)
-(the reference's tests/test_pallas_cholesky.py tolerance).
+(the reference's tests/test_pallas_cholesky.py tolerance). The gather
+kernel agrees per column j when |x - x_plain| <= 2e-6 * sum_i
+|table[idx_i, j]| + 1e-6: the two add the same f32 rows in different
+orders.
 """
 
 from __future__ import annotations
@@ -109,6 +125,7 @@ TPU_KERNEL = {
     "cholesky_solve_panel": f"{_PALLAS}:107",
     "cholesky_solve_schur": f"{_PALLAS}:697",
     "cholesky_solve_dual": f"{_PALLAS}:675",
+    "gather_rows_sum": "scripts/probe_dma_gather.py:49",
 }
 _CSRC = "recommendation_models_tpu_torch/csrc/"
 SOURCE = {
@@ -119,6 +136,7 @@ SOURCE = {
     "cholesky_solve_panel": _CSRC + "cholesky_variants.cu",
     "cholesky_solve_schur": _CSRC + "cholesky_variants.cu",
     "cholesky_solve_dual": _CSRC + "cholesky_variants.cu",
+    "gather_rows_sum": _CSRC + "gather.cu",
 }
 MAIN_PATH = "ALS(rank=64).fit, ML-25M shape"
 PATH = {
@@ -129,11 +147,13 @@ PATH = {
     "cholesky_solve_panel": "probes.solve_variants, k=128, B=65,536",
     "cholesky_solve_schur": "probes.solve_variants, k=128, B=65,536",
     "cholesky_solve_dual": "probes.solve_variants, k=128, B=65,536",
+    "gather_rows_sum": "probes.dma_gather / probes.ablate_epoch gather only",
 }
 MAIN_KERNELS = ("cholesky_solve_batched", "cholesky_solve_hot")
 PROBE_VARIANTS = "pair,rank1,pair_s1,panel,schur,schur_s1,dual"
 PROBE_K, PROBE_B, PROBE_REG = 128, 65_536, 0.05   # the probe's defaults
 N_CHECK = 4_096       # systems of the k=128 check held against plain
+ABL_ITERS = 3         # iterations of each epoch-ablation line
 
 
 def log(msg: str) -> None:
@@ -525,6 +545,153 @@ def phase_probe_shape(torch, dev):
     return results
 
 
+def gather_check(torch, table, idx, slots=None):
+    """(out, max abs error, agrees?) of the gather kernel (``slots`` None:
+    the wrapper's default) against its plain version, per column within
+    2e-6 * sum |rows| + 1e-6."""
+    from recommendation_models_tpu_torch.ops import gather as ga
+    x = ga.gather_rows_sum(table, idx, slots or ga.DEFAULT_SLOTS)
+    ref = ga.gather_rows_sum_plain(table, idx)
+    err = (x - ref).abs()
+    ok = (bool(torch.isfinite(x).all()) and tuple(x.shape) == (1, ref.shape[1])
+          and bool((err <= ga.sum_tolerance(table, idx)).all()))
+    return x, float(err.max()), ok
+
+
+def gather_numbers(torch, table, idx, reps, slots=None):
+    """The gather kernel's time, its plain version's, the library call's
+    (``embedding_bag(mode="sum")``) and its bound on these inputs: every
+    distinct row touched read once, the ids read once, the output written
+    once; one add per gathered element."""
+    import torch.nn.functional as F
+    from recommendation_models_tpu_torch.ops import gather as ga
+    n, k = idx.shape[0], table.shape[1]
+    slots = slots or ga.DEFAULT_SLOTS
+    offsets = torch.zeros(1, dtype=idx.dtype, device=idx.device)
+    ms = time_ms(torch, lambda: ga.gather_rows_sum(table, idx, slots), reps)
+    plain_ms = time_ms(torch, lambda: ga.gather_rows_sum_plain(table, idx),
+                       max(2, reps // 4), warm=1)
+    lib_ms = time_ms(torch, lambda: F.embedding_bag(idx, table, offsets,
+                                                    mode="sum"),
+                     max(2, reps // 4), warm=1)
+    distinct = int(torch.unique(idx).numel())
+    bound_ms, bound_by = bound(4.0 * (distinct * k + n + k), float(n * k))
+    return dict(k=k, batch=n, distinct_rows=distinct, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_gather(torch, dev, ul, il):
+    """P1 ``gather_rows_sum`` against its plain version and timed: at the
+    gather probe's shape (slots 4, 8, 16), at both halves' gathers of the
+    main path (every bucket id of the half, one launch, slots 8) on the
+    warm-start factor tables, at ragged sizes, and bitwise repeated."""
+    from recommendation_models_tpu_torch.ops import gather as ga
+    from recommendation_models_tpu_torch.ops.cholesky import block_batch
+    from recommendation_models_tpu_torch.probes import dma_gather
+    from recommendation_models_tpu_torch.solver.als_sweep import (
+        device_buckets)
+    n_table, k, n = dma_gather.N_TABLE, dma_gather.K, dma_gather.N_GATHER
+    table, idx = dma_gather.make_inputs(n_table, k, n, dev)
+    res = {"instantiations": {}}
+    err_all = 0.0
+    for slots in dma_gather.SLOTS:
+        _, err, ok = gather_check(torch, table, idx, slots)
+        check(ok, f"gather_rows_sum slots={slots} disagrees with its plain "
+                  f"version at the probe's shape (max abs err {err:.3e})")
+        num = gather_numbers(torch, table, idx, 20, slots)
+        res["instantiations"][f"slots={slots}"] = num["ms"]
+        err_all = max(err_all, err)
+        if slots == ga.DEFAULT_SLOTS:
+            res.update(num)
+        log(f"# P1 gather_rows_sum n_table={n_table} k={k} ids={n} "
+            f"slots={slots}: max_abs_err={err:.3e} ms={num['ms']:.4f} "
+            f"({n / num['ms'] / 1e3:.1f} M rows/s) plain_ms="
+            f"{num['plain_ms']:.4f} library_ms={num['library_ms']:.4f} "
+            f"bound_ms={num['bound_ms']:.5f} ({num['bound_by']}, "
+            f"{num['distinct_rows']} distinct rows)")
+    # ragged sizes: no ids, one, fewer than the slots; k=13 (4-byte
+    # copies), k=512 with 32 slots (the widest ring), an unaligned table
+    ragged = [(table, idx[:0], 8), (table, idx[:1], 8), (table, idx[:7], 8)]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    t13 = torch.randn(1000, 13, generator=gen, device=dev)
+    t512 = torch.randn(3000, 512, generator=gen, device=dev)
+    flat = torch.randn(600 * 64 + 1, generator=gen, device=dev)
+    t_off = flat[1:].view(600, 64)
+    for t, slots in ((t13, 8), (t512, 32), (t_off, 8)):
+        ids = torch.randint(0, t.shape[0], (5_000,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        ragged.append((t, ids, slots))
+    for t, ids, slots in ragged:
+        x, err, ok = gather_check(torch, t, ids, slots)
+        check(ok, f"gather_rows_sum disagrees at k={t.shape[1]}, "
+                  f"{ids.shape[0]} ids, slots={slots} (max abs err "
+                  f"{err:.3e})")
+        if ids.shape[0] == 0:
+            check(bool((x == 0).all()), "no ids did not give zeros")
+        err_all = max(err_all, err)
+    # the main path's gathers: all of a half's bucket ids at once
+    U0, V0 = (torch.from_numpy(a).to(dev) for a in warm_start(ul.n_rows,
+                                                              il.n_rows))
+    at_main = {}
+    for tag, layout, tbl in (("user_half", ul, V0), ("item_half", il, U0)):
+        bs = device_buckets(layout, block_batch(RANK), dev)
+        ids = torch.cat([b["indices"].reshape(-1) for b in bs
+                         if "indices" in b])
+        del bs
+        x, err, ok = gather_check(torch, tbl, ids)
+        check(ok, f"gather_rows_sum disagrees at the main path's {tag} "
+                  f"gather (max abs err {err:.3e})")
+        check(torch.equal(x, ga.gather_rows_sum(tbl, ids)),
+              f"gather_rows_sum is not bitwise repeatable ({tag})")
+        num = gather_numbers(torch, tbl, ids, 5)
+        num["max_abs_err"] = err
+        at_main[tag] = num
+        err_all = max(err_all, err)
+        log(f"# P1 gather_rows_sum at the main path's {tag} gather: table "
+            f"{tuple(tbl.shape)}, {ids.shape[0]} ids: max_abs_err={err:.3e} "
+            f"ms={num['ms']:.4f} ({ids.shape[0] / num['ms'] / 1e3:.1f} M "
+            f"rows/s) plain_ms={num['plain_ms']:.4f} library_ms="
+            f"{num['library_ms']:.4f} bound_ms={num['bound_ms']:.5f} "
+            f"({num['bound_by']}, {num['distinct_rows']} distinct rows)")
+        del ids
+    x1 = ga.gather_rows_sum(table, idx)
+    check(torch.equal(x1, ga.gather_rows_sum(table, idx)),
+          "gather_rows_sum is not bitwise repeatable at the probe's shape")
+    res.update(max_abs_err=err_all, at_main_path=at_main)
+    return res
+
+
+def phase_gather_path(torch, dev, ul, il):
+    """The gather-rate path as a user runs it, counted: the gather probe
+    and the gather-rate probe through their ``main`` (defaults), the epoch
+    ablation on the ML-25M layouts and the gather-budget sweep of the item
+    half, then of the user half."""
+    from recommendation_models_tpu_torch.config import SolveConfig
+    from recommendation_models_tpu_torch.ops import gather as ga
+    from recommendation_models_tpu_torch.probes import (
+        ablate_epoch, dma_gather, gather_budget, gather_rates)
+    torch.cuda.synchronize()
+    ga.reset_counts()
+    t0 = time.perf_counter()
+    rc = {"dma_gather": dma_gather.main(["--platform", "cuda"]),
+          "gather_rates": gather_rates.main(["--platform", "cuda"], env={})}
+    res = ablate_epoch.run(ul, il, SolveConfig(rank=RANK, reg=0.1),
+                           ABL_ITERS, dev)
+    rc["ablate_epoch"] = 0 if res["ok"] else 1
+    for side, layout in (("item", il), ("user", ul)):
+        gather_budget.run(layout, RANK, gather_budget.BUDGETS, ABL_ITERS,
+                          side, dev)
+    rc["gather_budget"] = 0
+    torch.cuda.synchronize()
+    launches = ga.LAUNCHES["gather_rows_sum"]
+    log(f"# gather-rate path in {time.perf_counter() - t0:.1f}s: rc={rc} "
+        f"launches={{'gather_rows_sum': {launches}}}")
+    check(not any(rc.values()), f"a gather probe failed: {rc}")
+    check(launches > 0, "gather_rows_sum was not launched on its path")
+    return launches
+
+
 def warm_start(n_users, n_items):
     """The bench's warm start: 0.01 N(0, 1) from default_rng(0)."""
     import numpy as np
@@ -734,6 +901,10 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     at_probe = phase_probe_shape(torch, dev)
     torch.cuda.empty_cache()
+    results["gather_rows_sum"] = phase_gather(torch, dev, ul, il)
+    torch.cuda.empty_cache()
+    launches["gather_rows_sum"] = phase_gather_path(torch, dev, ul, il)
+    torch.cuda.empty_cache()
     phase_ml1m(torch, dev)
     main_launches, hist = phase_main_path(torch, coo)
     launches.update({n: main_launches[n] for n in MAIN_KERNELS})
@@ -754,6 +925,8 @@ def main(argv) -> int:
             **({"instantiations": r["instantiations"]}
                if "instantiations" in r else {}),
             **({"at_probe_shape": at_probe[name]} if name in at_probe
+               else {}),
+            **({"at_main_path": r["at_main_path"]} if "at_main_path" in r
                else {})})
     check(all(k["launches"] > 0 for k in kernels), "a kernel never ran")
     log(f"# total {time.perf_counter() - t_start:.1f}s")

@@ -2,15 +2,17 @@
 ``recommendation_models_tpu``.
 
 The JAX package stays the reference; this package runs the same system on
-an NVIDIA H100 with PyTorch, and its batched Cholesky solve kernels are
-hand-written CUDA C++ (``csrc/``). It imports neither JAX nor the JAX
+an NVIDIA H100 with PyTorch, and its kernels (the batched Cholesky solves
+and the row gather-and-sum) are hand-written CUDA C++ (``csrc/``). It imports neither JAX nor the JAX
 package. Entry points run on the CUDA card unless the caller passes
 ``platform='cpu'``.
 
 Ported so far: the single-device explicit/implicit ALS fit (layout, grams,
-solves, sweeps, estimator) and the solve variants (``ops.cholesky``
-entries and ``probes.solve_variants``). Serving, IMC, checkpoints and the sharded
-programs are still to come (ROADMAP.md).
+solves, sweeps, estimator), the solve variants (``ops.cholesky``
+entries and ``probes.solve_variants``) and the gather-rate probes
+(``ops.gather`` and ``probes.dma_gather``, ``gather_rates``,
+``ablate_epoch``, ``gather_budget``). Serving, IMC, checkpoints and the
+sharded programs are still to come (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

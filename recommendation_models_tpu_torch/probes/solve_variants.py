@@ -35,6 +35,7 @@ import torch
 from recommendation_models_tpu_torch.device import resolve_device
 from recommendation_models_tpu_torch.ops.cholesky import (
     anchor_solve, cholesky_solve_variant)
+from recommendation_models_tpu_torch.probes import time_ms
 
 VARIANT_KW = {
     "rank1": dict(panel=False, pair=False, subs2=False),   # the r1 baseline
@@ -69,19 +70,6 @@ def make_systems(k: int, b: int, device: torch.device, chunk: int = 4096):
     rhs = torch.from_numpy(
         rng.standard_normal((b, k)).astype(np.float32)).to(device)
     return G, rhs
-
-
-def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def main(argv=None, env=None) -> int:

@@ -33,7 +33,12 @@ _PROBE = textwrap.dedent("""
     import recommendation_models_tpu_torch.data.layout_cache
     import recommendation_models_tpu_torch.ops.build
     import recommendation_models_tpu_torch.ops.cholesky
+    import recommendation_models_tpu_torch.ops.gather
     import recommendation_models_tpu_torch.ops.solve
+    import recommendation_models_tpu_torch.probes.ablate_epoch
+    import recommendation_models_tpu_torch.probes.dma_gather
+    import recommendation_models_tpu_torch.probes.gather_budget
+    import recommendation_models_tpu_torch.probes.gather_rates
     import recommendation_models_tpu_torch.probes.solve_variants
     import recommendation_models_tpu_torch.solver.als_sweep
     new = set(sys.modules) - before
