@@ -9,17 +9,27 @@ non-zero before the result lines are printed:
 1. environment: the card, its power limit, torch and nvcc versions, and the
    build of the port's CUDA source (timed);
 2. kernel ``cholesky_solve_batched`` against its plain PyTorch version at
-   k=64: B=65,536 systems, the main path's 256-row block, the flat
-   dense-block entry at the main path's dense width, and identity-padded /
-   all-zero systems;
-3. kernel ``cholesky_solve_hot`` against its plain version at k=64, C=128,
-   B=65,536 and the 256-row block, with rows of the ML-25M-shaped data's
-   bf16 hot slab;
+   k=64: B=65,536 systems; both regimes and their boundary (B = 1, 255,
+   256, 257, the latency kernel's resident count as the card reports it
+   and that count +- 1, and 4,201), where each batch must take the kernel
+   that ``latency_regime`` names and the other regime's kernel must agree
+   too; the flat dense-block entry
+   at the main path's dense width; identity-padded / all-zero systems in
+   both regimes. Device time per call from ``torch.profiler`` (so host
+   gaps do not count) at 256 rows, the dense width and 65,536, beside the
+   host's µs per call (wall time over 200 calls) and the library solve's
+   device time at the same batch;
+3. kernel ``cholesky_solve_hot`` the same way at k=64, C=128, with rows of
+   the ML-25M-shaped data's bf16 hot slab, explicit and alpha=2.0 weights
+   at every boundary batch, a bitwise repeat, and device time and host cost
+   at 256 rows and 65,536;
 3b. the solve-variant kernels against their plain versions at k=64,
    B=65,536 and the 256-row block: ``cholesky_solve_2g`` (two grams summed
    on load), ``cholesky_solve_rank1`` in its three (fcols, srows)
    instantiations, ``cholesky_solve_panel``, ``cholesky_solve_schur``
-   (srows 1 and 2) and ``cholesky_solve_dual``. Then the solve-variant path
+   (srows 1 and 2) and ``cholesky_solve_dual``; ``cholesky_solve_2g`` also
+   at B1's boundary batches, with exact zeros in both regimes and its
+   device time and host cost at 256 rows. Then the solve-variant path
    as a user runs it, with the launch counts set to 0 just before and read
    just after: ``solve_spd_t(Gt2=)`` at k=64, B=65,536, and the variant
    probe (``probes/solve_variants.py``) at k=128, B=65,536 with pair, rank1,
@@ -46,10 +56,12 @@ non-zero before the result lines are printed:
    epoch_seconds as ``bench.py`` times it: the solver's whole-fit loop on
    uploaded layouts, which must reproduce the fit's history;
 6. one JSON line describing every kernel, then the result line. Each
-   entry's numbers are at its ``k`` and ``batch``; a kernel the probe runs
-   also has ``at_probe_shape``, its numbers at the probe's k=128, and
-   ``gather_rows_sum`` has ``at_main_path``, its numbers at both halves'
-   gathers.
+   entry's numbers are at its ``k`` and ``batch``; B1, B2 and B3 also have
+   ``resident`` (the latency kernel's resident blocks), ``regime_by_batch``
+   and ``by_batch`` (device ms, host µs, library device ms and bound ms at
+   each timed batch); a kernel the probe runs also has ``at_probe_shape``,
+   its numbers at the probe's k=128, and ``gather_rows_sum`` has
+   ``at_main_path``, its numbers at both halves' gathers.
 
 ``--profile`` adds one profiled main-path sweep and prints its device time
 by kernel and the device's idle share (not run by default).
@@ -77,8 +89,6 @@ PEAK_F32_FLOPS = 67e12
 ATOL_SCALE = 5e-4
 RTOL = 5e-4
 
-ML1M = (6_040, 3_706, 1_000_209)
-ML25M = (162_541, 62_423, 25_000_000)
 RANK = 64
 SWEEPS = 10
 RMSE_ANCHOR = 0.3170        # BENCH_r05.json train_rmse, ML-25M rank 64
@@ -213,16 +223,6 @@ def solve_bytes(b: int, k: int) -> float:
     return 4.0 * b * (k * (k + 1) / 2.0 + 2 * k + 1)
 
 
-def random_systems(torch, gen, b, k, degree, dev):
-    """Grams of ``degree`` random factor rows per system (rank-deficient
-    when degree < k, as ALS rows are) plus rhs and a 0.1 ridge."""
-    X = 0.3 * torch.randn(b, degree, k, generator=gen, device=dev)
-    G = torch.bmm(X.transpose(1, 2), X)
-    rhs = torch.randn(b, k, generator=gen, device=dev)
-    reg = torch.full((b,), 0.1, device=dev)
-    return G.contiguous(), rhs, reg
-
-
 # ----------------------------------------------------------------- phases
 
 def phase_environment(torch):
@@ -246,60 +246,141 @@ def phase_environment(torch):
     return card
 
 
+def boundary_check(torch, name, fn, plain, args, k, c=0):
+    """The kernel against its plain version at the batches of both regimes
+    and their boundary: 1, 255, 256, 257, the latency kernel's resident
+    count (as the card reports it) and that count +- 1, and 4,201 (the main
+    path's dense width), each the first b systems of ``args`` (batch-major
+    tensors; a 2-d tensor of C rows is passed whole), each repeated
+    bitwise, and equal bitwise to the kernel of the regime that
+    ``latency_regime`` names; the other regime's kernel is held against the
+    plain version at the same batch. Returns (max abs error, resident,
+    {batch: regime})."""
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    _, resident = ch.solve_regime(name, 1, k, c)
+    batches = sorted(b for b in {1, 255, 256, 257, resident - 1, resident,
+                                 resident + 1, 4_201} if b >= 1)
+    err_all, regimes = 0.0, {}
+    n = args[0].shape[0]
+    for b in batches:
+        lat, _ = ch.solve_regime(name, b, k, c)
+        regimes[b] = "latency" if lat else "throughput"
+        sl = tuple(a[:b].contiguous() if a.shape[0] == n else a
+                   for a in args)
+        x = fn(*sl)
+        ref = plain(*sl)
+        err, ok = compare(torch, x, ref)
+        check(ok, f"{name} disagrees with its plain version at B={b} "
+                  f"({regimes[b]}; max abs err {err:.3e})")
+        check(torch.equal(x, fn(*sl)),
+              f"{name} is not bitwise repeatable at B={b} ({regimes[b]})")
+        with ch.forced_regime(lat):
+            check(torch.equal(x, fn(*sl)),
+                  f"{name} at B={b} did not take the {regimes[b]} kernel")
+        with ch.forced_regime(not lat):
+            err_o, ok_o = compare(torch, fn(*sl), ref)
+        check(ok_o, f"{name}'s other-regime kernel disagrees at B={b} "
+                    f"(max abs err {err_o:.3e})")
+        err_all = max(err_all, err, err_o)
+    check(set(regimes.values()) == {"latency", "throughput"},
+          f"{name}: the boundary batches did not cover both regimes")
+    return err_all, resident, regimes
+
+
+def latency_numbers(torch, fn, library, b):
+    """Device ms per call from torch.profiler (host gaps do not count),
+    host µs per call (wall time over 200 calls, no sync inside) and the
+    library call's device ms, at batch b."""
+    from recommendation_models_tpu_torch.probes import host_us, profiled_ms
+    from recommendation_models_tpu_torch.probes.solve_latency import reps_for
+    reps = reps_for(b)
+    return dict(device_ms=profiled_ms(fn, reps), host_us=host_us(fn),
+                library_device_ms=profiled_ms(library, max(2, reps // 4)))
+
+
 def phase_b1(torch, dev, flat_w, b=65_536, k=RANK):
-    """B1 at B=65,536, at the main path's row block (``block_batch`` rows)
-    and through the flat entry at the main path's dense-block width."""
+    """B1 at B=65,536, at the batches of both regimes and their boundary,
+    and through the flat entry at the main path's dense-block width; device
+    time (profiler) and host cost at 256 rows, the dense width and
+    65,536."""
     from recommendation_models_tpu_torch.ops import cholesky as ch
     from recommendation_models_tpu_torch.ops.solve import solve_spd_flat
+    from recommendation_models_tpu_torch.probes.solve_latency import (
+        random_systems)
     gen = torch.Generator(device=dev).manual_seed(1)
-    G, rhs, reg = random_systems(torch, gen, b, k, 48, dev)
+    G, rhs, reg = random_systems(b, k, 48, gen, dev)
     x = ch.cholesky_solve_batched(G, rhs, reg)
     ref = ch.cholesky_solve_plain(G, rhs, reg)
     err, ok = compare(torch, x, ref)
     check(ok, f"cholesky_solve_batched disagrees with its plain version "
               f"(max abs err {err:.3e})")
+    err_b, resident, regimes = boundary_check(
+        torch, "cholesky_solve_batched", ch.cholesky_solve_batched,
+        ch.cholesky_solve_plain, (G, rhs, reg), k)
     rb = ch.block_batch(k)
     Gb, rhsb, regb = G[:rb].contiguous(), rhs[:rb], reg[:rb]
-    err_b, ok_b = compare(torch, ch.cholesky_solve_batched(Gb, rhsb, regb),
-                          ch.cholesky_solve_plain(Gb, rhsb, regb))
-    check(ok_b, f"{rb}-row block disagrees (max abs err {err_b:.3e})")
     # the flat (W, k*k) dense-block entry with a per-row ridge
-    Gf, rf, _ = random_systems(torch, gen, flat_w, k, 600, dev)
+    Gf, rf, _ = random_systems(flat_w, k, 600, gen, dev)
     regf = 0.1 * (1.0 + torch.rand(flat_w, generator=gen, device=dev))
     xf = solve_spd_flat(Gf.reshape(flat_w, k * k), rf, k, "auto",
                         reg_vec=regf)
     err_f, ok_f = compare(torch, xf, ch.cholesky_solve_plain(Gf, rf, regf))
     check(ok_f, f"flat entry disagrees (max abs err {err_f:.3e})")
-    # identity-padded and all-zero systems with rhs 0 solve to exactly 0
-    Gz = torch.zeros(8, k, k, device=dev)
-    Gz[4:] = torch.eye(k, device=dev)
-    z = ch.cholesky_solve_batched(Gz, torch.zeros(8, k, device=dev),
-                                  torch.zeros(8, device=dev))
-    check(bool((z == 0).all()), "zero / identity systems did not solve to 0")
+    # identity-padded and all-zero systems with rhs 0 solve to exactly 0,
+    # in the latency regime (8 systems) and the throughput one
+    for nz in (8, resident + 1):
+        Gz = torch.zeros(nz, k, k, device=dev)
+        Gz[nz // 2:] = torch.eye(k, device=dev)
+        z = ch.cholesky_solve_batched(Gz, torch.zeros(nz, k, device=dev),
+                                      torch.zeros(nz, device=dev))
+        check(bool((z == 0).all()),
+              f"zero / identity systems did not solve to 0 (B={nz})")
+    eye = torch.eye(k, device=dev)
 
-    def library():
-        A = G + reg[:, None, None] * torch.eye(k, device=dev)
-        return torch.cholesky_solve(rhs[:, :, None],
-                                    torch.linalg.cholesky(A))
+    def library_on(Gs, rs, gs):
+        return lambda: torch.cholesky_solve(
+            rs[:, :, None], torch.linalg.cholesky(
+                Gs + gs[:, None, None] * eye))
 
+    library = library_on(G, rhs, reg)
     ms = time_ms(torch, lambda: ch.cholesky_solve_batched(G, rhs, reg), 10)
     plain_ms = time_ms(torch, lambda: ch.cholesky_solve_plain(G, rhs, reg),
                        2, warm=1)
     lib_ms = time_ms(torch, library, 5)
     lib_err, _ = compare(torch, library()[:, :, 0], ref)
-    block_ms = time_ms(torch, lambda: ch.cholesky_solve_batched(
-        Gb, rhsb, regb), 50)
-    flat_ms = time_ms(torch, lambda: ch.cholesky_solve_batched(
-        Gf, rf, regf), 20)
+    lat = {rb: latency_numbers(
+               torch, lambda: ch.cholesky_solve_batched(Gb, rhsb, regb),
+               library_on(Gb, rhsb, regb), rb),
+           flat_w: latency_numbers(
+               torch, lambda: ch.cholesky_solve_batched(Gf, rf, regf),
+               library_on(Gf, rf, regf), flat_w),
+           b: latency_numbers(
+               torch, lambda: ch.cholesky_solve_batched(G, rhs, reg),
+               library, b)}
     bound_ms, bound_by = bound(solve_bytes(b, k), solve_flops(b, k))
     log(f"# B1 cholesky_solve_batched k={k} B={b}: max_abs_err={err:.3e} "
-        f"(B={rb}: {err_b:.3e}; flat W={flat_w}: {err_f:.3e}; library vs "
+        f"(boundary B={sorted(regimes)}: {err_b:.3e}, resident {resident}; "
+        f"flat W={flat_w}: {err_f:.3e}; library vs "
         f"plain {lib_err:.3e}) ms={ms:.4f} plain_ms={plain_ms:.3f} "
-        f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}); "
-        f"B={rb} ms={block_ms:.4f}; B={flat_w} ms={flat_ms:.4f}")
+        f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+    by_batch = per_batch(lat, k)
+    for n, v in by_batch.items():
+        log(f"# B1 B={n} ({regimes.get(int(n), 'throughput')}): device_ms="
+            f"{v['device_ms']:.5f} host_us={v['host_us']:.1f} "
+            f"library_device_ms={v['library_device_ms']:.5f} "
+            f"bound_ms={v['bound_ms']:.5f}")
     return dict(k=k, batch=b, max_abs_err=max(err, err_b, err_f), ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, resident=resident,
+                regime_by_batch=regimes, by_batch=by_batch)
+
+
+def per_batch(lat, k, counts=None):
+    """The latency numbers by batch, each with its bound; ``counts(n)``
+    gives the (bytes, flops) of n systems (default: the plain solve's)."""
+    counts = counts or (lambda n: (solve_bytes(n, k), solve_flops(n, k)))
+    return {str(n): dict(v, bound_ms=bound(*counts(n))[0])
+            for n, v in lat.items()}
 
 
 def hot_slab_sample(torch, layout, b, dev):
@@ -316,10 +397,15 @@ def hot_slab_sample(torch, layout, b, dev):
 
 
 def phase_b2(torch, dev, hv, k=RANK):
+    """B2 at B=65,536 on rows of the main path's hot slab, at the batches of
+    both regimes and their boundary, with both weightings; device time
+    (profiler) and host cost at 256 rows and 65,536."""
     from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.probes.solve_latency import (
+        random_systems)
     b, c = hv.shape
     gen = torch.Generator(device=dev).manual_seed(2)
-    G, rhs, reg = random_systems(torch, gen, b, k, 40, dev)
+    G, rhs, reg = random_systems(b, k, 40, gen, dev)
     vh = 0.3 * torch.randn(c, k, generator=gen, device=dev)
     x = ch.cholesky_solve_hot(G, rhs, reg, hv, vh)
     ref = ch.cholesky_solve_hot_plain(G, rhs, reg, hv, vh)
@@ -330,17 +416,40 @@ def phase_b2(torch, dev, hv, k=RANK):
     err_i, ok_i = compare(torch, xi, ch.cholesky_solve_hot_plain(
         G, rhs, reg, hv, vh, alpha=2.0))
     check(ok_i, f"implicit hot solve disagrees (max abs err {err_i:.3e})")
+    check(torch.equal(x, ch.cholesky_solve_hot(G, rhs, reg, hv, vh)),
+          "cholesky_solve_hot is not bitwise repeatable")
+    err_b, resident, regimes = boundary_check(
+        torch, "cholesky_solve_hot", ch.cholesky_solve_hot,
+        ch.cholesky_solve_hot_plain, (G, rhs, reg, hv, vh), k, c)
+    err_bi, _, _ = boundary_check(
+        torch, "cholesky_solve_hot",
+        lambda *a: ch.cholesky_solve_hot(*a, alpha=2.0),
+        lambda *a: ch.cholesky_solve_hot_plain(*a, alpha=2.0),
+        (G, rhs, reg, hv, vh), k, c)
+    # zero and identity systems with rhs 0 and no hot entries solve to
+    # exactly 0 in both regimes
+    for nz in (8, resident + 1):
+        Gz = torch.zeros(nz, k, k, device=dev)
+        Gz[nz // 2:] = torch.eye(k, device=dev)
+        z = ch.cholesky_solve_hot(Gz, torch.zeros(nz, k, device=dev),
+                                  torch.zeros(nz, device=dev),
+                                  torch.zeros_like(hv[:nz]), vh)
+        check(bool((z == 0).all()),
+              f"zero / identity hot systems did not solve to 0 (B={nz})")
     rb = ch.block_batch(k)
     blk = (G[:rb].contiguous(), rhs[:rb], reg[:rb], hv[:rb].contiguous(), vh)
-    err_b, ok_b = compare(torch, ch.cholesky_solve_hot(*blk),
-                          ch.cholesky_solve_hot_plain(*blk))
-    check(ok_b, f"{rb}-row hot block disagrees (max abs err {err_b:.3e})")
+    xb = ch.cholesky_solve_hot(*blk)
+    check(torch.equal(xb, ch.cholesky_solve_hot(*blk)),
+          f"cholesky_solve_hot is not bitwise repeatable at B={rb}")
+    eye = torch.eye(k, device=dev)
 
-    def library():
-        G2, rhs2 = ch.fold_hot(G, rhs, hv, vh, None)
-        A = G2 + reg[:, None, None] * torch.eye(k, device=dev)
-        return torch.cholesky_solve(rhs2[:, :, None],
-                                    torch.linalg.cholesky(A))
+    def library_on(Gs, rs, gs, hs):
+        def library():
+            G2, rhs2 = ch.fold_hot(Gs, rs, hs, vh, None)
+            return torch.cholesky_solve(
+                rhs2[:, :, None], torch.linalg.cholesky(
+                    G2 + gs[:, None, None] * eye))
+        return library
 
     nnz = int((hv != 0).sum())
     ms = time_ms(torch, lambda: ch.cholesky_solve_hot(G, rhs, reg, hv, vh),
@@ -348,29 +457,46 @@ def phase_b2(torch, dev, hv, k=RANK):
     plain_ms = time_ms(
         torch, lambda: ch.cholesky_solve_hot_plain(G, rhs, reg, hv, vh), 2,
         warm=1)
-    lib_ms = time_ms(torch, library, 5)
-    block_ms = time_ms(torch, lambda: ch.cholesky_solve_hot(*blk), 50)
-    # each nonzero hot entry adds a symmetric rank-1 term, k(k+1) flops for
-    # its lower triangle, and 2k flops to the rhs
-    n_bytes = solve_bytes(b, k) + 2.0 * b * c + 4.0 * c * k
-    n_flops = solve_flops(b, k) + (k * (k + 1) + 2.0 * k) * nnz
-    bound_ms, bound_by = bound(n_bytes, n_flops)
+    lib_ms = time_ms(torch, library_on(G, rhs, reg, hv), 5)
+    lat = {rb: latency_numbers(torch, lambda: ch.cholesky_solve_hot(*blk),
+                               library_on(*blk[:4]), rb),
+           b: latency_numbers(
+               torch, lambda: ch.cholesky_solve_hot(G, rhs, reg, hv, vh),
+               library_on(G, rhs, reg, hv), b)}
+
+    def hot_bound(n):
+        # each nonzero hot entry adds a symmetric rank-1 term, k(k+1)
+        # flops for its lower triangle, and 2k flops to the rhs
+        nz = nnz if n == b else int((hv[:n] != 0).sum())
+        return (solve_bytes(n, k) + 2.0 * n * c + 4.0 * c * k,
+                solve_flops(n, k) + (k * (k + 1) + 2.0 * k) * nz)
+
+    bound_ms, bound_by = bound(*hot_bound(b))
+    by_batch = per_batch(lat, k, hot_bound)
     log(f"# B2 cholesky_solve_hot k={k} C={c} B={b} hot nnz={nnz} "
         f"({nnz / (b * c):.3f} dense): max_abs_err={err:.3e} "
-        f"(implicit {err_i:.3e}; B={rb}: {err_b:.3e}) ms={ms:.4f} "
+        f"(implicit {err_i:.3e}; boundary B={sorted(regimes)}: "
+        f"{max(err_b, err_bi):.3e}, resident {resident}) ms={ms:.4f} "
         f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.4f} "
-        f"bound_ms={bound_ms:.4f} ({bound_by}); B={rb} ms={block_ms:.4f}")
-    return dict(k=k, batch=b, max_abs_err=max(err, err_i, err_b), ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+        f"bound_ms={bound_ms:.4f} ({bound_by})")
+    for n, v in by_batch.items():
+        log(f"# B2 B={n}: device_ms={v['device_ms']:.5f} "
+            f"host_us={v['host_us']:.1f} library_device_ms="
+            f"{v['library_device_ms']:.5f} bound_ms={v['bound_ms']:.5f}")
+    return dict(k=k, batch=b, max_abs_err=max(err, err_i, err_b, err_bi),
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, resident=resident,
+                regime_by_batch=regimes, by_batch=by_batch)
 
 
 def variant_systems(torch, dev, b=65_536, k=RANK):
     """The variant phase's inputs: k=64 systems as phase 2's, and a second
     gram (16 random factor rows a system) for the two-operand kernel."""
+    from recommendation_models_tpu_torch.probes.solve_latency import (
+        random_systems)
     gen = torch.Generator(device=dev).manual_seed(4)
-    G, rhs, reg = random_systems(torch, gen, b, k, 48, dev)
-    G2, _, _ = random_systems(torch, gen, b, k, 16, dev)
+    G, rhs, reg = random_systems(b, k, 48, gen, dev)
+    G2, _, _ = random_systems(b, k, 16, gen, dev)
     return G, G2, rhs, reg
 
 
@@ -420,6 +546,37 @@ def phase_variants(torch, dev, G, G2, rhs, reg):
         check(ok_b, f"{name} {label}: {rb}-row block disagrees "
                     f"(max abs err {err_b:.3e})")
         del x, ref
+        extra_fields = {}
+        if name == "cholesky_solve_2g":
+            # B3 takes B1's two regimes: its boundary, exact zeros in both,
+            # and its device time and host cost at 256 rows
+            err_bd, resident, regimes = boundary_check(
+                torch, name, fn, plain, args, k)
+            err_b = max(err_b, err_bd)
+            for nz in (8, resident + 1):
+                Gz = torch.zeros(nz, k, k, device=dev)
+                Gz[nz // 2:] = torch.eye(k, device=dev)
+                z = fn(Gz, torch.zeros_like(Gz),
+                       torch.zeros(nz, k, device=dev),
+                       torch.zeros(nz, device=dev))
+                check(bool((z == 0).all()),
+                      f"zero / identity B3 systems did not solve to 0 "
+                      f"(B={nz})")
+            A = blk[0] + blk[1]
+            lat = {rb: latency_numbers(
+                torch, lambda: fn(*blk), lambda: torch.cholesky_solve(
+                    blk[2][:, :, None], torch.linalg.cholesky(
+                        A + blk[3][:, None, None] * eye)), rb)}
+            extra_fields = dict(
+                resident=resident, regime_by_batch=regimes,
+                by_batch=per_batch(lat, k, lambda n: (
+                    solve_bytes(n, k) + 4.0 * n * k * (k + 1) / 2,
+                    solve_flops(n, k) + n * k * (k + 1) / 2)))
+            v = lat[rb]
+            log(f"# B3 B={rb} ({regimes[rb]}): device_ms={v['device_ms']:.5f} "
+                f"host_us={v['host_us']:.1f} library_device_ms="
+                f"{v['library_device_ms']:.5f}; boundary B={sorted(regimes)}"
+                f" max_abs_err={err_bd:.3e}, resident {resident}")
         ms = time_ms(torch, lambda: fn(*args, *extra), 10)
         plain_ms = time_ms(torch, lambda: plain(*args, *extra), 2, warm=1)
         block_ms = time_ms(torch, lambda: fn(*blk, *extra), 50)
@@ -437,6 +594,7 @@ def phase_variants(torch, dev, G, G2, rhs, reg):
         r = results.setdefault(name, dict(k=k, batch=b, max_abs_err=0.0,
                                           instantiations={}))
         r["max_abs_err"] = max(r["max_abs_err"], err, err_b)
+        r.update(extra_fields)
         if label:
             r["instantiations"][label] = ms
         if reported.get(name, label) == label:
@@ -589,6 +747,8 @@ def phase_gather(torch, dev, ul, il):
     from recommendation_models_tpu_torch.ops import gather as ga
     from recommendation_models_tpu_torch.ops.cholesky import block_batch
     from recommendation_models_tpu_torch.probes import dma_gather
+    from recommendation_models_tpu_torch.probes.epoch_profile import (
+        warm_start)
     from recommendation_models_tpu_torch.solver.als_sweep import (
         device_buckets)
     n_table, k, n = dma_gather.N_TABLE, dma_gather.K, dma_gather.N_GATHER
@@ -692,15 +852,6 @@ def phase_gather_path(torch, dev, ul, il):
     return launches
 
 
-def warm_start(n_users, n_items):
-    """The bench's warm start: 0.01 N(0, 1) from default_rng(0)."""
-    import numpy as np
-    g = np.random.default_rng(0)
-    U0 = 0.01 * g.standard_normal((n_users, RANK)).astype(np.float32)
-    V0 = 0.01 * g.standard_normal((n_items, RANK)).astype(np.float32)
-    return U0, V0
-
-
 def phase_ml1m(torch, dev):
     """ML-1M-shaped rank-64 fits through ``ALS.fit`` against the recorded
     JAX histories: the separate-SSE history sweep by sweep, and the first
@@ -710,7 +861,10 @@ def phase_ml1m(torch, dev):
     from recommendation_models_tpu_torch.data.synthetic import (
         synthetic_ratings)
     from recommendation_models_tpu_torch.ops import cholesky as ch
-    n_users, n_items, n_obs = ML1M
+    from recommendation_models_tpu_torch.probes import SCALES
+    from recommendation_models_tpu_torch.probes.epoch_profile import (
+        warm_start)
+    n_users, n_items, n_obs = SCALES["ml1m"]
     u, i, r = synthetic_ratings(n_users, n_items, n_obs, rank=16, seed=0)
     R = sp.csr_matrix((r, (u, i)), shape=(n_users, n_items))
     U0, V0 = warm_start(n_users, n_items)
@@ -737,21 +891,10 @@ def phase_ml1m(torch, dev):
 
 def build_main_path_data():
     """ML-25M-shaped data and both auto layouts (host side, as bench.py)."""
-    from recommendation_models_tpu_torch.config import (
-        DataConfig, bucket_growth_for_rank, dense_min_degree_for_rank)
-    from recommendation_models_tpu_torch.data.layout import layout_from_coo
-    from recommendation_models_tpu_torch.data.synthetic import (
-        synthetic_ratings)
-    from recommendation_models_tpu_torch.ops.cholesky import hot_cols_auto
-    n_users, n_items, n_obs = ML25M
+    from recommendation_models_tpu_torch.probes.epoch_profile import (
+        main_path_layouts)
     t0 = time.perf_counter()
-    u, i, r = synthetic_ratings(n_users, n_items, n_obs, rank=16, seed=0)
-    dcfg = DataConfig(hot_cols=hot_cols_auto(RANK),
-                      dense_min_degree=dense_min_degree_for_rank(RANK),
-                      bucket_growth=bucket_growth_for_rank(RANK))
-    ul = layout_from_coo(u, i, r, n_users, n_items, config=dcfg)
-    il = layout_from_coo(u, i, r, n_users, n_items, transpose=True,
-                         config=dcfg)
+    (u, i, r), ul, il = main_path_layouts("ml25m", RANK)
     log(f"# ML-25M data: {r.shape[0]} obs, layouts in "
         f"{time.perf_counter() - t0:.1f}s; user {len(ul.buckets)} buckets "
         f"waste {ul.padding_waste():.2%} dense "
@@ -769,8 +912,11 @@ def phase_main_path(torch, coo):
     import scipy.sparse as sp
     from recommendation_models_tpu_torch import ALS
     from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.probes import SCALES
+    from recommendation_models_tpu_torch.probes.epoch_profile import (
+        warm_start)
     u, i, r = coo
-    n_users, n_items = ML25M[:2]
+    n_users, n_items = SCALES["ml25m"][:2]
     R = sp.csr_matrix((r, (u, i)), shape=(n_users, n_items))
     U0, V0 = warm_start(n_users, n_items)
     torch.cuda.synchronize()
@@ -803,69 +949,23 @@ def phase_main_path(torch, coo):
 def phase_epoch(torch, dev, nnz, ul, il, main_hist, profile=False):
     """epoch_seconds as bench.py times it: the solver's whole-fit loop on
     uploaded layouts, warmed up, clocked from the first sweep to the
-    history readback (the fit's only sync)."""
+    history readback (the fit's only sync); with ``profile``, one sweep's
+    device time by kernel and the device's idle share of the epoch."""
     import numpy as np
-    from recommendation_models_tpu_torch.config import SolveConfig
-    from recommendation_models_tpu_torch.ops import cholesky as ch
-    from recommendation_models_tpu_torch.solver.als_sweep import (
-        device_buckets, make_scanned_fit)
-    n_users, n_items = ul.n_rows, il.n_rows
-    ub = device_buckets(ul, ch.block_batch(RANK), dev)
-    ib = device_buckets(il, ch.block_batch(RANK), dev)
-    cfg = SolveConfig(rank=RANK, reg=0.1)
-    U0, V0 = (torch.from_numpy(a).to(dev) for a in warm_start(n_users,
-                                                                 n_items))
-    warm = make_scanned_fit(ub, ib, n_users, n_items, cfg, 1, nnz=nnz)
-    warm(U0.clone(), V0.clone())
-    fit = make_scanned_fit(ub, ib, n_users, n_items, cfg, SWEEPS, nnz=nnz)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    U, V, sse, n_done = fit(U0.clone(), V0.clone())
-    sse_h = sse.cpu().numpy()              # the one readback: the fence
-    elapsed = time.perf_counter() - t0
+    from recommendation_models_tpu_torch.probes.epoch_profile import (
+        profile_sweep, scanned_fits, time_fit)
+    fit, one, U0, V0 = scanned_fits(ul, il, nnz, dev, RANK)
+    epoch_s, U, V, sse_h, n_done = time_fit(fit, U0, V0)
     hist = [float(h) for h in np.sqrt(np.maximum(sse_h[:n_done], 0) / nnz)]
     rel = max(abs(a - b) / b for a, b in zip(hist, main_hist))
-    log(f"# main path epoch_seconds={elapsed / SWEEPS:.4f} "
-        f"({SWEEPS} sweeps in {elapsed:.3f}s; history max rel diff vs "
-        f"ALS.fit {rel:.2e})")
+    log(f"# main path epoch_seconds={epoch_s:.4f} ({SWEEPS} sweeps in "
+        f"{epoch_s * SWEEPS:.3f}s; history max rel diff vs ALS.fit "
+        f"{rel:.2e})")
     check(n_done == SWEEPS and rel <= HISTORY_RTOL,
           "the timed fit does not reproduce ALS.fit's history")
     if profile:
-        profile_sweep(torch, ub, ib, n_users, n_items, cfg, nnz, U, V,
-                      elapsed / SWEEPS)
-    return elapsed / SWEEPS
-
-
-def profile_sweep(torch, ub, ib, n_users, n_items, cfg, nnz, U, V,
-                  epoch_s):
-    """Device time of one main-path sweep by kernel (torch.profiler, device
-    activity only), and the device's idle share of the unprofiled
-    epoch_seconds."""
-    from torch.profiler import ProfilerActivity, profile
-    from recommendation_models_tpu_torch.solver.als_sweep import (
-        make_scanned_fit)
-    one = make_scanned_fit(ub, ib, n_users, n_items, cfg, 1, nnz=nnz)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        one(U, V)
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        # device rows only (kernels and copies, not runtime calls)
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((dev_us, ev.count, ev.key[:70]))
-    rows.sort(reverse=True)
-    total_ms = sum(r[0] for r in rows) / 1e3
-    log(json.dumps({"profile": {
-        "device_ms_per_sweep": round(total_ms, 3),
-        "epoch_ms": round(epoch_s * 1e3, 3),
-        "idle_share": round(1.0 - total_ms / (epoch_s * 1e3), 4),
-        "top": [{"name": n, "ms": round(t / 1e3, 3), "calls": c}
-                for t, c, n in rows[:15]]}}))
+        log(json.dumps({"profile": profile_sweep(one, U, V, epoch_s)}))
+    return epoch_s
 
 
 def main(argv) -> int:
@@ -922,6 +1022,8 @@ def main(argv) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "k": r["k"], "batch": r["batch"],
+            **{f: r[f] for f in ("resident", "regime_by_batch", "by_batch")
+               if f in r},
             **({"instantiations": r["instantiations"]}
                if "instantiations" in r else {}),
             **({"at_probe_shape": at_probe[name]} if name in at_probe

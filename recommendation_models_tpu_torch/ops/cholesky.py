@@ -34,6 +34,14 @@ Shared contract: f32 factorization, ridge added on load, pivots clamped at
 to 0. The kernels take batch-major tensors: G (B, k, k), rhs (B, k),
 reg (B,), hot slab hv (B, C) bf16, hot factor rows vh (C, k) f32.
 
+``cholesky_solve_batched``, ``cholesky_solve_hot`` and
+``cholesky_solve_2g`` each have two kernels, one per regime, and the
+wrapper picks one per launch (``latency_regime`` is the rule): a batch of
+at most the latency kernel's resident blocks (one wave, as the sweep's
+256-row blocks are) is solved one system per block in 4-column panels; a
+larger one by the persistent throughput kernel. ``forced_regime`` takes
+one kernel at every batch, to measure each on the other's ground.
+
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version for CPU tensors, and raises for anything else. Shapes beyond the
 kernel's own limits (``kernel_supported`` / ``hot_kernel_supported``) are
@@ -44,7 +52,9 @@ or to the torch fold of the hot terms, and counted in ``ROUTED``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -78,26 +88,44 @@ def block_batch(k: int) -> int:
     return 256
 
 
+def latency_regime(batch: int, resident: int) -> bool:
+    """The solve kernels' regime rule, which the wrappers apply at every
+    launch: a batch of at most ``resident`` systems, the latency kernel's
+    resident blocks on the card, fits in one wave and is solved one system
+    per block by the latency kernel; a larger batch goes to the persistent
+    throughput kernel."""
+    return batch <= resident
+
+
 def kernel_supported(k: int) -> bool:
     """Whether the CUDA kernels take systems of order k (the shared-memory
     and register tiling cap)."""
     return 1 <= k <= KMAX
 
 
-def hot_smem_bytes(k: int, c: int) -> int:
-    """Dynamic shared memory of the hot kernel's block (``smem_bytes`` in
-    csrc/cholesky_solve.cu): vh (C, kp), the column buffers, L, y, 1/L_jj,
-    the compacted hot entries and the per-warp counts."""
+def hot_smem_bytes(k: int, c: int, latency: bool = False) -> int:
+    """Dynamic shared memory of the hot kernel's block in either regime
+    (``smem_bytes`` in csrc/cholesky_solve.cu). Throughput: vh (C, kp),
+    the column buffers 2 (kp + 4), L, y, 1/L_jj, the hot weights and
+    columns (3 C) and the per-warp counts. Latency: one region of
+    max(C kp, 2 (4 kp + 20)) floats (the compacted hot rows, then the two
+    panel buffers), L, y, 1/L_jj, the hot weights (2 C) and the per-warp
+    counts."""
     kp = (k + 3) // 4 * 4
     tiles = (kp // 4) * (kp // 4 + 1) // 2
     warps = (160 if tiles <= 160 else 256) // 32
-    return 4 * (c * kp + 2 * (kp + 4) + kp * (kp + 1) + 2 * kp + 3 * c) \
-        + 4 * warps
+    region = (max(c * kp, 2 * (4 * kp + 20)) if latency
+              else c * kp + 2 * (kp + 4))
+    return 4 * (region + kp * (kp + 1) + 2 * kp + 2 * c) \
+        + 4 * ((0 if latency else c) + warps)
 
 
+@functools.lru_cache(maxsize=None)
 def hot_kernel_supported(k: int, c: int) -> bool:
     """Whether the fused hot kernel takes order k with a C-wide hot block:
-    C up to the layout policy's widest (1024), with vh in shared memory."""
+    C up to the layout policy's widest (1024), with vh in shared memory (the
+    throughput kernel's block; the latency kernel's is never larger where
+    it matters, and the launch takes the throughput kernel when it is)."""
     return (kernel_supported(k) and 1 <= c <= HOT_CMAX
             and hot_smem_bytes(k, c) <= SMEM_MAX)
 
@@ -342,6 +370,8 @@ SOURCES = {
         "cholesky_solve_hot": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                ctypes.c_float, _P],
         "cholesky_solve_2g": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "cholesky_solve_resident": [_I, _I, _I,
+                                    ctypes.POINTER(ctypes.c_longlong)],
     },
     "cholesky_variants": {
         "cholesky_solve_rank1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -361,8 +391,11 @@ def _lib(source: str = "cholesky_solve"):
         from recommendation_models_tpu_torch.ops.build import load
         lib = load(source)
         for name, argtypes in SOURCES[source].items():
-            getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = _I
+            # a regime kernel's latency export takes the same arguments
+            lat = (name + "_lat",) if name in REGIME_KINDS else ()
+            for fn in (name, *lat):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = _I
         lib.cholesky_error_string.argtypes = [_I]
         lib.cholesky_error_string.restype = ctypes.c_char_p
         lib.cholesky_kernel_kmax.restype = _I
@@ -380,6 +413,11 @@ def _lib(source: str = "cholesky_solve"):
 
 
 def _check(name, t, shape, dtype, device):
+    # one test on the launch path (the device by its index, the cheapest
+    # query), the reason only when it fails
+    if (t.dtype is dtype and t.shape == shape
+            and t.get_device() == device.index and t.is_contiguous()):
+        return
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -387,8 +425,60 @@ def _check(name, t, shape, dtype, device):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    raise ValueError(f"{name} must be contiguous")
+
+
+def _stream(dev: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on the CUDA device ``dev``
+    (a launch goes there), read without building a Stream object."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+REGIME_KINDS = ("cholesky_solve_batched", "cholesky_solve_hot",
+                "cholesky_solve_2g")
+_forced = None       # forced_regime's choice; None: latency_regime picks
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(name: str, k: int, c: int, device: int) -> int:
+    """The latency kernel of ``name`` at (k, C): its resident blocks on
+    card ``device`` (the current one), asked once."""
+    resident = ctypes.c_longlong(0)
+    lib = _lib()
+    _raise_on(lib.cholesky_solve_resident(REGIME_KINDS.index(name), k, c,
+                                          ctypes.byref(resident)), name, lib)
+    return resident.value
+
+
+def solve_regime(name: str, batch: int, k: int, c: int = 0):
+    """(latency?, resident) of a launch of ``name`` (one of
+    ``REGIME_KINDS``) at (batch, k, C) on the current card: the latency
+    kernel's resident blocks, and whether ``latency_regime`` puts the batch
+    under them (``forced_regime`` aside). Launches nothing."""
+    resident = _resident(name, k, c, torch.cuda.current_device())
+    return latency_regime(batch, resident), resident
+
+
+def _pick(name: str, batch: int, k: int, c: int, device: int) -> str:
+    """The C export a launch takes: ``name`` (throughput) or
+    ``name + "_lat"``."""
+    lat = _forced
+    if lat is None:
+        lat = latency_regime(batch, _resident(name, k, c, device))
+    return name + "_lat" if lat else name
+
+
+@contextlib.contextmanager
+def forced_regime(latency: bool):
+    """Inside the block every launch of a ``REGIME_KINDS`` kernel takes the
+    latency (True) or the throughput (False) kernel, whatever its batch:
+    both take any batch, so each can be timed on the other's ground."""
+    global _forced
+    _forced = bool(latency)
+    try:
+        yield
+    finally:
+        _forced = None
 
 
 def _raise_on(err: int, name: str, lib) -> None:
@@ -398,9 +488,11 @@ def _raise_on(err: int, name: str, lib) -> None:
 
 
 def _device_kind(t: torch.Tensor) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {t.device}")
-    return t.device.type
+    if t.is_cuda:
+        return "cuda"
+    if t.is_cpu:
+        return "cpu"
+    raise ValueError(f"unsupported device {t.device}")
 
 
 def _launch_solve(name, source, G, rhs, reg, G2=None, ints=()):
@@ -418,10 +510,11 @@ def _launch_solve(name, source, G, rhs, reg, G2=None, ints=()):
     if b == 0:
         return out
     grams = (G.data_ptr(),) if G2 is None else (G.data_ptr(), G2.data_ptr())
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _stream(dev)
     lib = _lib(source)
-    err = getattr(lib, name)(*grams, rhs.data_ptr(), reg.data_ptr(),
-                             out.data_ptr(), b, k, *ints, stream)
+    fn = _pick(name, b, k, 0, dev.index) if name in REGIME_KINDS else name
+    err = getattr(lib, fn)(*grams, rhs.data_ptr(), reg.data_ptr(),
+                           out.data_ptr(), b, k, *ints, stream)
     _raise_on(err, name, lib)
     LAUNCHES[name] += 1
     return out
@@ -463,9 +556,9 @@ def cholesky_solve_hot(G: torch.Tensor, rhs: torch.Tensor, reg: torch.Tensor,
     out = torch.empty((b, k), dtype=torch.float32, device=dev)
     if b == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _stream(dev)
     lib = _lib()
-    err = lib.cholesky_solve_hot(
+    err = getattr(lib, _pick("cholesky_solve_hot", b, k, c, dev.index))(
         G.data_ptr(), rhs.data_ptr(), reg.data_ptr(), hv.data_ptr(),
         vh.data_ptr(), out.data_ptr(), b, k, c,
         0 if alpha is None else 1, 0.0 if alpha is None else float(alpha),
@@ -634,5 +727,6 @@ __all__ = ["cholesky_solve_batched", "cholesky_solve_hot",
            "cholesky_solve_flat", "fold_hot",
            "anchor_solve", "block_batch", "kernel_supported",
            "hot_kernel_supported", "hot_smem_bytes", "hot_cols_cap",
-           "hot_cols_auto", "KERNELS", "RANK1_SCHEDULES",
+           "hot_cols_auto", "latency_regime", "solve_regime",
+           "forced_regime", "REGIME_KINDS", "KERNELS", "RANK1_SCHEDULES",
            "LAUNCHES", "ROUTED", "reset_counts"]

@@ -58,7 +58,8 @@ def _hot_case(rng, b, k, c, density=0.4):
     return hv, vh
 
 
-@pytest.mark.parametrize("b,k", [(24, 8), (40, 16), (64, 32), (9, 24)])
+@pytest.mark.parametrize("b,k", [(24, 8), (40, 16), (64, 32), (9, 24),
+                                 (1, 8), (257, 8)])
 def test_plain_matches_pallas_kernel(rng, b, k):
     G = _spd(rng, b, k)
     rhs = rng.standard_normal((b, k)).astype(np.float32)
@@ -221,6 +222,23 @@ def test_kernel_limits_and_routing_predicates():
     assert pchol.hot_kernel_supported(16, 1024)
     assert pchol.hot_kernel_supported(128, 256)
     assert not pchol.hot_kernel_supported(16, 1025)
+    # smem_bytes of csrc/cholesky_solve.cu, both regimes: throughput
+    # 4 (C kp + 2 (kp + 4) + kp (kp + 1) + 2 kp + 2 C) + 4 (C + warps),
+    # latency 4 (max(C kp, 2 (4 kp + 20)) + kp (kp + 1) + 2 kp + 2 C)
+    # + 4 warps
+    assert pchol.hot_smem_bytes(64, 128) == 4 * (
+        128 * 64 + 2 * 68 + 64 * 65 + 2 * 64 + 2 * 128) + 4 * (128 + 5)
+    assert pchol.hot_smem_bytes(64, 128, latency=True) == 4 * (
+        128 * 64 + 64 * 65 + 2 * 64 + 2 * 128) + 4 * 5
+    assert pchol.hot_smem_bytes(7, 1, latency=True) == 4 * (
+        2 * (4 * 8 + 20) + 8 * 9 + 2 * 8 + 2) + 4 * 5
+    assert pchol.hot_smem_bytes(128, 32) == 4 * (
+        32 * 128 + 2 * 132 + 128 * 129 + 2 * 128 + 2 * 32) + 4 * (32 + 8)
+    # wherever the hot kernel is taken, the latency block fits as well
+    assert all(pchol.hot_smem_bytes(k, c, latency=True) <= pchol.SMEM_MAX
+               for k in range(1, pchol.KMAX + 1)
+               for c in (1, 8, 128, 256, 512, 1024)
+               if pchol.hot_kernel_supported(k, c))
     # vh (C, k) past the block's shared memory is routed
     assert pchol.hot_smem_bytes(64, 1024) > pchol.SMEM_MAX
     assert not pchol.hot_kernel_supported(64, 1024)
@@ -238,51 +256,201 @@ def test_kernel_limits_and_routing_predicates():
                                      torch.empty(2, device="meta"))
 
 
+@pytest.mark.parametrize("resident", [1, 396, 528, 924])
+def test_latency_regime_boundary(resident):
+    """The regime rule as a pure function: a batch of at most the latency
+    kernel's resident blocks (one wave) takes the latency kernel, a larger
+    one the persistent throughput kernel."""
+    assert pchol.latency_regime(1, resident)
+    assert pchol.latency_regime(resident, resident)
+    assert not pchol.latency_regime(resident + 1, resident)
+    assert pchol.latency_regime(max(resident - 1, 1), resident)
+    assert not pchol.latency_regime(65_536, resident)
+    # the main path's 256-row block is a latency launch at the card's
+    # measured counts, its 4,201-row dense block a throughput one
+    assert pchol.latency_regime(256, resident) == (resident >= 256)
+    assert not pchol.latency_regime(4_201, resident)
+
+
+def test_forced_regime_picks_one_kernel():
+    """Inside ``forced_regime`` every launch takes the named regime's C
+    export whatever its batch; outside it the rule picks again."""
+    with pchol.forced_regime(True):
+        assert pchol._pick("cholesky_solve_hot", 65_536, 64, 128, 0) == \
+            "cholesky_solve_hot_lat"
+    with pchol.forced_regime(False):
+        assert pchol._pick("cholesky_solve_batched", 1, 64, 0, 0) == \
+            "cholesky_solve_batched"
+    with pytest.raises(RuntimeError):
+        with pchol.forced_regime(True):
+            raise RuntimeError
+    assert pchol._forced is None
+
+
+def _gpu_systems(gen, b, k, dev):
+    """b SPD systems A Aᵀ + 0.5 I with rhs and a ridge, made on the card."""
+    A = torch.randn(b, k, k, generator=gen, device=dev)
+    G = (A @ A.transpose(1, 2)
+         + 0.5 * torch.eye(k, device=dev)).contiguous()
+    rhs = torch.randn(b, k, generator=gen, device=dev)
+    reg = 0.05 + 0.15 * torch.rand(b, generator=gen, device=dev)
+    return G, rhs, reg
+
+
+def _gpu_hot(gen, b, k, c, dev):
+    """A (b, C) bf16 hot slab whose first rows are all zero, the next all
+    nonzero and the rest 28% nonzero (half-star values), and vh (C, k)."""
+    stars = torch.randint(1, 11, (b, c), generator=gen, device=dev) * 0.5
+    keep = torch.rand(b, c, generator=gen, device=dev) < 0.28
+    keep[: b // 3] = False
+    keep[b // 3: 2 * b // 3] = True
+    hv = torch.where(keep, stars, 0.0).to(torch.bfloat16)
+    vh = 0.3 * torch.randn(c, k, generator=gen, device=dev)
+    return hv, vh
+
+
+def _zero_identity_batch(gen, b, k, dev):
+    """b systems, the first half all-zero or identity with rhs 0 (they
+    must solve to exactly 0), the rest random SPD."""
+    G, rhs, reg = _gpu_systems(gen, b, k, dev)
+    h = b // 2
+    G[:h] = 0.0
+    G[1:h:2] = torch.eye(k, device=dev)
+    rhs[:h] = 0.0
+    reg[:h] = 0.0
+    return G, rhs, reg, h
+
+
+def _batches(resident, full=True):
+    """The regimes' boundary: 1, 255, 256, 257 and the latency kernel's
+    resident count and its neighbours (``full=False``: 1, 257 and the
+    count's neighbours)."""
+    if full:
+        bs = {1, 255, 256, 257, resident - 1, resident, resident + 1}
+    else:
+        bs = {1, 257, resident, resident + 1}
+    return sorted(b for b in bs if b >= 1)
+
+
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions():
-    """Each CUDA kernel against its plain version on the card, at the main
-    path's k=64 (C=128 for the hot kernel), at the layout policy's hot
-    widths of ranks 32 and 16 (C=512, 1024) and at the limits; shapes past
-    the limits are routed (counted) instead of launched."""
+    """Each CUDA kernel of the main path (and B3, its two-operand form)
+    against its plain version on the card, in both regimes and at their
+    boundary: B in {1, 255, 256, 257} and the latency kernel's resident
+    count (as the card reports it) and that count +- 1; k in {1, 7, 63, 64,
+    65, 128}; the hot kernel at C in {1, 128, 1024} and at the layout
+    policy's hot widths of ranks 32 and 16 (C=512, 1024) and the widest
+    k=128 block (C=256), with hot rows all zero, all nonzero and 28%
+    nonzero, explicit weights and alpha=2.0. At every batch the wrapper
+    takes the kernel that ``latency_regime`` names (bitwise equal to it),
+    and the other regime's kernel agrees with the plain version too. Zero
+    and identity systems solve to exactly 0 in each regime, and every
+    kernel repeats bitwise. Shapes past the limits are routed (counted)
+    instead of launched."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    rng = np.random.default_rng(0)
     dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
     pchol.reset_counts()
-    n_launch = 0
-    for b, k in ((300, 64), (70, 128), (33, 10), (5, 1), (17, 136)):
-        G = _spd(rng, b, k)
-        rhs = rng.standard_normal((b, k)).astype(np.float32)
-        reg = rng.uniform(0.05, 0.2, b).astype(np.float32)
-        args = [_t(a).to(dev) for a in (G, rhs, reg)]
-        x = pchol.cholesky_solve_batched(*args).cpu().numpy()
-        ref = pchol.cholesky_solve_plain(*args).cpu().numpy()
-        _close(x, ref)
-        n_launch += pchol.kernel_supported(k)
-    assert pchol.LAUNCHES["cholesky_solve_batched"] == n_launch
+    launches = dict.fromkeys(pchol.LAUNCHES, 0)
+    ks = (1, 7, 63, 64, 65, 128)
+
+    def regime(name, b, k, c=0):
+        lat, resident = pchol.solve_regime(name, b, k, c)
+        assert resident >= 1
+        return lat, resident
+
+    def run(name, fn, plain, args, lat, kw=None):
+        """The wrapper, then each regime's kernel, against the plain
+        version; the wrapper's result is the named regime's, bitwise."""
+        kw = kw or {}
+        x = fn(*args, **kw)
+        ref = plain(*args, **kw).cpu().numpy()
+        _close(x.cpu().numpy(), ref)
+        with pchol.forced_regime(lat):
+            assert torch.equal(x, fn(*args, **kw)), f"{name} B={len(x)}"
+        with pchol.forced_regime(not lat):
+            _close(fn(*args, **kw).cpu().numpy(), ref)
+        launches[name] += 3
+        return x
+
+    for k in ks:
+        for name in ("cholesky_solve_batched", "cholesky_solve_2g"):
+            _, resident = regime(name, 1, k)
+            seen = set()
+            for b in _batches(resident):
+                lat = regime(name, b, k)[0]
+                seen.add(lat)
+                G, rhs, reg = _gpu_systems(gen, b, k, dev)
+                if name == "cholesky_solve_2g":
+                    G2 = _gpu_systems(gen, b, k, dev)[0]
+                    run(name, pchol.cholesky_solve_2g,
+                        pchol.cholesky_solve_2g_plain, (G, G2, rhs, reg), lat)
+                else:
+                    run(name, pchol.cholesky_solve_batched,
+                        pchol.cholesky_solve_plain, (G, rhs, reg), lat)
+            assert seen == {True, False}
+    # the hot kernel: the main path's (k, C) = (64, 128) at every batch of
+    # the boundary and both weightings; the layout policy's widths of ranks
+    # 32 and 16 and the k=128 block at fewer batches, both weightings; the
+    # other widths at fewer batches, one weighting each
+    policy = ((32, 512), (16, 1024), (128, 256))
+    n_routed = 0
+    for k, c in [(k, c) for k in ks for c in (1, 128, 1024)] + list(policy):
+        if not pchol.hot_kernel_supported(k, c):
+            hv, vh = _gpu_hot(gen, 17, k, c, dev)
+            pchol.cholesky_solve_hot(*_gpu_systems(gen, 17, k, dev), hv, vh)
+            n_routed += 1
+            launches["cholesky_solve_batched"] += 1   # the fold's solve
+            continue
+        _, resident = regime("cholesky_solve_hot", 1, k, c)
+        main = (k, c) == (64, 128)
+        seen = set()
+        for i, b in enumerate(_batches(resident, full=main)):
+            lat = regime("cholesky_solve_hot", b, k, c)[0]
+            seen.add(lat)
+            G, rhs, reg = _gpu_systems(gen, b, k, dev)
+            hv, vh = _gpu_hot(gen, b, k, c, dev)
+            both = main or (k, c) in policy
+            for alpha in ((None, 2.0) if both else ((None, 2.0)[i % 2],)):
+                run("cholesky_solve_hot", pchol.cholesky_solve_hot,
+                    pchol.cholesky_solve_hot_plain, (G, rhs, reg, hv, vh),
+                    lat, dict(alpha=alpha))
+        assert seen == {True, False}
+    assert n_routed > 0
+    # zero and identity systems solve to exactly 0, and each kernel repeats
+    # bitwise, in both regimes
+    for k, c in ((64, 128), (7, 1024)) + policy:
+        _, resident = regime("cholesky_solve_hot", 1, k, c)
+        _, resident_1 = regime("cholesky_solve_batched", 1, k)
+        for b in (8, resident + 1, resident_1 + 1):
+            G, rhs, reg, h = _zero_identity_batch(gen, b, k, dev)
+            G2 = torch.zeros_like(G)
+            hv, vh = _gpu_hot(gen, b, k, c, dev)
+            hv[:h] = 0
+            cases = (
+                ("cholesky_solve_batched", pchol.cholesky_solve_batched,
+                 (G, rhs, reg)),
+                ("cholesky_solve_2g", pchol.cholesky_solve_2g,
+                 (G, G2, rhs, reg)),
+                ("cholesky_solve_hot", pchol.cholesky_solve_hot,
+                 (G, rhs, reg, hv, vh)))
+            for name, fn, args in cases:
+                x = fn(*args)
+                assert bool(torch.isfinite(x).all())
+                assert torch.equal(x[:h], torch.zeros_like(x[:h])), name
+                assert torch.equal(x, fn(*args)), f"{name} not bitwise"
+                launches[name] += 2
+    assert {n: pchol.LAUNCHES[n] for n in pchol.REGIME_KINDS} == {
+        n: launches[n] for n in pchol.REGIME_KINDS}
+    assert pchol.ROUTED["cholesky_solve_hot"] == n_routed
+    # past KMAX the plain kernels are routed to the anchor
+    G, rhs, reg = _gpu_systems(gen, 17, 136, dev)
+    _close(pchol.cholesky_solve_batched(G, rhs, reg).cpu().numpy(),
+           pchol.anchor_solve(G, rhs, reg).cpu().numpy())
     assert pchol.ROUTED["cholesky_solve_batched"] == 1
-    hot_cases = ((300, 64, 128, None), (100, 64, 128, 2.0),
-                 (40, 128, 256, None), (60, 32, 512, None),
-                 (40, 16, 1024, 2.0), (20, 64, 1024, None))
-    for b, k, c, alpha in hot_cases:
-        G = _spd(rng, b, k)
-        rhs = rng.standard_normal((b, k)).astype(np.float32)
-        reg = rng.uniform(0.05, 0.2, b).astype(np.float32)
-        hv, vh = _hot_case(rng, b, k, c)
-        args = [_t(G).to(dev), _t(rhs).to(dev), _t(reg).to(dev),
-                _t(hv).to(dev, torch.bfloat16), _t(vh).to(dev)]
-        x = pchol.cholesky_solve_hot(*args, alpha=alpha).cpu().numpy()
-        ref = pchol.cholesky_solve_hot_plain(*args, alpha=alpha)
-        _close(x, ref.cpu().numpy())
-    assert pchol.LAUNCHES["cholesky_solve_hot"] == 5
-    assert pchol.ROUTED["cholesky_solve_hot"] == 1
-    # zero and identity-padded systems solve to exactly 0 on the card
     k = 64
     G = torch.zeros(4, k, k, device=dev)
-    G[2:] = torch.eye(k, device=dev)
-    z = pchol.cholesky_solve_batched(G, torch.zeros(4, k, device=dev),
-                                     torch.zeros(4, device=dev))
-    assert torch.equal(z, torch.zeros_like(z))
     with pytest.raises(TypeError):
         pchol.cholesky_solve_batched(G.double(), torch.zeros(4, k, device=dev),
                                      torch.zeros(4, device=dev))

@@ -37,8 +37,10 @@ _PROBE = textwrap.dedent("""
     import recommendation_models_tpu_torch.ops.solve
     import recommendation_models_tpu_torch.probes.ablate_epoch
     import recommendation_models_tpu_torch.probes.dma_gather
+    import recommendation_models_tpu_torch.probes.epoch_profile
     import recommendation_models_tpu_torch.probes.gather_budget
     import recommendation_models_tpu_torch.probes.gather_rates
+    import recommendation_models_tpu_torch.probes.solve_latency
     import recommendation_models_tpu_torch.probes.solve_variants
     import recommendation_models_tpu_torch.solver.als_sweep
     new = set(sys.modules) - before
