@@ -29,7 +29,11 @@ non-zero before the result lines are printed:
    instantiations, ``cholesky_solve_panel``, ``cholesky_solve_schur``
    (srows 1 and 2) and ``cholesky_solve_dual``; ``cholesky_solve_2g`` also
    at B1's boundary batches, with exact zeros in both regimes and its
-   device time and host cost at 256 rows. Then the solve-variant path
+   device time and host cost at 256 rows; ``cholesky_solve_rank1`` (each
+   instantiation) and ``cholesky_solve_panel`` also at B = 1, 255, 256,
+   257, their own resident blocks (printed, with the blocks per SM) and
+   that count +- 1, and 4,201, each repeated bitwise, and with exact zeros
+   for identity and zero systems. Then the solve-variant path
    as a user runs it, with the launch counts set to 0 just before and read
    just after: ``solve_spd_t(Gt2=)`` at k=64, B=65,536, and the variant
    probe (``probes/solve_variants.py``) at k=128, B=65,536 with pair, rank1,
@@ -56,7 +60,9 @@ non-zero before the result lines are printed:
    epoch_seconds as ``bench.py`` times it: the solver's whole-fit loop on
    uploaded layouts, which must reproduce the fit's history;
 6. one JSON line describing every kernel, then the result line. Each
-   entry's numbers are at its ``k`` and ``batch``; B1, B2 and B3 also have
+   entry's numbers are at its ``k`` and ``batch``; B4 and B5a have
+   ``resident`` (their kernel's resident blocks at k=64; B4 per
+   instantiation in ``resident_by_instantiation``); B1, B2 and B3 also have
    ``resident`` (the latency kernel's resident blocks), ``regime_by_batch``
    and ``by_batch`` (device ms, host µs, library device ms and bound ms at
    each timed batch); a kernel the probe runs also has ``at_probe_shape``,
@@ -142,8 +148,8 @@ SOURCE = {
     "cholesky_solve_batched": _CSRC + "cholesky_solve.cu",
     "cholesky_solve_hot": _CSRC + "cholesky_solve.cu",
     "cholesky_solve_2g": _CSRC + "cholesky_solve.cu",
-    "cholesky_solve_rank1": _CSRC + "cholesky_variants.cu",
-    "cholesky_solve_panel": _CSRC + "cholesky_variants.cu",
+    "cholesky_solve_rank1": _CSRC + "cholesky_rank_panel.cu",
+    "cholesky_solve_panel": _CSRC + "cholesky_rank_panel.cu",
     "cholesky_solve_schur": _CSRC + "cholesky_variants.cu",
     "cholesky_solve_dual": _CSRC + "cholesky_variants.cu",
     "gather_rows_sum": _CSRC + "gather.cu",
@@ -500,6 +506,35 @@ def variant_systems(torch, dev, b=65_536, k=RANK):
     return G, G2, rhs, reg
 
 
+def persistent_boundary(torch, name, fn, plain, args, extra, resident, dev):
+    """A persistent-grid kernel against its plain version at B = 1, 255,
+    256, 257, its resident blocks and that count +- 1, and 4,201 (the first
+    b systems of ``args``), each repeated bitwise; then identity and zero
+    systems with rhs 0, inside one wave and past it, must give exactly 0.
+    Returns the max abs error."""
+    k = args[0].shape[1]
+    err_all = 0.0
+    for b in sorted({1, 255, 256, 257, resident - 1, resident, resident + 1,
+                     4_201}):
+        sl = tuple(a[:b].contiguous() for a in args)
+        x = fn(*sl, *extra)
+        err, ok = compare(torch, x, plain(*sl, *extra))
+        check(ok, f"{name} {extra} disagrees with its plain version at B={b}"
+                  f" (max abs err {err:.3e})")
+        check(torch.equal(x, fn(*sl, *extra)),
+              f"{name} {extra} is not bitwise repeatable at B={b}")
+        err_all = max(err_all, err)
+    for nz in (8, resident + 1):
+        Gz = torch.zeros(nz, k, k, device=dev)
+        Gz[nz // 2:] = torch.eye(k, device=dev)
+        z = fn(Gz, torch.zeros(nz, k, device=dev), torch.zeros(nz, device=dev),
+               *extra)
+        check(bool((z == 0).all()),
+              f"zero / identity systems did not solve to 0 in {name} "
+              f"{extra} (B={nz})")
+    return err_all
+
+
 def phase_variants(torch, dev, G, G2, rhs, reg):
     """Each solve-variant kernel (every instantiation) against its plain
     version at k=64, B=65,536 and at the 256-row block, with its time, its
@@ -547,6 +582,21 @@ def phase_variants(torch, dev, G, G2, rhs, reg):
                     f"(max abs err {err_b:.3e})")
         del x, ref
         extra_fields = {}
+        if name in ("cholesky_solve_rank1", "cholesky_solve_panel"):
+            res = ch.variant_resident(name, k, *extra)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            err_bd = persistent_boundary(torch, name, fn, plain, args, extra,
+                                         res, dev)
+            err_b = max(err_b, err_bd)
+            by_inst = results.get(name, {}).get("resident_by_instantiation",
+                                                {})
+            by_inst[label or "panel"] = res
+            extra_fields = dict(resident_by_instantiation=by_inst)
+            if reported.get(name, label) == label:
+                extra_fields["resident"] = res
+            log(f"# {' '.join(filter(None, (name, label)))} k={k}: resident "
+                f"{res} blocks ({res / sms:g} per SM); boundary "
+                f"max_abs_err={err_bd:.3e}")
         if name == "cholesky_solve_2g":
             # B3 takes B1's two regimes: its boundary, exact zeros in both,
             # and its device time and host cost at 256 rows
@@ -1022,8 +1072,8 @@ def main(argv) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "k": r["k"], "batch": r["batch"],
-            **{f: r[f] for f in ("resident", "regime_by_batch", "by_batch")
-               if f in r},
+            **{f: r[f] for f in ("resident", "resident_by_instantiation",
+                                 "regime_by_batch", "by_batch") if f in r},
             **({"instantiations": r["instantiations"]}
                if "instantiations" in r else {}),
             **({"at_probe_shape": at_probe[name]} if name in at_probe

@@ -1,8 +1,9 @@
-// Shared by csrc/cholesky_solve.cu and csrc/cholesky_variants.cu: the
-// solves' limits and pivot floor, the thread configuration per order, the
-// cached residency query, the persistent-grid launch, and
-// the two C exports every library of the solves has. Each source builds
-// into its own library and includes this header once.
+// Shared by csrc/cholesky_solve.cu, csrc/cholesky_rank_panel.cu and
+// csrc/cholesky_variants.cu: the solves' limits and pivot floor, the thread
+// configuration per order (cholesky_rank_panel.cu has its own), the cached
+// residency query, the persistent-grid launch, and the two C exports every
+// library of the solves has. Each source builds into its own library and
+// includes this header once.
 
 #pragma once
 

@@ -1,0 +1,834 @@
+// Batched ridge-Cholesky solves with the rank-1, rank-2 and rank-8 panel
+// factor schedules of the reference's non-default TPU variants, hand-written
+// for Hopper (sm_90a). Built by nvcc into a shared library with a plain C
+// interface and called through ctypes
+// (recommendation_models_tpu_torch/ops/cholesky.py).
+//
+// Replaces, in recommendation_models_tpu/ops/pallas/cholesky.py:
+//   cholesky_solve_rank1 <FCOLS, SROWS> <- _cholesky_solve_kernel (:198,
+//       pair=False: _factor_solve_body with _substitutions :812, or
+//       _substitutions_pair :749 when subs2), and the pair=True, subs2=False
+//       combination of _cholesky_solve_kernel_pair (:226) (FCOLS=2, SROWS=1)
+//   cholesky_solve_panel               <- _cholesky_solve_kernel_panel (:107)
+//
+// Contract (as csrc/cholesky_solve.cu): f32 throughout, no TF32 and no
+// tensor cores; the ridge is added on load (A = G + reg_b I); pivots are
+// clamped at max(d, 1e-30) (L_jj = d * rsqrt(max(d, 1e-30)), substitutions
+// multiply by 1 / max(L_jj, 1e-30)), so identity-padded and all-zero systems
+// with rhs 0 solve to exactly 0. G (B, k, k), rhs (B, k), reg (B,), batch
+// major; 1 <= k <= 128, any B. Results repeat bitwise (no atomics, fixed
+// orders).
+//
+// What bounds them on an H100: at k = 64 a system must read 8.6 KB (the
+// lower triangle of G, rhs, reg) and write 256 B for ~0.1 MFLOP, so the
+// bound is device-memory bytes (0.173 ms for 65,536 systems at 3.35 TB/s);
+// at k = 128 it is ~0.73 MFLOP for 34 KB, and f32 operations bound it
+// (0.716 ms at 67 TFLOP/s). Both kernels run far above: a factor is a chain
+// of dependent column (or panel) steps separated by block barriers.
+//
+// The old design (one system per block, row-ordered tiles, one warp running
+// both substitutions while the block waited), read with per-phase clocks on
+// an H100 at k = 64 and 65,536 systems: a rank-1 system took ~47 K cycles
+// to factor and ~62 K to substitute (~450 cycles a shuffle round); the
+// panel kernel's one-warp panel factor took 64 K of its 75 K factor
+// cycles; at k = 128 nvcc gave the panel kernel 146 registers (one block
+// per SM). This frame answers each limit:
+//
+// - The substitutions leave the critical path. A block is NTH factor
+//   threads and one substitution warp. The factor threads write L and the
+//   right-hand side of system n into one of two slots and signal it (named
+//   barrier FULL[s], bar.arrive), then go on to system n + 1 in the other
+//   slot; the substitution warp waits on FULL[s], derives 1 / L_jj, solves
+//   from the slot, and hands it back (EMPTY[s]). The factor threads' own
+//   barriers are named barriers without the substitution warp. L is stored
+//   packed (row i at i (i + 1) / 2: two slots take what one square did,
+//   66 KB at k = 128), which keeps both substitutions free of bank
+//   conflicts (triangular numbers of 32 consecutive rows fall on 32
+//   distinct banks). A round loads its L entries and 1 / L_jj before its
+//   shuffle. Measured with the same clocks, the two stages now overlap and
+//   take about the same time per system; the substitution warp rarely waits
+//   for a slot, so at 65,536 systems it is the (slightly) slower stage.
+// - The next system's tiles arrive while this one factors: each factor
+//   thread copies its own tiles of system n + 1 into a shared-memory stage
+//   with cp.async (16-byte copies where k % 4 == 0) right after reading
+//   system n's from it, and waits for them only at the next system. A
+//   thread reads only what it copied, so the stage needs no barrier; it is
+//   laid out row-major across tiles, so neighbouring threads' 16-byte
+//   chunks are neighbours. rhs and reg come one system ahead in registers.
+// - Tiles are numbered by column from the right (as csrc/cholesky_solve.cu),
+//   so a warp's tiles finish together, and in the rank steps a warp whose
+//   tiles and rows of L are done leaves the factor: each step's barrier
+//   counts only the warps still in it (nbar), and a warp that has left
+//   goes on to the next system, whose steps use the other of two barriers
+//   and buffer sets.
+// - A residency target per thread configuration (min_blocks below), read
+//   back from nvcc -Xptxas -v: the targets nvcc was first given (7 and 5
+//   blocks at k <= 68) spilled and ran 24-28% slower.
+// - The panel (B5a): the owners publish the panel's tiles column-major into
+//   one of two buffers by panel parity (column stride kp + 4, 16-byte rows:
+//   neighbouring threads write and read neighbouring chunks, no bank
+//   conflicts); one barrier; then every thread of a row at or below the
+//   panel factors the 8 x 8 diagonal block in registers from broadcast
+//   reads (each warp once; no extra barrier), and solves its own row
+//   against it, column by column in the reference's order (each row
+//   independent, 8 steps), writing the row's L into the packed L and back
+//   over its raw values in the buffer; a second barrier; then the rank-8
+//   trailing update reads the solved panel with 16-byte loads into register
+//   tiles. L reaches the packed L once. Not built: a lookahead that starts
+//   the next panel's diagonal block during the update (its three tiles have
+//   three owners, so it needs a barrier of its own).
+//
+// The factors' arithmetic is the old kernels': the rank-1 and rank-2 steps
+// of csrc/cholesky_variants.cu; the panel's column jj takes the panel's
+// earlier columns' terms in order p = 0 .. jj - 1 (left-looking, as the
+// reference and cholesky_solve_panel_plain), and the trailing update sums
+// its eight terms before subtracting them.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "cholesky_common.cuh"
+
+namespace {
+
+using chol::KMAX;
+using chol::PIVOT_FLOOR;
+using chol::pick4;
+
+constexpr int PW = 8;                 // panel width
+enum Sched { RANK1 = 1, PAIR = 2, PANEL = 8 };
+
+// named barriers: 0 is __syncthreads; the factor threads' own (one per
+// system parity: warps that retire early from one system's rank steps go
+// on to the next system's while the others finish, and the two must not
+// share a barrier), and the two slots' FULL and EMPTY hand-overs between
+// them and the substitution warp
+constexpr int BAR_FACTOR = 1, BAR_FULL = 2, BAR_EMPTY = 4,
+              BAR_FACTOR_ODD = 6;
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+    asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__host__ __device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
+
+// rsqrt of a normal positive float (every pivot is clamped at 1e-30): the
+// hardware's approximation, as rsqrtf gives it for such inputs, without the
+// subnormal range check on the pivots' chain (csrc/cholesky_solve.cu).
+__device__ __forceinline__ float rsqrt_normal(float x) {
+    float r;
+    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+    return r;
+}
+
+// Shared memory of a block, in floats (every region a multiple of 4, so
+// each stays 16-byte aligned): the stage (the tiles of the next system,
+// 16 floats a tile), the factor's buffers (rank steps: four sets, by
+// system and step parity, of two column buffers of kp + 4; the panel: two,
+// by panel parity, of PW columns of kp + 4), two slots of [packed L,
+// rhs / y (kp), 1 / L_jj (kp)], and the rank steps' barrier counts (kp
+// ints).
+struct Layout {
+    int ntiles, ps, lsz;
+    int work, slot0, slot_floats, nbar, total;
+};
+
+__host__ __device__ inline Layout layout(int kp, bool panel) {
+    Layout q;
+    const int T = kp / 4;
+    q.ntiles = T * (T + 1) / 2;
+    q.ps = kp + 4;
+    q.lsz = (tri(kp) + 3) & ~3;
+    q.work = q.ntiles * 16;
+    q.slot0 = q.work + (panel ? 2 * PW : 8) * q.ps;
+    q.slot_floats = q.lsz + 2 * kp;
+    q.nbar = q.slot0 + 2 * q.slot_floats;
+    q.total = q.nbar + kp;
+    return q;
+}
+
+// Thread configurations: NTH factor threads with NT tiles each cover the
+// T (T + 1) / 2 tiles: <160, 1> up to k = 68, <224, 2> up to k = 116,
+// <224, 3> to k = 128; a block adds the substitution warp. A block's warps
+// share the SM's four schedulers, each with a quarter of the registers, so
+// 224 + 32 threads (8 warps) at two blocks per SM keep 128 registers a
+// thread where 256 + 32 (9 warps) kept 96 and spilled.
+int frame_config(int kp) {
+    const int T = kp / 4, tiles = T * (T + 1) / 2;
+    return tiles <= 160 ? 0 : tiles <= 448 ? 1 : 2;
+}
+
+// Residency targets (blocks per SM; measured on an H100, PERF.md): at
+// k <= 68, 5 blocks of the rank kernels (64 registers) and 4 of the panel
+// kernel (80: its diagonal block lives in registers); 7 and 5 spilled and
+// ran 24-28% slower, 8 and 6 no faster; 6 rank blocks ran within 2%, 3
+// panel blocks 7% slower. The card's occupancy query holds 4 blocks of
+// either at k = 64 (the rank kernels' registers alone would allow 5).
+// Above, 2 blocks (shared memory allows no more at k = 128; 1 ran 16-74%
+// slower).
+constexpr int min_blocks(int nth, int sched) {
+    return nth != 160 ? 2 : sched == PANEL ? 4 : 5;
+}
+
+// r with tri(r) <= t < tri(r + 1): tile t's column, counted from the right
+__device__ __forceinline__ int tri_root(int t) {
+    int r = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+    while (tri(r + 1) <= t) ++r;
+    while (tri(r) > t) --r;
+    return r;
+}
+
+// A factor thread's tiles of the lower triangle (ti >= tl), numbered by
+// column from the right: tile t = tid + n NTH, t = 0 the last column's.
+template <int NT>
+struct Tiles {
+    int ti[NT], tl[NT];
+    bool live[NT];
+    float a[NT][4][4];
+};
+
+template <int NTH, int NT>
+__device__ __forceinline__ void own_tiles(int tid, int T, Tiles<NT>& s) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+        const int t = tid + n * NTH;
+        s.live[n] = t < tri(T);
+        const int r = tri_root(t);
+        s.tl[n] = s.live[n] ? T - 1 - r : 0;
+        s.ti[n] = s.live[n] ? T - 1 - r + (t - tri(r)) : 0;
+    }
+}
+
+// The thread's tiles of system b into the stage (row r of tile t at
+// (r ntiles + t) 4); rows and columns past k are not copied (take masks
+// them).
+template <int NTH, int NT>
+__device__ __forceinline__ void prefetch(const Tiles<NT>& s, float* stage,
+                                         int ntiles, const float* G, int b,
+                                         int k, int vec, int tid) {
+    const float* Gb = G + (size_t)b * k * k;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+        if (!s.live[n]) continue;
+        const int t = tid + n * NTH, l0 = s.tl[n] * 4;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+            const int i = s.ti[n] * 4 + r;
+            if (i >= k) continue;
+            float* dst = stage + ((size_t)r * ntiles + t) * 4;
+            const float* src = Gb + (size_t)i * k + l0;
+            if (vec) {
+                cp_async16(dst, src);
+            } else {
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                    if (l0 + c < k) cp_async4(dst + c, src + c);
+            }
+        }
+    }
+}
+
+// The staged system into the tiles: A = G + rb I, identity on the padding.
+template <int NTH, int NT>
+__device__ __forceinline__ void take(Tiles<NT>& s, const float* stage,
+                                     int ntiles, int k, float rb, int tid) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+        const int t = tid + n * NTH, l0 = s.tl[n] * 4;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+            const int i = s.ti[n] * 4 + r;
+            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (s.live[n] && i < k)
+                v = *reinterpret_cast<const float4*>(
+                    stage + ((size_t)r * ntiles + t) * 4);
+            const float g[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                const int l = l0 + c;
+                float x = (i < k && l < k) ? g[c] : 0.f;
+                if (i == l) x += (i < k) ? rb : 1.f;
+                s.a[n][r][c] = x;
+            }
+        }
+    }
+}
+
+// Owners of column j write A[i][j] for rows i > j into buf (0 for rows
+// <= j) and the pivot A[j][j] into buf[kp].
+template <int NT>
+__device__ __forceinline__ void publish(const Tiles<NT>& s, int j, int kp,
+                                        float* buf) {
+    const int jt = j >> 2, jj = j & 3;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+        if (s.live[n] && s.tl[n] == jt) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                const int i = s.ti[n] * 4 + r;
+                const float v = pick4(s.a[n][r], jj);
+                buf[i] = i > j ? v : 0.f;
+                if (i == j) buf[kp] = v;
+            }
+        }
+    }
+}
+
+// What a factor writes: thread tid's row of L, packed (row i at tri(i),
+// lrow = tri(tid)); the substitution warp derives 1 / L_jj from its
+// diagonal.
+struct Out {
+    float* L;
+    int lrow, k, kp;
+};
+
+// The last column step in which factor warp w has work: its tiles are
+// numbered by column from the right, so its first lane's first tile is its
+// rightmost, and a tile of column tl is published and updated up to step
+// 4 tl + 3; thread i < k writes row i of L up to step i. -1 for a warp
+// with neither.
+__device__ __forceinline__ int warp_exit(int w, int T, int k) {
+    const int t = 32 * w;
+    int e = t < k ? min(k - 1, t + 31) : -1;
+    if (t < tri(T)) e = max(e, 4 * (T - 1 - tri_root(t)) + 3);
+    return e;
+}
+
+// One right-looking column step (csrc/cholesky_variants.cu begin1 and
+// finish1): the
+// owners publish column j, a barrier of the nb threads still factoring
+// (named barrier bar), then thread i >= j writes L[i][j] and every thread
+// applies the rank-1 update to its trailing tiles.
+template <int NT>
+__device__ __forceinline__ void step1(Tiles<NT>& s, const Out& o, int j,
+                                      float* buf, int tid, int bar, int nb) {
+    publish(s, j, o.kp, buf);
+    bar_sync(bar, nb);
+    const float d = buf[o.kp];
+    const float inv = rsqrt_normal(fmaxf(d, PIVOT_FLOOR));
+    const float inv2 = inv * inv;
+    if (tid < o.k && tid >= j)
+        o.L[o.lrow + j] = (tid == j ? d : buf[tid]) * inv;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+        if (!s.live[n]) continue;
+        const int i0 = s.ti[n] * 4, l0 = s.tl[n] * 4;
+        if (l0 + 3 > j) {   // the tile still has trailing columns
+            const float4 qi = *reinterpret_cast<const float4*>(buf + i0);
+            const float4 ql = *reinterpret_cast<const float4*>(buf + l0);
+            const float ci[4] = {qi.x * inv2, qi.y * inv2, qi.z * inv2,
+                                 qi.w * inv2};
+            const float cl[4] = {ql.x, ql.y, ql.z, ql.w};
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                    s.a[n][r][c] = fmaf(-ci[r], cl[c], s.a[n][r][c]);
+        }
+    }
+}
+
+// One rank-2 step over columns (j, j + 1), j even (csrc/cholesky_variants.cu
+// step2): both columns published raw, one barrier; thread i >= j writes
+// L[i][j] and, corrected by it, L[i][j+1], and every thread applies the
+// rank-2 update.
+template <int NT>
+__device__ __forceinline__ void step2(Tiles<NT>& s, const Out& o, int j,
+                                      float* b1, int bs, int tid, int bar,
+                                      int nb) {
+    float* b2 = b1 + bs;
+    publish(s, j, o.kp, b1);
+    publish(s, j + 1, o.kp, b2);
+    bar_sync(bar, nb);
+    const float d1 = b1[o.kp];
+    const float inv1 = rsqrt_normal(fmaxf(d1, PIVOT_FLOOR));
+    const float l12 = b1[j + 1] * inv1;             // L[j+1][j]
+    const float d2 = fmaf(-l12, l12, b2[o.kp]);
+    const float inv2 = rsqrt_normal(fmaxf(d2, PIVOT_FLOOR));
+    if (tid < o.k && tid >= j) {
+        if (tid == j) {
+            o.L[o.lrow + j] = d1 * inv1;
+        } else {
+            const float c1 = b1[tid] * inv1;
+            o.L[o.lrow + j] = c1;
+            o.L[o.lrow + j + 1] = tid == j + 1
+                                      ? d2 * inv2
+                                      : fmaf(-c1, l12, b2[tid]) * inv2;
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+        if (!s.live[n]) continue;
+        const int i0 = s.ti[n] * 4, l0 = s.tl[n] * 4;
+        if (l0 + 3 > j) {
+            const float4 p1 = *reinterpret_cast<const float4*>(b1 + i0);
+            const float4 p2 = *reinterpret_cast<const float4*>(b2 + i0);
+            const float4 q1 = *reinterpret_cast<const float4*>(b1 + l0);
+            const float4 q2 = *reinterpret_cast<const float4*>(b2 + l0);
+            const float r1[4] = {p1.x, p1.y, p1.z, p1.w};
+            const float r2[4] = {p2.x, p2.y, p2.z, p2.w};
+            const float s1[4] = {q1.x, q1.y, q1.z, q1.w};
+            const float s2[4] = {q2.x, q2.y, q2.z, q2.w};
+            float ci1[4], ci2[4], cl1[4], cl2[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                ci1[r] = r1[r] * inv1;
+                ci2[r] = i0 + r > j + 1 ? fmaf(-ci1[r], l12, r2[r]) * inv2
+                                        : 0.f;
+                cl1[r] = s1[r] * inv1;
+                cl2[r] = l0 + r > j + 1 ? fmaf(-cl1[r], l12, s2[r]) * inv2
+                                        : 0.f;
+            }
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                    s.a[n][r][c] = fmaf(-ci2[r], cl2[c],
+                                        fmaf(-ci1[r], cl1[c], s.a[n][r][c]));
+        }
+    }
+}
+
+// The rank-8 panel factor (see the header). The panel goes to one of two
+// buffers by panel parity (a panel's publish must not overwrite the last
+// panel's while slower threads still update from it), column-major: column
+// c of the panel at R + c ps, row i at [i].
+template <int NTH, int NT>
+__device__ __forceinline__ void factor_panel(Tiles<NT>& s, const Out& o,
+                                             float* work, int ps, int tid) {
+    const int kp = o.kp;
+    for (int j0 = 0; j0 < kp; j0 += PW) {
+        float* R = work + ((j0 / PW) & 1) * PW * ps;
+        // a panel narrower than PW (kp % 8 == 4) is the last; its missing
+        // columns act as identity columns
+        const int pw = min(PW, kp - j0), t0 = j0 >> 2;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+            if (s.live[n] && s.tl[n] >= t0 && s.tl[n] * 4 < j0 + pw) {
+                const int c0 = s.tl[n] * 4 - j0, i0 = s.ti[n] * 4;
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                    *reinterpret_cast<float4*>(R + (c0 + c) * ps + i0) =
+                        make_float4(s.a[n][0][c], s.a[n][1][c], s.a[n][2][c],
+                                    s.a[n][3][c]);
+            }
+        }
+        bar_sync(BAR_FACTOR, NTH);
+        if (tid >= j0 && tid < kp) {
+            // the diagonal block's factor D (lower) and inv_c, left-looking:
+            // column c takes the terms of columns p < c in order
+            float D[PW][PW], inv[PW];
+#pragma unroll
+            for (int c = 0; c < PW; ++c) {
+                if (c >= pw) {
+                    inv[c] = 1.f;
+#pragma unroll
+                    for (int p = 0; p < PW; ++p) D[c][p] = 0.f;
+                    continue;
+                }
+                float d = R[c * ps + j0 + c];
+#pragma unroll
+                for (int p = 0; p < c; ++p) d = fmaf(-D[c][p], D[c][p], d);
+                inv[c] = rsqrt_normal(fmaxf(d, PIVOT_FLOOR));
+                D[c][c] = d * inv[c];
+#pragma unroll
+                for (int r = c + 1; r < PW; ++r) {
+                    float x = r < pw ? R[c * ps + j0 + r] : 0.f;
+#pragma unroll
+                    for (int p = 0; p < c; ++p) x = fmaf(-D[r][p], D[c][p], x);
+                    D[r][c] = x * inv[c];
+                }
+            }
+            // this thread's row against D, in the same order: for a row of
+            // the diagonal block (rr < PW) the entries left of its diagonal
+            // repeat D's own arithmetic, and its pivot is D's
+            const int rr = tid - j0;
+            float v[PW], l[PW];
+#pragma unroll
+            for (int c = 0; c < PW; ++c)
+                v[c] = c < pw ? R[c * ps + tid] : 0.f;
+#pragma unroll
+            for (int c = 0; c < PW; ++c) {
+                float x = v[c];
+#pragma unroll
+                for (int p = 0; p < c; ++p) x = fmaf(-l[p], D[c][p], x);
+                l[c] = c <= rr ? x * inv[c] : 0.f;
+            }
+            if (rr >= PW) {
+#pragma unroll
+                for (int c = 0; c < PW; ++c) R[c * ps + tid] = l[c];
+            }
+            if (tid < o.k) {
+#pragma unroll
+                for (int c = 0; c < PW; ++c) {
+                    // c == rr: the pivot (x was d), L_jj = d inv_j
+                    if (c <= rr && c < pw) o.L[o.lrow + j0 + c] = l[c];
+                }
+            }
+        }
+        bar_sync(BAR_FACTOR, NTH);
+        // one rank-8 update of the tiles right of the panel (only a full
+        // panel has such tiles)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+            if (!s.live[n] || s.tl[n] * 4 < j0 + PW) continue;
+            const int i0 = s.ti[n] * 4, l0 = s.tl[n] * 4;
+            float acc[4][4] = {};
+#pragma unroll
+            for (int p = 0; p < PW; ++p) {
+                const float4 u = *reinterpret_cast<const float4*>(
+                    R + p * ps + i0);
+                const float4 w = *reinterpret_cast<const float4*>(
+                    R + p * ps + l0);
+                const float pi[4] = {u.x, u.y, u.z, u.w};
+                const float pl[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+                for (int r = 0; r < 4; ++r)
+#pragma unroll
+                    for (int c = 0; c < 4; ++c)
+                        acc[r][c] = fmaf(pi[r], pl[c], acc[r][c]);
+            }
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) s.a[n][r][c] -= acc[r][c];
+        }
+    }
+}
+
+template <int NQ>
+__device__ __forceinline__ float pick(const float (&y)[NQ], int q) {
+    float v = y[0];
+#pragma unroll
+    for (int s = 1; s < NQ; ++s) v = q == s ? y[s] : v;
+    return v;
+}
+
+// Forward (L y = b) and back (L^T x = y) substitution in one warp against
+// the packed L, SROWS rows per shuffle round, with the right-hand side in
+// registers (lane l holds rows l, l + 32, ...). The warp first writes
+// 1 / max(L_jj, 1e-30) into rinv (correctly rounded, as 1.f / x); each
+// round loads its L entries and 1 / L_jj before its shuffle. Rows at or
+// past k are never read into the result.
+template <int SROWS, int NQ>
+__device__ __forceinline__ void substitute(const float* L, float* rinv,
+                                           const float* ys, float* ob, int k,
+                                           int lane) {
+    float y[NQ];
+    int ti[NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+        const int i = lane + 32 * q;
+        y[q] = i < k ? ys[i] : 0.f;
+        ti[q] = tri(min(i, k - 1));   // rows past k: in bounds, unused
+        if (i < k) rinv[i] = __frcp_rn(fmaxf(L[ti[q] + i], PIVOT_FLOOR));
+    }
+    __syncwarp();
+    int j = 0;
+    if (SROWS == 2) {
+#pragma unroll 2
+        for (; j + 1 < k; j += 2) {
+            float l0[NQ], l1[NQ];
+#pragma unroll
+            for (int q = 0; q < NQ; ++q) {
+                l0[q] = L[ti[q] + j];
+                l1[q] = L[ti[q] + j + 1];
+            }
+            const float r0 = rinv[j], r1 = rinv[j + 1];
+            const float d10 = L[tri(j + 1) + j];
+            const float bj = __shfl_sync(0xffffffffu, pick(y, j >> 5),
+                                         j & 31);
+            const float bj1 = __shfl_sync(0xffffffffu, pick(y, (j + 1) >> 5),
+                                          (j + 1) & 31);
+            const float yj = bj * r0;
+            const float yj1 = fmaf(-d10, yj, bj1) * r1;
+#pragma unroll
+            for (int q = 0; q < NQ; ++q) {
+                const int i = lane + 32 * q;
+                const float u = fmaf(-l1[q], yj1, fmaf(-l0[q], yj, y[q]));
+                y[q] = i == j ? yj : i == j + 1 ? yj1
+                       : (i > j + 1 && i < k) ? u : y[q];
+            }
+        }
+    }
+#pragma unroll 4
+    for (; j < k; ++j) {
+        float l0[NQ];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) l0[q] = L[ti[q] + j];
+        const float r0 = rinv[j];
+        const float yj = __shfl_sync(0xffffffffu, pick(y, j >> 5), j & 31)
+                         * r0;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+            const int i = lane + 32 * q;
+            const float u = fmaf(-l0[q], yj, y[q]);
+            y[q] = i == j ? yj : (i > j && i < k) ? u : y[q];
+        }
+    }
+    // back substitution: row j of L is column j of L^T
+    j = k - 1;
+    if (SROWS == 2) {
+#pragma unroll 2
+        for (; j >= 1; j -= 2) {
+            const float* Lj = L + tri(j);
+            const float* Lj1 = L + tri(j - 1);
+            float a0[NQ], a1[NQ];
+#pragma unroll
+            for (int q = 0; q < NQ; ++q) {
+                const int i = min(lane + 32 * q, j);
+                a0[q] = Lj[i];
+                a1[q] = Lj1[min(i, j - 1)];
+            }
+            const float r0 = rinv[j], r1 = rinv[j - 1];
+            const float d = Lj[j - 1];
+            const float xj = __shfl_sync(0xffffffffu, pick(y, j >> 5),
+                                         j & 31) * r0;
+            const float yj1 = __shfl_sync(0xffffffffu, pick(y, (j - 1) >> 5),
+                                          (j - 1) & 31);
+            const float xj1 = fmaf(-d, xj, yj1) * r1;
+#pragma unroll
+            for (int q = 0; q < NQ; ++q) {
+                const int i = lane + 32 * q;
+                const float u = fmaf(-a1[q], xj1, fmaf(-a0[q], xj, y[q]));
+                y[q] = i == j ? xj : i == j - 1 ? xj1 : i < j - 1 ? u : y[q];
+            }
+        }
+    }
+#pragma unroll 4
+    for (; j >= 0; --j) {
+        const float* Lj = L + tri(j);
+        float a0[NQ];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) a0[q] = Lj[min(lane + 32 * q, j)];
+        const float r0 = rinv[j];
+        const float xj = __shfl_sync(0xffffffffu, pick(y, j >> 5), j & 31)
+                         * r0;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+            const int i = lane + 32 * q;
+            const float u = fmaf(-a0[q], xj, y[q]);
+            y[q] = i == j ? xj : i < j ? u : y[q];
+        }
+    }
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+        if (lane + 32 * q < k) ob[lane + 32 * q] = y[q];
+}
+
+// NTH factor threads with NT tiles each, plus one substitution warp; SCHED
+// the factor schedule, SROWS the substitutions' rows per round.
+template <int NTH, int NT, int SCHED, int SROWS>
+__global__ void __launch_bounds__(NTH + 32, min_blocks(NTH, SCHED))
+rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
+                  const float* __restrict__ reg, float* __restrict__ out,
+                  int B, int k, int kp, int vec) {
+    constexpr int NQ = NTH == 160 ? 3 : 4;   // rows per lane (kp <= 32 NQ)
+    extern __shared__ __align__(16) float smem[];
+    const Layout q = layout(kp, SCHED == PANEL);
+    float* stage = smem;
+    float* work = smem + q.work;
+    const int tid = threadIdx.x;
+    // this block's systems: b = blockIdx.x + it gridDim.x
+    const int count = (B - (int)blockIdx.x + (int)gridDim.x - 1)
+                      / (int)gridDim.x;
+    // the rank steps' barrier counts: 32 x the factor warps with work at
+    // step j
+    int* nbar = reinterpret_cast<int*>(smem + q.nbar);
+    if (SCHED != PANEL) {
+        for (int j = tid; j < kp; j += NTH + 32) {
+            int n = 0;
+            for (int w = 0; w < NTH / 32; ++w)
+                n += warp_exit(w, kp >> 2, k) >= j;
+            nbar[j] = 32 * n;
+        }
+    }
+    __syncthreads();
+
+    if (tid >= NTH) {
+        // the substitution warp: slot it & 1 holds system it's factor
+        const int lane = tid & 31;
+        for (int it = 0; it < count; ++it) {
+            const int s = it & 1;
+            float* slot = smem + q.slot0 + s * q.slot_floats;
+            bar_sync(BAR_FULL + s, NTH + 32);
+            substitute<SROWS, NQ>(slot, slot + q.lsz + kp, slot + q.lsz,
+                                  out + (size_t)(blockIdx.x + it * gridDim.x)
+                                            * k,
+                                  k, lane);
+            // the factor threads wait for the slot only if they use it again
+            if (it + 2 < count) bar_arrive(BAR_EMPTY + s, NTH + 32);
+        }
+        return;
+    }
+
+    Tiles<NT> t;
+    own_tiles<NTH, NT>(tid, kp >> 2, t);
+    int b = blockIdx.x;
+    prefetch<NTH, NT>(t, stage, q.ntiles, G, b, k, vec, tid);
+    float rb = reg[b];
+    float bi = tid < k ? rhs[(size_t)b * k + tid] : 0.f;
+    // the last rank step this thread's warp takes part in
+    const int last = warp_exit(tid >> 5, kp >> 2, k);
+    for (int it = 0; it < count; ++it, b += gridDim.x) {
+        const int s = it & 1;
+        float* slot = smem + q.slot0 + s * q.slot_floats;
+        const Out o = {slot, tri(min(tid, KMAX - 1)), k, kp};
+        if (it >= 2) bar_sync(BAR_EMPTY + s, NTH + 32);
+        cp_async_wait_all();
+        take<NTH, NT>(t, stage, q.ntiles, k, rb, tid);
+        if (tid < k) slot[q.lsz + tid] = bi;
+        if (it + 1 < count) {
+            const int bn = b + gridDim.x;
+            prefetch<NTH, NT>(t, stage, q.ntiles, G, bn, k, vec, tid);
+            rb = reg[bn];
+            bi = tid < k ? rhs[(size_t)bn * k + tid] : 0.f;
+        }
+        if constexpr (SCHED == PANEL) {
+            factor_panel<NTH, NT>(t, o, work, q.ps, tid);
+        } else {
+            // a warp leaves after its last step (its tiles are done);
+            // the column buffers alternate by step, and this system's
+            // four sets are its parity's
+            const int bs = q.ps, bar = s ? BAR_FACTOR_ODD : BAR_FACTOR;
+            float* cb = work + s * 4 * bs;
+            int j = 0;
+            if constexpr (SCHED == PAIR) {
+                for (; j + 1 < k && j <= last; j += 2)
+                    step2<NT>(t, o, j, cb + ((j >> 1) & 1) * 2 * bs, bs, tid,
+                              bar, nbar[j]);
+            }
+            const int sp = SCHED == PAIR ? 1 : 0;
+            for (; j < k && j <= last; ++j)
+                step1<NT>(t, o, j, cb + ((j >> sp) & 1) * 2 * bs, tid, bar,
+                          nbar[j]);
+        }
+        // L, y's right-hand side and 1 / L_jj of system b are in the slot
+        __threadfence_block();
+        bar_arrive(BAR_FULL + s, NTH + 32);
+    }
+}
+
+template <int NTH, int NT, int SCHED, int SROWS>
+cudaError_t launch(const float* G, const float* rhs, const float* reg,
+                   float* out, int B, int k, int kp, int vec,
+                   cudaStream_t stream, long long* resident) {
+    const size_t smem = sizeof(float) * layout(kp, SCHED == PANEL).total;
+    const auto kern = rank_panel_kernel<NTH, NT, SCHED, SROWS>;
+    if (resident)
+        return chol::resident_blocks(reinterpret_cast<const void*>(kern),
+                                     NTH + 32, smem, resident);
+    return chol::launch_persistent(kern, NTH + 32, smem, B, stream, G, rhs,
+                                   reg, out, B, k, kp, vec);
+}
+
+// Launches the kernel of (SCHED, SROWS) at order k, or with resident set
+// reports its resident blocks on the current device and launches nothing.
+template <int SCHED, int SROWS>
+cudaError_t dispatch(const void* G, const void* rhs, const void* reg,
+                     void* out, int B, int k, void* stream,
+                     long long* resident = nullptr) {
+    if (k < 1 || k > KMAX || B < 0) return cudaErrorInvalidValue;
+    if (B == 0 && !resident) return cudaSuccess;
+    const int kp = (k + 3) & ~3;
+    const int vec = (k % 4 == 0) && (((uintptr_t)G & 15) == 0);
+    auto g = static_cast<const float*>(G);
+    auto r = static_cast<const float*>(rhs);
+    auto rg = static_cast<const float*>(reg);
+    auto o = static_cast<float*>(out);
+    auto s = static_cast<cudaStream_t>(stream);
+    switch (frame_config(kp)) {
+    case 0:
+        return launch<160, 1, SCHED, SROWS>(g, r, rg, o, B, k, kp, vec, s,
+                                            resident);
+    case 1:
+        return launch<224, 2, SCHED, SROWS>(g, r, rg, o, B, k, kp, vec, s,
+                                            resident);
+    default:
+        return launch<224, 3, SCHED, SROWS>(g, r, rg, o, B, k, kp, vec, s,
+                                            resident);
+    }
+}
+
+// kind: 0..2 the rank-1 schedules (fcols, srows) = (1, 1), (1, 2), (2, 1);
+// 3 the panel
+cudaError_t by_kind(int kind, const void* G, const void* rhs,
+                    const void* reg, void* out, int B, int k, void* stream,
+                    long long* resident) {
+    auto s = stream;
+    auto r = resident;
+    switch (kind) {
+    case 0: return dispatch<RANK1, 1>(G, rhs, reg, out, B, k, s, r);
+    case 1: return dispatch<RANK1, 2>(G, rhs, reg, out, B, k, s, r);
+    case 2: return dispatch<PAIR, 1>(G, rhs, reg, out, B, k, s, r);
+    case 3: return dispatch<PANEL, 1>(G, rhs, reg, out, B, k, s, r);
+    default: return cudaErrorInvalidValue;
+    }
+}
+
+int rank1_kind(int fcols, int srows) {
+    return fcols == 1 && srows == 1   ? 0
+           : fcols == 1 && srows == 2 ? 1
+           : fcols == 2 && srows == 1 ? 2
+                                      : -1;
+}
+
+}  // namespace
+
+extern "C" {
+
+// x (B, k) = (G + diag(reg))^-1 rhs for G (B, k, k), rhs (B, k), reg (B,),
+// all f32, contiguous, batch-major, 1 <= k <= 128: a right-looking factor
+// with fcols (1 or 2) columns per step, then substitutions with srows (1 or
+// 2) rows per step. (fcols, srows) = (2, 2) is cholesky_solve_batched's
+// combination and is refused here.
+int cholesky_solve_rank1(const void* G, const void* rhs, const void* reg,
+                         void* out, int B, int k, int fcols, int srows,
+                         void* stream) {
+    const int kind = rank1_kind(fcols, srows);
+    if (kind < 0) return (int)cudaErrorInvalidValue;
+    return (int)by_kind(kind, G, rhs, reg, out, B, k, stream, nullptr);
+}
+
+// The same solve with the rank-8 panel factor and one-row substitutions.
+int cholesky_solve_panel(const void* G, const void* rhs, const void* reg,
+                         void* out, int B, int k, void* stream) {
+    return (int)by_kind(3, G, rhs, reg, out, B, k, stream, nullptr);
+}
+
+// *resident = the blocks of the kernel of (fcols, srows) (fcols = 8: the
+// panel kernel) at order k that the current device holds at once.
+// Launches nothing.
+int cholesky_rank_panel_resident(int fcols, int srows, int k,
+                                 long long* resident) {
+    const int kind = fcols == PW && srows == 1 ? 3 : rank1_kind(fcols, srows);
+    if (kind < 0) return (int)cudaErrorInvalidValue;
+    return (int)by_kind(kind, nullptr, nullptr, nullptr, nullptr, 0, k,
+                        nullptr, resident);
+}
+
+// (cholesky_kernel_kmax and cholesky_error_string: cholesky_common.cuh)
+
+}  // extern "C"

@@ -3,12 +3,8 @@
 // into a shared library with a plain C interface and called through ctypes
 // (recommendation_models_tpu_torch/ops/cholesky.py).
 //
-// Replaces four TPU kernels of recommendation_models_tpu/ops/pallas/cholesky.py:
-//   cholesky_solve_rank1 <FCOLS, SROWS> <- _cholesky_solve_kernel (pair=False:
-//       _factor_solve_body with _substitutions, or _substitutions_pair when
-//       subs2), and the pair=True, subs2=False combination of
-//       _cholesky_solve_kernel_pair (FCOLS=2, SROWS=1)
-//   cholesky_solve_panel               <- _cholesky_solve_kernel_panel
+// Replaces two TPU kernels of recommendation_models_tpu/ops/pallas/cholesky.py
+// (the rank-1 and panel variants are in csrc/cholesky_rank_panel.cu):
 //   cholesky_solve_schur <SROWS>       <- _cholesky_solve_kernel_schur
 //       (_factor_body_schur; k % 16 == 0)
 //   cholesky_solve_dual                <- _cholesky_solve_kernel_dual
@@ -28,14 +24,6 @@
 // chain of dependent steps separated by block barriers, and its latency
 // per system, hidden only by the other resident blocks, sets the time. The
 // schedules differ exactly in that chain, which is why each is kept:
-//   rank1 FCOLS=1: one barrier per column (k), each followed by a rank-1
-//       update; FCOLS=2: one barrier per two columns (k/2), the second
-//       column corrected by the first, then a rank-2 update.
-//   panel: two barriers per panel of 8 columns (k/4). The owners publish
-//       the panel's columns; one warp factors them left-looking, applying
-//       the panel's earlier columns to each as it comes (the deferred
-//       in-panel corrections), synchronised by __syncwarp; then all threads
-//       apply one rank-8 update to their trailing tiles.
 //   schur: h = k/2. Phase 1 runs rank-2 steps over columns [0, h) that
 //       update only the tiles left of column h; phase 2 applies the deferred
 //       A22 -= L21 L21^T in rank-8 groups read from L in shared memory, with
@@ -71,9 +59,9 @@ using chol::KMAX;
 using chol::PIVOT_FLOOR;
 using chol::pick4;
 
-constexpr int PW = 8;       // panel width, and the Schur phase's group width
+constexpr int PW = 8;       // the Schur phase's group width
 
-enum Sched { RANK1 = 1, PAIR = 2, PANEL = 8, SCHUR = 16, DUAL = 32 };
+enum Sched { SCHUR = 16, DUAL = 32 };
 
 // Threads own the lower-triangle 4x4 tiles (ti >= tl) only: the updates are
 // symmetric, and the substitutions read L's lower half. Tile t = tid + n NTH
@@ -119,7 +107,6 @@ struct Block {
     bool live[NT];
     float a[NT][4][4];
     float* colbuf;   // (2 sets, 2 columns, kp + 4): columns, pivot in [kp]
-    float* pbuf;     // (2 sets, kp, PW): the panel (PANEL only)
     float* As;       // (kp, kp + 1): L, lower half
     float* ys;       // (kp,): rhs, then y, then x
     float* rinv;     // (kp,): 1 / max(L_jj, floor)
@@ -190,13 +177,6 @@ __device__ __forceinline__ void finish1(Block<NT>& s, int j, int tl_end,
                     s.a[n][r][c] = fmaf(-ci[r], cl[c], s.a[n][r][c]);
         }
     }
-}
-
-template <int NT>
-__device__ __forceinline__ void step1(Block<NT>& s, int j, int tl_end) {
-    const float* buf = begin1(s, j);
-    __syncthreads();
-    finish1(s, j, tl_end, buf);
 }
 
 // One rank-2 step over columns (j, j + 1), j even: both columns are
@@ -291,97 +271,6 @@ __device__ __forceinline__ void factor_dual(Block<NT>& s0, Block<NT>& s1) {
         __syncthreads();
         finish1(s0, j, T, b0);
         finish1(s1, j, T, b1);
-    }
-}
-
-// Rank-8 panel factor (see the header).
-template <int NT>
-__device__ __forceinline__ void factor_panel(Block<NT>& s) {
-    const int lane = s.tid & 31, warp = s.tid >> 5;
-    for (int j0 = 0, q = 0; j0 < s.k; j0 += PW, ++q) {
-        const int pw = min(PW, s.k - j0);
-        float* P = s.pbuf + (q & 1) * s.kp * PW;
-        // the owners of the panel's tile columns publish them (rows >= j0)
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-            const int l0 = s.tl[n] * 4;
-            if (s.live[n] && l0 >= j0 && l0 < j0 + PW) {
-#pragma unroll
-                for (int r = 0; r < 4; ++r) {
-                    const int i = s.ti[n] * 4 + r;
-                    float* Pi = P + i * PW + (l0 - j0);
-#pragma unroll
-                    for (int c = 0; c < 4; ++c) Pi[c] = s.a[n][r][c];
-                }
-            }
-        }
-        __syncthreads();
-        if (warp == 0) {
-            // left-looking within the panel: column jj takes the panel's
-            // earlier columns' terms only now (the deferred corrections)
-            for (int jj = 0; jj < pw; ++jj) {
-                const int j = j0 + jj;
-                const float* Pj = P + j * PW;
-                float d = Pj[jj];
-                for (int p = 0; p < jj; ++p) d = fmaf(-Pj[p], Pj[p], d);
-                const float inv = rsqrtf(fmaxf(d, PIVOT_FLOOR));
-                __syncwarp();
-#pragma unroll
-                for (int qq = 0; qq < 4; ++qq) {
-                    const int i = lane + 32 * qq;
-                    if (i > j && i < s.kp) {
-                        float* Pi = P + i * PW;
-                        float v = Pi[jj];
-                        for (int p = 0; p < jj; ++p) v = fmaf(-Pi[p], Pj[p], v);
-                        Pi[jj] = v * inv;
-                    }
-                }
-                if (lane == (j & 31)) {
-                    P[j * PW + jj] = d * inv;
-                    s.rinv[j] = 1.f / fmaxf(d * inv, PIVOT_FLOOR);
-                }
-                __syncwarp();
-            }
-        }
-        __syncthreads();
-        if (s.tid < s.k && s.tid >= j0) {
-            for (int c = 0; c < pw && j0 + c <= s.tid; ++c)
-                s.As[s.tid * s.ld + j0 + c] = P[s.tid * PW + c];
-        }
-        // one rank-8 update of the tiles right of the panel (a panel
-        // narrower than PW is the last, and has no such tiles)
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-            if (!s.live[n] || s.tl[n] * 4 < j0 + PW) continue;
-            const int i0 = s.ti[n] * 4, l0 = s.tl[n] * 4;
-            float acc[4][4] = {};
-#pragma unroll
-            for (int h = 0; h < PW; h += 4) {
-                float pi[4][4], pl[4][4];
-#pragma unroll
-                for (int r = 0; r < 4; ++r) {
-                    const float4 u = *reinterpret_cast<const float4*>(
-                        P + (i0 + r) * PW + h);
-                    const float4 v = *reinterpret_cast<const float4*>(
-                        P + (l0 + r) * PW + h);
-                    pi[r][0] = u.x; pi[r][1] = u.y; pi[r][2] = u.z;
-                    pi[r][3] = u.w;
-                    pl[r][0] = v.x; pl[r][1] = v.y; pl[r][2] = v.z;
-                    pl[r][3] = v.w;
-                }
-#pragma unroll
-                for (int p = 0; p < 4; ++p)
-#pragma unroll
-                    for (int r = 0; r < 4; ++r)
-#pragma unroll
-                        for (int c = 0; c < 4; ++c)
-                            acc[r][c] = fmaf(pi[r][p], pl[c][p], acc[r][c]);
-            }
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-#pragma unroll
-                for (int c = 0; c < 4; ++c) s.a[n][r][c] -= acc[r][c];
-        }
     }
 }
 
@@ -509,25 +398,23 @@ __device__ __forceinline__ void substitute(const float* As,
         if (lane + 32 * q < k) ob[lane + 32 * q] = y[q];
 }
 
-// Shared-memory floats of one system's buffers: the column buffers, the
-// panel (PANEL only), L, y and 1 / L_jj. A multiple of 4, so every system's
-// buffers stay 16-byte aligned.
-__host__ __device__ inline size_t system_floats(int kp, bool panel) {
-    return 4 * (size_t)(kp + 4) + (panel ? 2 * (size_t)kp * PW : 0)
-           + (size_t)kp * (kp + 1) + 2 * (size_t)kp;
+// Shared-memory floats of one system's buffers: the column buffers, L, y
+// and 1 / L_jj. A multiple of 4, so every system's buffers stay 16-byte
+// aligned.
+__host__ __device__ inline size_t system_floats(int kp) {
+    return 4 * (size_t)(kp + 4) + (size_t)kp * (kp + 1) + 2 * (size_t)kp;
 }
 
 template <int NT>
 __device__ __forceinline__ void init_block(Block<NT>& s, float* base, int k,
-                                           int kp, bool panel) {
+                                           int kp) {
     s.k = k;
     s.kp = kp;
     s.ld = kp + 1;
     s.bs = kp + 4;
     s.tid = threadIdx.x;
     s.colbuf = base;
-    s.pbuf = base + 4 * s.bs;
-    s.As = s.pbuf + (panel ? 2 * kp * PW : 0);
+    s.As = base + 4 * s.bs;
     s.ys = s.As + kp * s.ld;
     s.rinv = s.ys + kp;
 }
@@ -579,11 +466,11 @@ variant_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
     constexpr int NS = SCHED == DUAL ? 2 : 1;   // systems per block
     extern __shared__ __align__(16) float smem[];
     Block<NT> s0, s1;
-    init_block(s0, smem, k, kp, SCHED == PANEL);
+    init_block(s0, smem, k, kp);
     const int T = kp >> 2;
     own_tiles<NTH, NT>(s0.tid, T, s0.ti, s0.tl, s0.live);
     if constexpr (NS == 2) {
-        init_block(s1, smem + system_floats(kp, false), k, kp, false);
+        init_block(s1, smem + system_floats(kp), k, kp);
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
             s1.ti[n] = s0.ti[n];
@@ -602,15 +489,7 @@ variant_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
         if constexpr (NS == 2)
             load_system(s1, G, rhs, reg, b1, b1 < B, vec);
 
-        if constexpr (SCHED == RANK1) {
-            for (int j = 0; j < k; ++j) step1(s0, j, T);
-        } else if constexpr (SCHED == PAIR) {
-            int j = 0;
-            for (; j + 1 < k; j += 2) step2(s0, j, T);
-            if (j < k) step1(s0, j, T);
-        } else if constexpr (SCHED == PANEL) {
-            factor_panel(s0);
-        } else if constexpr (SCHED == SCHUR) {
+        if constexpr (SCHED == SCHUR) {
             factor_schur(s0);
         } else {
             factor_dual(s0, s1);
@@ -632,7 +511,7 @@ cudaError_t launch(const float* G, const float* rhs, const float* reg,
                    float* out, int B, int k, int kp, int vec,
                    cudaStream_t stream) {
     constexpr int NS = SCHED == DUAL ? 2 : 1;
-    const size_t smem = sizeof(float) * NS * system_floats(kp, SCHED == PANEL);
+    const size_t smem = sizeof(float) * NS * system_floats(kp);
     return chol::launch_persistent(variant_kernel<NTH, NT, SCHED, SROWS>, NTH,
                                    smem, (B + NS - 1) / NS, stream, G, rhs,
                                    reg, out, B, k, kp, vec);
@@ -664,30 +543,8 @@ cudaError_t dispatch(const void* G, const void* rhs, const void* reg,
 extern "C" {
 
 // x (B, k) = (G + diag(reg))^-1 rhs for G (B, k, k), rhs (B, k), reg (B,),
-// all f32, contiguous, batch-major, 1 <= k <= 128: a right-looking factor
-// with fcols (1 or 2) columns per step, then substitutions with srows (1 or
-// 2) rows per step. (fcols, srows) = (2, 2) is cholesky_solve_batched's
-// combination and is refused here.
-int cholesky_solve_rank1(const void* G, const void* rhs, const void* reg,
-                         void* out, int B, int k, int fcols, int srows,
-                         void* stream) {
-    if (fcols == 1 && srows == 1)
-        return (int)dispatch<RANK1, 1>(G, rhs, reg, out, B, k, stream);
-    if (fcols == 1 && srows == 2)
-        return (int)dispatch<RANK1, 2>(G, rhs, reg, out, B, k, stream);
-    if (fcols == 2 && srows == 1)
-        return (int)dispatch<PAIR, 1>(G, rhs, reg, out, B, k, stream);
-    return (int)cudaErrorInvalidValue;
-}
-
-// The same solve with the rank-8 panel factor and one-row substitutions.
-int cholesky_solve_panel(const void* G, const void* rhs, const void* reg,
-                         void* out, int B, int k, void* stream) {
-    return (int)dispatch<PANEL, 1>(G, rhs, reg, out, B, k, stream);
-}
-
-// The same solve with the two-level Schur factor (k % 16 == 0) and srows
-// (1 or 2) rows per substitution step.
+// all f32, contiguous, batch-major, k % 16 == 0, k <= 128: the two-level
+// Schur factor and srows (1 or 2) rows per substitution step.
 int cholesky_solve_schur(const void* G, const void* rhs, const void* reg,
                          void* out, int B, int k, int srows, void* stream) {
     if (srows == 1)

@@ -20,11 +20,11 @@ options (``cholesky_solve_t``, ``cholesky_solve``, ``cholesky_solve_flat``,
   ``csrc/cholesky_solve.cu``);
 - ``cholesky_solve_rank1``: a right-looking factor with ``fcols`` columns
   per step and substitutions with ``srows`` rows per step (TPU
-  ``_cholesky_solve_kernel``; ``csrc/cholesky_variants.cu``);
+  ``_cholesky_solve_kernel``; ``csrc/cholesky_rank_panel.cu``);
 - ``cholesky_solve_panel``: the rank-8 panel factor (TPU
-  ``_cholesky_solve_kernel_panel``);
+  ``_cholesky_solve_kernel_panel``; ``csrc/cholesky_rank_panel.cu``);
 - ``cholesky_solve_schur``: the two-level Schur factor, k % 16 == 0 (TPU
-  ``_cholesky_solve_kernel_schur``);
+  ``_cholesky_solve_kernel_schur``; ``csrc/cholesky_variants.cu``);
 - ``cholesky_solve_dual``: two systems per block with their rank-2 factors
   interleaved, then two-row substitutions (TPU
   ``_cholesky_solve_kernel_dual``).
@@ -70,7 +70,8 @@ KERNELS = ("cholesky_solve_batched", "cholesky_solve_hot", "cholesky_solve_2g",
            "cholesky_solve_schur", "cholesky_solve_dual")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 ROUTED = dict.fromkeys(KERNELS, 0)
-PANEL_WIDTH = 8         # csrc/cholesky_variants.cu PW: panel and Schur group
+PANEL_WIDTH = 8         # the panel width (csrc/cholesky_rank_panel.cu PW) and
+                        # the Schur phase's group (csrc/cholesky_variants.cu)
 RANK1_SCHEDULES = ((1, 1), (1, 2), (2, 1))   # (fcols, srows) of the kernel
 
 
@@ -373,9 +374,13 @@ SOURCES = {
         "cholesky_solve_resident": [_I, _I, _I,
                                     ctypes.POINTER(ctypes.c_longlong)],
     },
-    "cholesky_variants": {
+    "cholesky_rank_panel": {
         "cholesky_solve_rank1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "cholesky_solve_panel": [_P, _P, _P, _P, _I, _I, _P],
+        "cholesky_rank_panel_resident": [_I, _I, _I,
+                                         ctypes.POINTER(ctypes.c_longlong)],
+    },
+    "cholesky_variants": {
         "cholesky_solve_schur": [_P, _P, _P, _P, _I, _I, _I, _P],
         "cholesky_solve_dual": [_P, _P, _P, _P, _I, _I, _P],
     },
@@ -448,6 +453,30 @@ def _resident(name: str, k: int, c: int, device: int) -> int:
     _raise_on(lib.cholesky_solve_resident(REGIME_KINDS.index(name), k, c,
                                           ctypes.byref(resident)), name, lib)
     return resident.value
+
+
+@functools.lru_cache(maxsize=None)
+def _variant_resident(fcols: int, srows: int, k: int, device: int) -> int:
+    resident = ctypes.c_longlong(0)
+    lib = _lib("cholesky_rank_panel")
+    _raise_on(lib.cholesky_rank_panel_resident(fcols, srows, k,
+                                               ctypes.byref(resident)),
+              "cholesky_rank_panel_resident", lib)
+    return resident.value
+
+
+def variant_resident(name: str, k: int, fcols: int = 1,
+                     srows: int = 1) -> int:
+    """Blocks of the ``cholesky_solve_rank1`` kernel of (fcols, srows), or
+    of the ``cholesky_solve_panel`` kernel, at order k that the current
+    card holds at once (asked once). Launches nothing."""
+    if name == "cholesky_solve_panel":
+        fcols, srows = PANEL_WIDTH, 1
+    elif name == "cholesky_solve_rank1":
+        _check_schedule(fcols, srows)
+    else:
+        raise ValueError(f"no residency query for {name}")
+    return _variant_resident(fcols, srows, k, torch.cuda.current_device())
 
 
 def solve_regime(name: str, batch: int, k: int, c: int = 0):
@@ -593,8 +622,8 @@ def cholesky_solve_rank1(G: torch.Tensor, rhs: torch.Tensor,
     if not kernel_supported(G.shape[1]):
         ROUTED["cholesky_solve_rank1"] += 1
         return anchor_solve(G, rhs, reg)
-    return _launch_solve("cholesky_solve_rank1", "cholesky_variants", G, rhs,
-                         reg, ints=(fcols, srows))
+    return _launch_solve("cholesky_solve_rank1", "cholesky_rank_panel", G,
+                         rhs, reg, ints=(fcols, srows))
 
 
 def cholesky_solve_panel(G: torch.Tensor, rhs: torch.Tensor,
@@ -606,8 +635,8 @@ def cholesky_solve_panel(G: torch.Tensor, rhs: torch.Tensor,
     if not kernel_supported(G.shape[1]):
         ROUTED["cholesky_solve_panel"] += 1
         return anchor_solve(G, rhs, reg)
-    return _launch_solve("cholesky_solve_panel", "cholesky_variants", G, rhs,
-                         reg)
+    return _launch_solve("cholesky_solve_panel", "cholesky_rank_panel", G,
+                         rhs, reg)
 
 
 def cholesky_solve_schur(G: torch.Tensor, rhs: torch.Tensor,
@@ -728,5 +757,6 @@ __all__ = ["cholesky_solve_batched", "cholesky_solve_hot",
            "anchor_solve", "block_batch", "kernel_supported",
            "hot_kernel_supported", "hot_smem_bytes", "hot_cols_cap",
            "hot_cols_auto", "latency_regime", "solve_regime",
+           "variant_resident",
            "forced_regime", "REGIME_KINDS", "KERNELS", "RANK1_SCHEDULES",
            "LAUNCHES", "ROUTED", "reset_counts"]

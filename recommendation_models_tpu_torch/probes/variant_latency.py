@@ -1,0 +1,234 @@
+"""Device time of the solve-variant kernels at the shapes they are compared
+at, beside their bound, plain version and the library solve.
+
+    python -m recommendation_models_tpu_torch.probes.variant_latency \
+        [--shapes 64:65536,64:256,128:65536] [--kernels all] [--plain] \
+        [--ptxas SRC.cu,...]
+
+For each shape ``k:B`` and each kernel instantiation (``rank1_11``,
+``rank1_12``, ``rank1_21``: ``cholesky_solve_rank1`` with (fcols, srows);
+``panel``; ``schur_1``, ``schur_2``; ``dual``), one JSON line with
+``device_ms`` (device time per call from ``torch.profiler``, so host gaps
+do not count; null where the profiler did not record every call, as it
+drops some calls milliseconds long), ``event_ms`` (CUDA events around the
+same calls; with the stream kept full, the device time of such calls),
+``max_abs_err`` and ``agrees`` (the kernel against its plain version on
+the first ``min(B, 1024)`` systems, within 5e-4·scale + 5e-4·|x|),
+``bound_ms`` (the lower triangle of G, rhs, reg and x once over 3.35 TB/s,
+or k³/3 + 2k² flops a system over 67 TFLOP/s, whichever is larger),
+``library_ms`` and ``library_event_ms`` (``torch.linalg.cholesky`` +
+``cholesky_solve``, read both ways) and, with ``--plain``, ``plain_ms`` (CUDA events, one call). Systems:
+at k = 128 the variant probe's (``probes.solve_variants.make_systems``,
+ridge 0.05), else grams of 48 random factor rows with a 0.1 ridge
+(``probes.solve_latency.random_systems``, seed 0).
+
+``--ptxas`` compiles each named source with ``nvcc -Xptxas -v`` (the
+build's flags) and prints, per kernel, its registers, spill bytes, static
+shared memory and the blocks per SM its registers allow at its thread
+count (``resident_by_registers``: 64 K registers per SM in 256-register
+warp granules, at most 64 warps and 32 blocks).
+
+The probe imports only ``ops.cholesky``'s public wrappers and plain
+versions, so it times another checkout's kernels when that checkout is
+first on ``PYTHONPATH``: that is how two trees are compared in one call.
+Runs only on a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+
+import torch
+
+from recommendation_models_tpu_torch.probes import device_rows, time_ms
+
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+N_CHECK = 1024
+ALL = ("rank1_11", "rank1_12", "rank1_21", "panel", "schur_1", "schur_2",
+       "dual")
+
+
+def kernels(ch):
+    """name -> (kernel call, plain call), each of (G, rhs, reg)."""
+    out = {}
+    for f, s in ((1, 1), (1, 2), (2, 1)):
+        out[f"rank1_{f}{s}"] = (
+            lambda G, r, g, f=f, s=s: ch.cholesky_solve_rank1(G, r, g, f, s),
+            lambda G, r, g, f=f, s=s: ch.cholesky_solve_rank1_plain(
+                G, r, g, f, s))
+    out["panel"] = (ch.cholesky_solve_panel, ch.cholesky_solve_panel_plain)
+    for s in (1, 2):
+        out[f"schur_{s}"] = (
+            lambda G, r, g, s=s: ch.cholesky_solve_schur(G, r, g, s),
+            lambda G, r, g, s=s: ch.cholesky_solve_schur_plain(G, r, g, s))
+    out["dual"] = (ch.cholesky_solve_dual, ch.cholesky_solve_dual_plain)
+    return out
+
+
+def bound_ms(b: int, k: int):
+    t_bytes = 4.0 * b * (k * (k + 1) / 2 + 2 * k + 1) / PEAK_BYTES_PER_S
+    t_ops = b * (k ** 3 / 3.0 + 2.0 * k * k) / PEAK_F32_FLOPS
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops \
+        else (t_ops * 1e3, "operations")
+
+
+def systems(k: int, b: int, dev):
+    if k == 128:
+        from recommendation_models_tpu_torch.probes.solve_variants import (
+            make_systems)
+        G, rhs = make_systems(k, b, dev)
+        return G, rhs, torch.full((b,), 0.05, device=dev)
+    from recommendation_models_tpu_torch.probes.solve_latency import (
+        random_systems)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return random_systems(b, k, 48, gen, dev)
+
+
+def device_ms(fn, reps):
+    """Device ms per call of ``fn`` over ``reps`` calls (``device_rows``
+    summed), or None where the profiler did not record every call: it drops
+    the events of some calls milliseconds long, and a kernel counted fewer
+    than ``reps`` times, or not a whole number of times a call, would
+    under-read."""
+    try:
+        rows = device_rows(fn, reps)
+    except RuntimeError:
+        return None
+    if any(n < reps or n % reps for _, n, _ in rows):
+        return None
+    return sum(us for us, _, _ in rows) / 1e3 / reps
+
+
+def agrees(x, ref):
+    err = (x - ref).abs()
+    scale = max(float(ref.abs().max()), 1.0)
+    return float(err.max()), bool(torch.isfinite(x).all()) and bool(
+        (err <= 5e-4 * scale + 5e-4 * ref.abs()).all())
+
+
+def run(shapes, names, plain=False):
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    dev = torch.device("cuda")
+    table = kernels(ch)
+    rows = []
+    for k, b in shapes:
+        G, rhs, reg = systems(k, b, dev)
+        eye = torch.eye(k, device=dev)
+        reps = 200 if b <= 1024 else 10 if k <= 64 else 3
+        def library():
+            return torch.cholesky_solve(rhs[:, :, None], torch.linalg.cholesky(
+                G + reg[:, None, None] * eye))
+        lib_reps = max(2, reps // 4)
+        lib = device_ms(library, lib_reps)
+        lib_ev = time_ms(library, lib_reps, warm=1)
+        bms, by = bound_ms(b, k)
+        n = min(b, N_CHECK)
+        Gc, rc, gc = G[:n].contiguous(), rhs[:n].contiguous(), reg[:n]
+        for name in names:
+            if name.startswith("schur") and k % 16:
+                continue
+            fn, pl = table[name]
+            err, ok = agrees(fn(G, rhs, reg)[:n], pl(Gc, rc, gc))
+            row = dict(kernel=name, k=k, batch=b,
+                       device_ms=device_ms(lambda: fn(G, rhs, reg), reps),
+                       event_ms=time_ms(lambda: fn(G, rhs, reg), reps,
+                                        warm=1),
+                       max_abs_err=err, agrees=ok, bound_ms=bms,
+                       bound_by=by, library_ms=lib,
+                       library_event_ms=lib_ev)
+            if plain:
+                row["plain_ms"] = time_ms(lambda: pl(G, rhs, reg), 1, warm=0)
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+        del G, rhs, reg
+        torch.cuda.empty_cache()
+    return rows
+
+
+def resident_by_registers(regs: int, threads: int) -> int:
+    """Blocks per SM that ``regs`` registers a thread allow (H100: 64 K
+    registers in 256-register warp granules, 64 warps, 32 blocks)."""
+    warps = -(-threads // 32)
+    per_warp = -(-max(regs, 1) * 32 // 256) * 256
+    return min(65536 // per_warp // warps, 64 // warps, 32)
+
+
+def ptxas(source: str):
+    """``parse_ptxas`` of ``nvcc -Xptxas -v`` on ``source``."""
+    from recommendation_models_tpu_torch.ops import build
+    cmd = [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+           "/dev/null", source]
+    log = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if log.returncode:
+        raise RuntimeError(log.stderr[-4000:])
+    return parse_ptxas(log.stderr)
+
+
+def parse_ptxas(log: str):
+    """Per kernel of a ``-Xptxas -v`` log: registers, spill bytes (stores,
+    loads), static shared memory, and, where the mangled name's first
+    template argument gives the thread count (``ILi<n>E``), the blocks per
+    SM the registers allow. A kernel whose launch bound adds a warp to that
+    count (the rank/panel kernels: n + 32 threads) is read at n + 32."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = dict(kernel=m.group(1))
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_bytes"] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m2 = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(m2.group(1)) if m2 else 0
+            # the first int template argument of the mangled name (Li160E)
+            t = re.search(r"ILi(\d+)E", cur["kernel"])
+            if t:
+                extra = 32 if "rank_panel_kernel" in cur["kernel"] else 0
+                cur["threads"] = int(t.group(1)) + extra
+                cur["resident_by_registers"] = resident_by_registers(
+                    cur["registers"], cur["threads"])
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--shapes", default="64:65536,64:256,128:65536")
+    ap.add_argument("--kernels", default="all")
+    ap.add_argument("--plain", action="store_true",
+                    help="also time the plain versions (slow)")
+    ap.add_argument("--ptxas", default="",
+                    help="comma list of CUDA sources to report")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("variant_latency: needs a CUDA card", file=sys.stderr)
+        return 2
+    print(f"# {torch.cuda.get_device_name(0)} torch {torch.__version__}",
+          flush=True)
+    for src in filter(None, args.ptxas.split(",")):
+        for row in ptxas(src):
+            print(json.dumps(dict(source=src, **row)), flush=True)
+    names = ALL if args.kernels == "all" else args.kernels.split(",")
+    unknown = [n for n in names if n not in ALL]
+    if unknown:
+        raise SystemExit(f"unknown kernels {unknown}; known: {ALL}")
+    shapes = [tuple(int(v) for v in s.split(":"))
+              for s in args.shapes.split(",")]
+    rows = run(shapes, names, args.plain)
+    return 0 if all(r["agrees"] for r in rows) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

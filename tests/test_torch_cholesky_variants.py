@@ -265,6 +265,26 @@ def test_schedule_arguments_are_checked():
     assert not any(pchol.ROUTED.values())
 
 
+@pytest.mark.parametrize("source", sorted(pchol.SOURCES))
+def test_sources_export_what_the_wrappers_call(source):
+    """Each library the wrappers load is a csrc source that defines every
+    C export the wrappers declare for it, with as many arguments."""
+    from recommendation_models_tpu_torch.ops import build
+    text = (build.CSRC / f"{source}.cu").read_text()
+    for name, argtypes in pchol.SOURCES[source].items():
+        head = text.split(f"\nint {name}(", 1)
+        assert len(head) == 2, f"{source}.cu does not define {name}"
+        params = head[1].split(")", 1)[0]
+        assert params.count(",") + 1 == len(argtypes), name
+
+
+def test_variant_resident_refuses_other_kernels():
+    with pytest.raises(ValueError, match="no residency"):
+        pchol.variant_resident("cholesky_solve_schur", 64)
+    with pytest.raises(ValueError, match="fcols"):
+        pchol.variant_resident("cholesky_solve_rank1", 64, 2, 2)
+
+
 @pytest.mark.parametrize("variants", ["pair,rank1,pair_s1,panel,schur,"
                                       "schur_s1", "pair,schur", "dual,pair"])
 def test_probe_runs_on_cpu(capsys, variants):
@@ -297,7 +317,8 @@ def test_cuda_variant_kernels_match_plain_versions():
     """Each new CUDA kernel (every instantiation) against its plain version
     on the card, at k in {1, 10, 16, 64, 128} (Schur at the multiples of
     16) and B in {1, 37, 4096} (the dual kernel also at B=2); k past the
-    limit is routed (counted)."""
+    limit is routed (counted). Then B4 and B5a at their boundaries
+    (``_rank_panel_boundaries``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(0)
@@ -354,3 +375,46 @@ def test_cuda_variant_kernels_match_plain_versions():
         assert torch.equal(o, torch.zeros_like(o))
     with pytest.raises(TypeError):
         pchol.cholesky_solve_panel(Gz.double(), z, zr)
+    _rank_panel_boundaries(rng, dev)
+
+
+def _rank_panel_boundaries(rng, dev):
+    """The kernels of csrc/cholesky_rank_panel.cu (B4 in its three
+    instantiations, B5a) at the orders around their tile configurations and
+    panel widths, at batches around the 256-row block and around their own
+    resident blocks (the persistent grid's wave), against the plain
+    versions; each repeats bitwise, and identity and zero systems with
+    rhs 0 solve to exactly 0."""
+    kernels = [(f"cholesky_solve_rank1 {s}",
+                lambda G, r, g, s=s: pchol.cholesky_solve_rank1(G, r, g, *s),
+                lambda G, r, g, s=s: pchol.cholesky_solve_rank1_plain(
+                    G, r, g, *s),
+                lambda k, s=s: pchol.variant_resident(
+                    "cholesky_solve_rank1", k, *s))
+               for s in pchol.RANK1_SCHEDULES]
+    kernels.append(("cholesky_solve_panel", pchol.cholesky_solve_panel,
+                    pchol.cholesky_solve_panel_plain,
+                    lambda k: pchol.variant_resident("cholesky_solve_panel",
+                                                     k)))
+    for k in (1, 7, 13, 64, 68, 69, 128):
+        n = 4_201
+        A = rng.standard_normal((n, k, max(k // 2, 1))).astype(np.float32)
+        G = _t(A @ A.transpose(0, 2, 1) / max(k // 2, 1)).to(dev)
+        rhs = _t(rng.standard_normal((n, k)).astype(np.float32)).to(dev)
+        reg = _t(rng.uniform(0.05, 0.2, n).astype(np.float32)).to(dev)
+        for label, fn, plain, resident in kernels:
+            res = resident(k)
+            assert res >= 132, (label, k, res)
+            for b in sorted({1, 255, 256, 257, res - 1, res, res + 1, n}):
+                if b > n:
+                    continue
+                a = (G[:b].contiguous(), rhs[:b].contiguous(),
+                     reg[:b].contiguous())
+                x = fn(*a)
+                _close(x.cpu().numpy(), plain(*a).cpu().numpy())
+                assert torch.equal(x, fn(*a)), (label, k, b)
+            z = torch.zeros(6, k, k, device=dev)
+            z[3:] = torch.eye(k, device=dev)
+            out = fn(z, torch.zeros(6, k, device=dev),
+                     torch.zeros(6, device=dev))
+            assert torch.equal(out, torch.zeros_like(out)), (label, k)
