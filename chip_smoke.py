@@ -29,11 +29,15 @@ non-zero before the result lines are printed:
    instantiations, ``cholesky_solve_panel``, ``cholesky_solve_schur``
    (srows 1 and 2) and ``cholesky_solve_dual``; ``cholesky_solve_2g`` also
    at B1's boundary batches, with exact zeros in both regimes and its
-   device time and host cost at 256 rows; ``cholesky_solve_rank1`` (each
-   instantiation) and ``cholesky_solve_panel`` also at B = 1, 255, 256,
-   257, their own resident blocks (printed, with the blocks per SM) and
-   that count +- 1, and 4,201, each repeated bitwise, and with exact zeros
-   for identity and zero systems. Then the solve-variant path
+   device time and host cost at 256 rows; the kernels of
+   ``csrc/cholesky_rank_panel.cu`` (``cholesky_solve_rank1``, each
+   instantiation, ``cholesky_solve_panel``, ``cholesky_solve_schur``,
+   both, and ``cholesky_solve_dual``) also at B = 1, 255, 256, 257, their
+   own resident blocks (printed, with the blocks per SM) and that count
+   +- 1, and 4,201 (the dual kernel, two systems a block, also at 2, 3
+   and twice its resident blocks +- 1), each repeated bitwise, and with
+   exact zeros for identity and zero systems inside one wave and past it.
+   Then the solve-variant path
    as a user runs it, with the launch counts set to 0 just before and read
    just after: ``solve_spd_t(Gt2=)`` at k=64, B=65,536, and the variant
    probe (``probes/solve_variants.py``) at k=128, B=65,536 with pair, rank1,
@@ -60,9 +64,9 @@ non-zero before the result lines are printed:
    epoch_seconds as ``bench.py`` times it: the solver's whole-fit loop on
    uploaded layouts, which must reproduce the fit's history;
 6. one JSON line describing every kernel, then the result line. Each
-   entry's numbers are at its ``k`` and ``batch``; B4 and B5a have
-   ``resident`` (their kernel's resident blocks at k=64; B4 per
-   instantiation in ``resident_by_instantiation``); B1, B2 and B3 also have
+   entry's numbers are at its ``k`` and ``batch``; B4, B5a, B5b and B5c
+   have ``resident`` (their kernel's resident blocks at k=64; B4 and B5b
+   per instantiation in ``resident_by_instantiation``); B1, B2 and B3 also have
    ``resident`` (the latency kernel's resident blocks), ``regime_by_batch``
    and ``by_batch`` (device ms, host µs, library device ms and bound ms at
    each timed batch); a kernel the probe runs also has ``at_probe_shape``,
@@ -150,8 +154,8 @@ SOURCE = {
     "cholesky_solve_2g": _CSRC + "cholesky_solve.cu",
     "cholesky_solve_rank1": _CSRC + "cholesky_rank_panel.cu",
     "cholesky_solve_panel": _CSRC + "cholesky_rank_panel.cu",
-    "cholesky_solve_schur": _CSRC + "cholesky_variants.cu",
-    "cholesky_solve_dual": _CSRC + "cholesky_variants.cu",
+    "cholesky_solve_schur": _CSRC + "cholesky_rank_panel.cu",
+    "cholesky_solve_dual": _CSRC + "cholesky_rank_panel.cu",
     "gather_rows_sum": _CSRC + "gather.cu",
 }
 MAIN_PATH = "ALS(rank=64).fit, ML-25M shape"
@@ -509,13 +513,19 @@ def variant_systems(torch, dev, b=65_536, k=RANK):
 def persistent_boundary(torch, name, fn, plain, args, extra, resident, dev):
     """A persistent-grid kernel against its plain version at B = 1, 255,
     256, 257, its resident blocks and that count +- 1, and 4,201 (the first
-    b systems of ``args``), each repeated bitwise; then identity and zero
-    systems with rhs 0, inside one wave and past it, must give exactly 0.
-    Returns the max abs error."""
+    b systems of ``args``; ``cholesky_solve_dual``, whose block carries two
+    systems, also at B = 2, 3 and twice its resident blocks +- 1), each
+    repeated bitwise; then identity and zero systems with rhs 0, inside one
+    wave and past it, must give exactly 0. Returns the max abs error."""
     k = args[0].shape[1]
     err_all = 0.0
-    for b in sorted({1, 255, 256, 257, resident - 1, resident, resident + 1,
-                     4_201}):
+    batches = {1, 255, 256, 257, resident - 1, resident, resident + 1,
+               4_201}
+    wave = resident
+    if name == "cholesky_solve_dual":
+        wave = 2 * resident
+        batches |= {2, 3, wave - 1, wave, wave + 1}
+    for b in sorted(batches):
         sl = tuple(a[:b].contiguous() for a in args)
         x = fn(*sl, *extra)
         err, ok = compare(torch, x, plain(*sl, *extra))
@@ -524,7 +534,7 @@ def persistent_boundary(torch, name, fn, plain, args, extra, resident, dev):
         check(torch.equal(x, fn(*sl, *extra)),
               f"{name} {extra} is not bitwise repeatable at B={b}")
         err_all = max(err_all, err)
-    for nz in (8, resident + 1):
+    for nz in (8, wave + 1):
         Gz = torch.zeros(nz, k, k, device=dev)
         Gz[nz // 2:] = torch.eye(k, device=dev)
         z = fn(Gz, torch.zeros(nz, k, device=dev), torch.zeros(nz, device=dev),
@@ -582,15 +592,18 @@ def phase_variants(torch, dev, G, G2, rhs, reg):
                     f"(max abs err {err_b:.3e})")
         del x, ref
         extra_fields = {}
-        if name in ("cholesky_solve_rank1", "cholesky_solve_panel"):
-            res = ch.variant_resident(name, k, *extra)
+        if name in ("cholesky_solve_rank1", "cholesky_solve_panel",
+                    "cholesky_solve_schur", "cholesky_solve_dual"):
+            res = (ch.variant_resident(name, k, srows=extra[0])
+                   if name == "cholesky_solve_schur"
+                   else ch.variant_resident(name, k, *extra))
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
             err_bd = persistent_boundary(torch, name, fn, plain, args, extra,
                                          res, dev)
             err_b = max(err_b, err_bd)
             by_inst = results.get(name, {}).get("resident_by_instantiation",
                                                 {})
-            by_inst[label or "panel"] = res
+            by_inst[label or name.rsplit("_", 1)[1]] = res
             extra_fields = dict(resident_by_instantiation=by_inst)
             if reported.get(name, label) == label:
                 extra_fields["resident"] = res

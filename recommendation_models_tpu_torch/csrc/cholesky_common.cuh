@@ -1,6 +1,6 @@
-// Shared by csrc/cholesky_solve.cu, csrc/cholesky_rank_panel.cu and
-// csrc/cholesky_variants.cu: the solves' limits and pivot floor, the thread
-// configuration per order (cholesky_rank_panel.cu has its own), the cached
+// Shared by csrc/cholesky_solve.cu and csrc/cholesky_rank_panel.cu: the
+// solves' limits and pivot floor, the thread configuration per order of
+// cholesky_solve.cu (cholesky_rank_panel.cu has its own), the cached
 // residency query, the persistent-grid launch, and the two C exports every
 // library of the solves has. Each source builds into its own library and
 // includes this header once.

@@ -1,8 +1,8 @@
-// Batched ridge-Cholesky solves with the rank-1, rank-2 and rank-8 panel
-// factor schedules of the reference's non-default TPU variants, hand-written
-// for Hopper (sm_90a). Built by nvcc into a shared library with a plain C
-// interface and called through ctypes
-// (recommendation_models_tpu_torch/ops/cholesky.py).
+// Batched ridge-Cholesky solves with the rank-1, rank-2, rank-8 panel,
+// two-level Schur and dual-chain factor schedules of the reference's
+// non-default TPU variants, hand-written for Hopper (sm_90a). Built by
+// nvcc into a shared library with a plain C interface and called through
+// ctypes (recommendation_models_tpu_torch/ops/cholesky.py).
 //
 // Replaces, in recommendation_models_tpu/ops/pallas/cholesky.py:
 //   cholesky_solve_rank1 <FCOLS, SROWS> <- _cholesky_solve_kernel (:198,
@@ -10,21 +10,26 @@
 //       _substitutions_pair :749 when subs2), and the pair=True, subs2=False
 //       combination of _cholesky_solve_kernel_pair (:226) (FCOLS=2, SROWS=1)
 //   cholesky_solve_panel               <- _cholesky_solve_kernel_panel (:107)
+//   cholesky_solve_schur <SROWS>       <- _cholesky_solve_kernel_schur (:697;
+//       _factor_body_schur :429), k % 16 == 0
+//   cholesky_solve_dual                <- _cholesky_solve_kernel_dual (:675;
+//       _factor_body_pair_multi :554, _substitutions_pair_multi :605)
 //
 // Contract (as csrc/cholesky_solve.cu): f32 throughout, no TF32 and no
 // tensor cores; the ridge is added on load (A = G + reg_b I); pivots are
 // clamped at max(d, 1e-30) (L_jj = d * rsqrt(max(d, 1e-30)), substitutions
 // multiply by 1 / max(L_jj, 1e-30)), so identity-padded and all-zero systems
 // with rhs 0 solve to exactly 0. G (B, k, k), rhs (B, k), reg (B,), batch
-// major; 1 <= k <= 128, any B. Results repeat bitwise (no atomics, fixed
-// orders).
+// major; 1 <= k <= 128 (Schur: k % 16 == 0), any B. Results repeat bitwise
+// (no atomics, fixed orders).
 //
 // What bounds them on an H100: at k = 64 a system must read 8.6 KB (the
 // lower triangle of G, rhs, reg) and write 256 B for ~0.1 MFLOP, so the
 // bound is device-memory bytes (0.173 ms for 65,536 systems at 3.35 TB/s);
 // at k = 128 it is ~0.73 MFLOP for 34 KB, and f32 operations bound it
-// (0.716 ms at 67 TFLOP/s). Both kernels run far above: a factor is a chain
-// of dependent column (or panel) steps separated by block barriers.
+// (0.716 ms at 67 TFLOP/s). All run far above: a factor is a chain of
+// dependent column (or panel) steps separated by block barriers, and a
+// substitution a chain of 2k dependent shuffle rounds.
 //
 // The old design (one system per block, row-ordered tiles, one warp running
 // both substitutions while the block waited), read with per-phase clocks on
@@ -35,19 +40,20 @@
 // per SM). This frame answers each limit:
 //
 // - The substitutions leave the critical path. A block is NTH factor
-//   threads and one substitution warp. The factor threads write L and the
-//   right-hand side of system n into one of two slots and signal it (named
-//   barrier FULL[s], bar.arrive), then go on to system n + 1 in the other
-//   slot; the substitution warp waits on FULL[s], derives 1 / L_jj, solves
-//   from the slot, and hands it back (EMPTY[s]). The factor threads' own
-//   barriers are named barriers without the substitution warp. L is stored
-//   packed (row i at i (i + 1) / 2: two slots take what one square did,
-//   66 KB at k = 128), which keeps both substitutions free of bank
-//   conflicts (triangular numbers of 32 consecutive rows fall on 32
-//   distinct banks). A round loads its L entries and 1 / L_jj before its
-//   shuffle. Measured with the same clocks, the two stages now overlap and
-//   take about the same time per system; the substitution warp rarely waits
-//   for a slot, so at 65,536 systems it is the (slightly) slower stage.
+//   threads and one substitution warp per system. The factor threads write
+//   L and the right-hand side of system n into one of two slots and signal
+//   it (named barrier FULL[s], bar.arrive), then go on to system n + 1 in
+//   the other slot; the substitution warp waits on FULL[s], derives
+//   1 / L_jj, solves from the slot, and hands it back (EMPTY[s]). The
+//   factor threads' own barriers are named barriers without the
+//   substitution warp. L is stored packed (row i at i (i + 1) / 2: two
+//   slots take what one square did, 66 KB at k = 128), which keeps both
+//   substitutions free of bank conflicts (triangular numbers of 32
+//   consecutive rows fall on 32 distinct banks). A round loads its L
+//   entries and 1 / L_jj before its shuffle. Measured with the same clocks,
+//   the two stages now overlap and take about the same time per system;
+//   the substitution warp rarely waits for a slot, so at 65,536 systems it
+//   is the (slightly) slower stage.
 // - The next system's tiles arrive while this one factors: each factor
 //   thread copies its own tiles of system n + 1 into a shared-memory stage
 //   with cp.async (16-byte copies where k % 4 == 0) right after reading
@@ -77,12 +83,34 @@
 //   tiles. L reaches the packed L once. Not built: a lookahead that starts
 //   the next panel's diagonal block during the update (its three tiles have
 //   three owners, so it needs a barrier of its own).
+// - Schur (B5b): the old kernel ran its three phases in turn, with a block
+//   barrier between phase 1 (rank-2 steps over [0, h), h = k / 2, left
+//   tiles only) and phase 2 (A22 -= L21 L21^T in groups of 8 columns),
+//   and phase 2 ran on A22's tiles alone, a quarter of the block, while
+//   the rest waited. Here phase 2 rides phase 1: after step j's barrier
+//   L's columns < j are complete in the slot, so A22's owners apply group
+//   j - 8 there, while the left tiles' steps go on; only the last group
+//   waits for one more barrier. A22's owners cannot leave phase 1 (every
+//   thread below k writes its row of L at every step up to its row), so
+//   the barriers of phase 1 hand the groups over and no further barrier is
+//   needed. The groups keep their order and sum their terms before
+//   subtracting, so the result is the old kernel's.
+// - Dual (B5c): each factor thread owns the same tiles of both systems,
+//   and each step publishes both systems' columns and takes one barrier
+//   for the two chains (two independent FMA chains a thread, half a
+//   barrier a system a step). Each system has its own substitution warp
+//   and slots, so the pair's two substitutions run side by side and
+//   overlap the next pair's factor, where the old kernel's two warps
+//   substituted while the block waited. Both substitution warps wait on
+//   one FULL and arrive on one EMPTY barrier. A pair past an odd B factors
+//   an identity in its second place, and that place's warp takes the
+//   hand-overs without solving.
 //
 // The factors' arithmetic is the old kernels': the rank-1 and rank-2 steps
-// of csrc/cholesky_variants.cu; the panel's column jj takes the panel's
-// earlier columns' terms in order p = 0 .. jj - 1 (left-looking, as the
-// reference and cholesky_solve_panel_plain), and the trailing update sums
-// its eight terms before subtracting them.
+// of the reference's column schedules; the panel's column jj takes the
+// panel's earlier columns' terms in order p = 0 .. jj - 1 (left-looking, as
+// the reference and cholesky_solve_panel_plain), and the trailing update
+// sums its eight terms before subtracting them (as each Schur group).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,14 +123,28 @@ using chol::KMAX;
 using chol::PIVOT_FLOOR;
 using chol::pick4;
 
-constexpr int PW = 8;                 // panel width
-enum Sched { RANK1 = 1, PAIR = 2, PANEL = 8 };
+constexpr int PW = 8;                 // panel width; the Schur groups' too
+// the factor schedules; each value is also the kernel's code in
+// cholesky_rank_panel_resident
+enum Sched { RANK1 = 1, PAIR = 2, PANEL = 8, SCHUR = 16, DUAL = 32 };
+
+// systems a block carries (DUAL: two, each with its own substitution
+// warp), and a block's threads
+__host__ __device__ constexpr int systems(int sched) {
+    return sched == DUAL ? 2 : 1;
+}
+__host__ __device__ constexpr int block_threads(int nth, int sched) {
+    return nth + 32 * systems(sched);
+}
 
 // named barriers: 0 is __syncthreads; the factor threads' own (one per
 // system parity: warps that retire early from one system's rank steps go
 // on to the next system's while the others finish, and the two must not
-// share a barrier), and the two slots' FULL and EMPTY hand-overs between
-// them and the substitution warp
+// share a barrier), and the two slot parities' FULL and EMPTY hand-overs
+// between them and the substitution warps (DUAL: both warps wait on one
+// FULL and both arrive on one EMPTY, since the factor threads fill and
+// reuse the two systems' slots together: seven barriers in every
+// schedule)
 constexpr int BAR_FACTOR = 1, BAR_FULL = 2, BAR_EMPTY = 4,
               BAR_FACTOR_ODD = 6;
 
@@ -144,37 +186,50 @@ __device__ __forceinline__ float rsqrt_normal(float x) {
 }
 
 // Shared memory of a block, in floats (every region a multiple of 4, so
-// each stays 16-byte aligned): the stage (the tiles of the next system,
-// 16 floats a tile), the factor's buffers (rank steps: four sets, by
-// system and step parity, of two column buffers of kp + 4; the panel: two,
-// by panel parity, of PW columns of kp + 4), two slots of [packed L,
-// rhs / y (kp), 1 / L_jj (kp)], and the rank steps' barrier counts (kp
-// ints).
+// each stays 16-byte aligned), for NS systems a block (DUAL: 2, else 1):
+// NS stages (the tiles of the next system, 16 floats a tile), the
+// factor's buffers (rank steps: four sets a system, by system and step
+// parity, of two column buffers of kp + 4, at (parity NS + system) 4
+// (kp + 4); the panel: two, by panel parity, of PW columns of kp + 4),
+// 2 NS slots of [packed L, rhs / y (kp), 1 / L_jj (kp)] (slot
+// parity NS + system), and the rank steps' barrier counts (kp ints).
+//
+// DUAL keeps two slots a system: the factor writes L as it goes, so with
+// one slot a system the next pair's factor would wait for both
+// substitutions and the two stages would not overlap. At k = 128 its
+// block takes 213 KB (one slot a system: 145 KB), one block per SM either
+// way; at k = 64, 57 KB.
 struct Layout {
     int ntiles, ps, lsz;
     int work, slot0, slot_floats, nbar, total;
 };
 
-__host__ __device__ inline Layout layout(int kp, bool panel) {
+__host__ __device__ inline Layout layout(int kp, int sched) {
     Layout q;
-    const int T = kp / 4;
+    const int T = kp / 4, ns = systems(sched);
     q.ntiles = T * (T + 1) / 2;
     q.ps = kp + 4;
     q.lsz = (tri(kp) + 3) & ~3;
-    q.work = q.ntiles * 16;
-    q.slot0 = q.work + (panel ? 2 * PW : 8) * q.ps;
+    q.work = ns * q.ntiles * 16;
+    q.slot0 = q.work + (sched == PANEL ? 2 * PW : 8 * ns) * q.ps;
     q.slot_floats = q.lsz + 2 * kp;
-    q.nbar = q.slot0 + 2 * q.slot_floats;
+    q.nbar = q.slot0 + 2 * ns * q.slot_floats;
     q.total = q.nbar + kp;
     return q;
 }
 
 // Thread configurations: NTH factor threads with NT tiles each cover the
 // T (T + 1) / 2 tiles: <160, 1> up to k = 68, <224, 2> up to k = 116,
-// <224, 3> to k = 128; a block adds the substitution warp. A block's warps
-// share the SM's four schedulers, each with a quarter of the registers, so
-// 224 + 32 threads (8 warps) at two blocks per SM keep 128 registers a
-// thread where 256 + 32 (9 warps) kept 96 and spilled.
+// <224, 3> to k = 128; a block adds a substitution warp per system. A
+// block's warps share the SM's four schedulers, each with a quarter of the
+// registers, so 224 + 32 threads (8 warps) at two blocks per SM keep 128
+// registers a thread where 256 + 32 (9 warps) kept 96 and spilled. DUAL
+// (one block per SM above k = 68) takes <288, 2> there: 288 + 64 threads
+// are 11 warps, three on one scheduler, which caps a thread at 168
+// registers, and two tiles a thread of each system fit in 154 without
+// spills. On an H100 at k = 128, <224, 3> (9 warps, the same cap, three
+// tiles) spilled 204 bytes, and <192, 3> (8 warps, 214 registers) ran
+// 19.0 ms against 15.6 (PERF.md).
 int frame_config(int kp) {
     const int T = kp / 4, tiles = T * (T + 1) / 2;
     return tiles <= 160 ? 0 : tiles <= 448 ? 1 : 2;
@@ -182,14 +237,22 @@ int frame_config(int kp) {
 
 // Residency targets (blocks per SM; measured on an H100, PERF.md): at
 // k <= 68, 5 blocks of the rank kernels (64 registers) and 4 of the panel
-// kernel (80: its diagonal block lives in registers); 7 and 5 spilled and
-// ran 24-28% slower, 8 and 6 no faster; 6 rank blocks ran within 2%, 3
-// panel blocks 7% slower. The card's occupancy query holds 4 blocks of
-// either at k = 64 (the rank kernels' registers alone would allow 5).
-// Above, 2 blocks (shared memory allows no more at k = 128; 1 ran 16-74%
-// slower).
+// and Schur kernels (80: the panel's diagonal block lives in registers;
+// the Schur groups add a 4 x 4 accumulator to the rank-2 step's); 7 and 5
+// spilled and ran 24-28% slower, 8 and 6 no faster; 6 rank blocks ran
+// within 2%, 3 panel blocks 7% slower. The card's occupancy query holds 4
+// blocks of either at k = 64 (the rank kernels' registers alone would
+// allow 5). Above, 2 blocks (shared memory allows no more at k = 128; 1
+// ran 16-74% slower). DUAL holds two systems' tiles (twice the
+// accumulators): at k <= 68, 3 blocks of 224 threads (80 registers; 2
+// blocks, at 117 registers without spills, ran 10% slower at k = 64);
+// above, one block (its shared memory allows no more at k = 128). Schur at
+// k <= 68: 3 blocks, at 96 registers without spills, ran 18% slower.
 constexpr int min_blocks(int nth, int sched) {
-    return nth != 160 ? 2 : sched == PANEL ? 4 : 5;
+    return sched == DUAL ? (nth == 160 ? 3 : 1)
+           : nth != 160  ? 2
+           : sched == PANEL || sched == SCHUR ? 4
+                                              : 5;
 }
 
 // r with tri(r) <= t < tri(r + 1): tile t's column, counted from the right
@@ -250,10 +313,12 @@ __device__ __forceinline__ void prefetch(const Tiles<NT>& s, float* stage,
     }
 }
 
-// The staged system into the tiles: A = G + rb I, identity on the padding.
+// The staged system into the tiles: A = G + rb I, identity on the padding
+// (and G = 0 for a system that is not present: nothing was staged).
 template <int NTH, int NT>
 __device__ __forceinline__ void take(Tiles<NT>& s, const float* stage,
-                                     int ntiles, int k, float rb, int tid) {
+                                     int ntiles, int k, float rb,
+                                     bool present, int tid) {
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
         const int t = tid + n * NTH, l0 = s.tl[n] * 4;
@@ -261,7 +326,7 @@ __device__ __forceinline__ void take(Tiles<NT>& s, const float* stage,
         for (int r = 0; r < 4; ++r) {
             const int i = s.ti[n] * 4 + r;
             float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (s.live[n] && i < k)
+            if (present && s.live[n] && i < k)
                 v = *reinterpret_cast<const float4*>(
                     stage + ((size_t)r * ntiles + t) * 4);
             const float g[4] = {v.x, v.y, v.z, v.w};
@@ -316,16 +381,14 @@ __device__ __forceinline__ int warp_exit(int w, int T, int k) {
     return e;
 }
 
-// One right-looking column step (csrc/cholesky_variants.cu begin1 and
-// finish1): the
-// owners publish column j, a barrier of the nb threads still factoring
-// (named barrier bar), then thread i >= j writes L[i][j] and every thread
-// applies the rank-1 update to its trailing tiles.
+// One right-looking column step for each of the block's NS systems: the
+// owners publish column j (buffer b, system w's at b + 4 w bs), a barrier
+// of the nb threads still factoring (named barrier bar), then thread
+// i >= j writes L[i][j] and every thread applies the rank-1 update to its
+// trailing tiles.
 template <int NT>
-__device__ __forceinline__ void step1(Tiles<NT>& s, const Out& o, int j,
-                                      float* buf, int tid, int bar, int nb) {
-    publish(s, j, o.kp, buf);
-    bar_sync(bar, nb);
+__device__ __forceinline__ void finish1(Tiles<NT>& s, const Out& o, int j,
+                                        const float* buf, int tid) {
     const float d = buf[o.kp];
     const float inv = rsqrt_normal(fmaxf(d, PIVOT_FLOOR));
     const float inv2 = inv * inv;
@@ -350,18 +413,28 @@ __device__ __forceinline__ void step1(Tiles<NT>& s, const Out& o, int j,
     }
 }
 
-// One rank-2 step over columns (j, j + 1), j even (csrc/cholesky_variants.cu
-// step2): both columns published raw, one barrier; thread i >= j writes
-// L[i][j] and, corrected by it, L[i][j+1], and every thread applies the
-// rank-2 update.
-template <int NT>
-__device__ __forceinline__ void step2(Tiles<NT>& s, const Out& o, int j,
-                                      float* b1, int bs, int tid, int bar,
-                                      int nb) {
-    float* b2 = b1 + bs;
-    publish(s, j, o.kp, b1);
-    publish(s, j + 1, o.kp, b2);
+template <int NT, int NS>
+__device__ __forceinline__ void step1(Tiles<NT> (&s)[NS],
+                                      const Out (&o)[NS], int j, float* b,
+                                      int bs, int tid, int bar, int nb) {
+#pragma unroll
+    for (int w = 0; w < NS; ++w) publish(s[w], j, o[w].kp, b + 4 * w * bs);
     bar_sync(bar, nb);
+#pragma unroll
+    for (int w = 0; w < NS; ++w) finish1<NT>(s[w], o[w], j, b + 4 * w * bs,
+                                             tid);
+}
+
+// One rank-2 step over columns (j, j + 1), j even, for each of the NS
+// systems: both columns published raw (b1, b1 + bs), one barrier; thread
+// i >= j writes L[i][j] and, corrected by it, L[i][j+1], and every thread
+// applies the rank-2 update, with LEFT (the Schur factor's first phase)
+// only to the tiles left of column 4 ht.
+template <int NT, bool LEFT>
+__device__ __forceinline__ void finish2(Tiles<NT>& s, const Out& o, int j,
+                                        const float* b1, int bs, int tid,
+                                        int ht) {
+    const float* b2 = b1 + bs;
     const float d1 = b1[o.kp];
     const float inv1 = rsqrt_normal(fmaxf(d1, PIVOT_FLOOR));
     const float l12 = b1[j + 1] * inv1;             // L[j+1][j]
@@ -380,7 +453,7 @@ __device__ __forceinline__ void step2(Tiles<NT>& s, const Out& o, int j,
     }
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-        if (!s.live[n]) continue;
+        if (!s.live[n] || (LEFT && s.tl[n] >= ht)) continue;
         const int i0 = s.ti[n] * 4, l0 = s.tl[n] * 4;
         if (l0 + 3 > j) {
             const float4 p1 = *reinterpret_cast<const float4*>(b1 + i0);
@@ -408,6 +481,64 @@ __device__ __forceinline__ void step2(Tiles<NT>& s, const Out& o, int j,
                     s.a[n][r][c] = fmaf(-ci2[r], cl2[c],
                                         fmaf(-ci1[r], cl1[c], s.a[n][r][c]));
         }
+    }
+}
+
+template <int NT, int NS, bool LEFT = false>
+__device__ __forceinline__ void step2(Tiles<NT> (&s)[NS],
+                                      const Out (&o)[NS], int j, float* b,
+                                      int bs, int tid, int bar, int nb,
+                                      int ht = 0) {
+#pragma unroll
+    for (int w = 0; w < NS; ++w) {
+        publish(s[w], j, o[w].kp, b + 4 * w * bs);
+        publish(s[w], j + 1, o[w].kp, b + 4 * w * bs + bs);
+    }
+    bar_sync(bar, nb);
+#pragma unroll
+    for (int w = 0; w < NS; ++w)
+        finish2<NT, LEFT>(s[w], o[w], j, b + 4 * w * bs, bs, tid, ht);
+}
+
+// One group of the Schur factor's deferred update, A22 -= L21 L21^T over
+// L's columns g .. g + 7, read from the packed L: each tile of A22 (row
+// and column at or past h = 4 ht) sums its eight terms in order p = g ..
+// g + 7, then subtracts the sum. A22's tri(ht) tiles are the first in the
+// column-from-the-right order, so they are all n = 0 tiles
+// (tri(ht) <= NTH at every k % 16 == 0).
+template <int NT>
+__device__ __forceinline__ void schur_group(Tiles<NT>& s, const float* L,
+                                            int g, int ht) {
+    if (!s.live[0] || s.tl[0] < ht) return;
+    const int i0 = s.ti[0] * 4, l0 = s.tl[0] * 4;
+    int ri[4], rl[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+        ri[r] = tri(i0 + r) + g;
+        rl[r] = tri(l0 + r) + g;
+    }
+    // two rows at a time: half the accumulators live at once, each sum
+    // in the same order
+#pragma unroll
+    for (int r0 = 0; r0 < 4; r0 += 2) {
+        float acc[2][4] = {};
+#pragma unroll
+        for (int p = 0; p < PW; ++p) {
+            float ll[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) ll[c] = L[rl[c] + p];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const float li = L[ri[r0 + r] + p];
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                    acc[r][c] = fmaf(li, ll[c], acc[r][c]);
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) s.a[0][r0 + r][c] -= acc[r][c];
     }
 }
 
@@ -638,27 +769,31 @@ __device__ __forceinline__ void substitute(const float* L, float* rinv,
         if (lane + 32 * q < k) ob[lane + 32 * q] = y[q];
 }
 
-// NTH factor threads with NT tiles each, plus one substitution warp; SCHED
-// the factor schedule, SROWS the substitutions' rows per round.
+// NTH factor threads with NT tiles each, plus one substitution warp per
+// system (DUAL: two systems a block, b = 2 p and 2 p + 1 for the block's
+// pair p); SCHED the factor schedule, SROWS the substitutions' rows per
+// round.
 template <int NTH, int NT, int SCHED, int SROWS>
-__global__ void __launch_bounds__(NTH + 32, min_blocks(NTH, SCHED))
+__global__ void __launch_bounds__(block_threads(NTH, SCHED),
+                                  min_blocks(NTH, SCHED))
 rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
                   const float* __restrict__ reg, float* __restrict__ out,
                   int B, int k, int kp, int vec) {
     constexpr int NQ = NTH == 160 ? 3 : 4;   // rows per lane (kp <= 32 NQ)
+    constexpr int NS = systems(SCHED);
+    constexpr int HAND = block_threads(NTH, SCHED);   // FULL / EMPTY count
     extern __shared__ __align__(16) float smem[];
-    const Layout q = layout(kp, SCHED == PANEL);
-    float* stage = smem;
+    const Layout q = layout(kp, SCHED);
     float* work = smem + q.work;
     const int tid = threadIdx.x;
-    // this block's systems: b = blockIdx.x + it gridDim.x
-    const int count = (B - (int)blockIdx.x + (int)gridDim.x - 1)
-                      / (int)gridDim.x;
+    // this block's systems (pairs): p = blockIdx.x + it gridDim.x
+    const int count = ((B + NS - 1) / NS - (int)blockIdx.x
+                       + (int)gridDim.x - 1) / (int)gridDim.x;
     // the rank steps' barrier counts: 32 x the factor warps with work at
     // step j
     int* nbar = reinterpret_cast<int*>(smem + q.nbar);
     if (SCHED != PANEL) {
-        for (int j = tid; j < kp; j += NTH + 32) {
+        for (int j = tid; j < kp; j += HAND) {
             int n = 0;
             for (int w = 0; w < NTH / 32; ++w)
                 n += warp_exit(w, kp >> 2, k) >= j;
@@ -668,66 +803,126 @@ rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
     __syncthreads();
 
     if (tid >= NTH) {
-        // the substitution warp: slot it & 1 holds system it's factor
-        const int lane = tid & 31;
+        // substitution warp w: slot (it & 1, w) holds system it's factor;
+        // a system past the batch (DUAL, odd B) still takes the hand-overs
+        const int lane = tid & 31, w = (tid - NTH) >> 5;
         for (int it = 0; it < count; ++it) {
             const int s = it & 1;
-            float* slot = smem + q.slot0 + s * q.slot_floats;
-            bar_sync(BAR_FULL + s, NTH + 32);
-            substitute<SROWS, NQ>(slot, slot + q.lsz + kp, slot + q.lsz,
-                                  out + (size_t)(blockIdx.x + it * gridDim.x)
-                                            * k,
-                                  k, lane);
+            const int b = (blockIdx.x + it * gridDim.x) * NS + w;
+            float* slot = smem + q.slot0 + (s * NS + w) * q.slot_floats;
+            bar_sync(BAR_FULL + s, HAND);
+            if (NS == 1 || b < B)
+                substitute<SROWS, NQ>(slot, slot + q.lsz + kp, slot + q.lsz,
+                                      out + (size_t)b * k, k, lane);
             // the factor threads wait for the slot only if they use it again
-            if (it + 2 < count) bar_arrive(BAR_EMPTY + s, NTH + 32);
+            if (it + 2 < count) bar_arrive(BAR_EMPTY + s, HAND);
         }
         return;
     }
 
-    Tiles<NT> t;
-    own_tiles<NTH, NT>(tid, kp >> 2, t);
-    int b = blockIdx.x;
-    prefetch<NTH, NT>(t, stage, q.ntiles, G, b, k, vec, tid);
-    float rb = reg[b];
-    float bi = tid < k ? rhs[(size_t)b * k + tid] : 0.f;
+    Tiles<NT> t[NS];
+    own_tiles<NTH, NT>(tid, kp >> 2, t[0]);
+#pragma unroll
+    for (int w = 1; w < NS; ++w) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+            t[w].ti[n] = t[0].ti[n];
+            t[w].tl[n] = t[0].tl[n];
+            t[w].live[n] = t[0].live[n];
+        }
+    }
+    // system w's stage, and its next system: present (a DUAL pair's second
+    // system past an odd B is the identity with rhs 0, not stored), ridge,
+    // right-hand side
+    float* stage[NS];
+    bool here[NS];
+    float rb[NS], bi[NS];
+    int p = blockIdx.x;
+#pragma unroll
+    for (int w = 0; w < NS; ++w) {
+        stage[w] = smem + w * q.ntiles * 16;
+        const int b = p * NS + w;
+        here[w] = NS == 1 || b < B;
+        if (here[w]) prefetch<NTH, NT>(t[w], stage[w], q.ntiles, G, b, k,
+                                       vec, tid);
+        rb[w] = here[w] ? reg[b] : 1.f;
+        bi[w] = here[w] && tid < k ? rhs[(size_t)b * k + tid] : 0.f;
+    }
     // the last rank step this thread's warp takes part in
     const int last = warp_exit(tid >> 5, kp >> 2, k);
-    for (int it = 0; it < count; ++it, b += gridDim.x) {
+    for (int it = 0; it < count; ++it, p += gridDim.x) {
         const int s = it & 1;
-        float* slot = smem + q.slot0 + s * q.slot_floats;
-        const Out o = {slot, tri(min(tid, KMAX - 1)), k, kp};
-        if (it >= 2) bar_sync(BAR_EMPTY + s, NTH + 32);
+        Out o[NS];
+#pragma unroll
+        for (int w = 0; w < NS; ++w)
+            o[w] = {smem + q.slot0 + (s * NS + w) * q.slot_floats,
+                    tri(min(tid, KMAX - 1)), k, kp};
+        if (it >= 2) bar_sync(BAR_EMPTY + s, HAND);
         cp_async_wait_all();
-        take<NTH, NT>(t, stage, q.ntiles, k, rb, tid);
-        if (tid < k) slot[q.lsz + tid] = bi;
+#pragma unroll
+        for (int w = 0; w < NS; ++w) {
+            take<NTH, NT>(t[w], stage[w], q.ntiles, k, rb[w], here[w], tid);
+            if (tid < k) o[w].L[q.lsz + tid] = bi[w];
+        }
         if (it + 1 < count) {
-            const int bn = b + gridDim.x;
-            prefetch<NTH, NT>(t, stage, q.ntiles, G, bn, k, vec, tid);
-            rb = reg[bn];
-            bi = tid < k ? rhs[(size_t)bn * k + tid] : 0.f;
-        }
-        if constexpr (SCHED == PANEL) {
-            factor_panel<NTH, NT>(t, o, work, q.ps, tid);
-        } else {
-            // a warp leaves after its last step (its tiles are done);
-            // the column buffers alternate by step, and this system's
-            // four sets are its parity's
-            const int bs = q.ps, bar = s ? BAR_FACTOR_ODD : BAR_FACTOR;
-            float* cb = work + s * 4 * bs;
-            int j = 0;
-            if constexpr (SCHED == PAIR) {
-                for (; j + 1 < k && j <= last; j += 2)
-                    step2<NT>(t, o, j, cb + ((j >> 1) & 1) * 2 * bs, bs, tid,
-                              bar, nbar[j]);
+            const int pn = p + gridDim.x;
+#pragma unroll
+            for (int w = 0; w < NS; ++w) {
+                const int bn = pn * NS + w;
+                here[w] = NS == 1 || bn < B;
+                if (here[w]) prefetch<NTH, NT>(t[w], stage[w], q.ntiles, G,
+                                               bn, k, vec, tid);
+                rb[w] = here[w] ? reg[bn] : 1.f;
+                bi[w] = here[w] && tid < k ? rhs[(size_t)bn * k + tid] : 0.f;
             }
-            const int sp = SCHED == PAIR ? 1 : 0;
-            for (; j < k && j <= last; ++j)
-                step1<NT>(t, o, j, cb + ((j >> sp) & 1) * 2 * bs, tid, bar,
-                          nbar[j]);
         }
-        // L, y's right-hand side and 1 / L_jj of system b are in the slot
+        // a warp leaves the rank steps after its last step (its tiles are
+        // done); the column buffers alternate by step, and this system's
+        // (pair's) sets are its parity's
+        const int bs = q.ps, bar = s ? BAR_FACTOR_ODD : BAR_FACTOR;
+        float* cb = work + s * NS * 4 * bs;
+        if constexpr (SCHED == PANEL) {
+            factor_panel<NTH, NT>(t[0], o[0], work, q.ps, tid);
+        } else if constexpr (SCHED == SCHUR) {
+            // k % 16 == 0, so kp == k; h = k / 2 = 4 ht. Phase 1 (rank-2
+            // steps over [0, h), left tiles only) carries phase 2: after
+            // step j's barrier L's columns < j are complete, and A22's
+            // tiles take group j - 8 while the left tiles' steps go on.
+            // The last group waits for one more barrier (the warps still
+            // factoring at step h); then phase 3 over [h, k).
+            const int h = k >> 1, ht = h >> 2;
+            int j = 0;
+            for (; j < h && j <= last; j += 2) {
+                step2<NT, 1, true>(t, o, j, cb + ((j >> 1) & 1) * 2 * bs,
+                                   bs, tid, bar, nbar[j], ht);
+                if (j >= PW && j % PW == 0)
+                    schur_group<NT>(t[0], o[0].L, j - PW, ht);
+            }
+            if (h <= last) {
+                bar_sync(bar, nbar[h]);
+                schur_group<NT>(t[0], o[0].L, h - PW, ht);
+            }
+            for (j = h; j < k && j <= last; j += 2)
+                step2<NT, 1>(t, o, j, cb + ((j >> 1) & 1) * 2 * bs, bs, tid,
+                             bar, nbar[j]);
+        } else {
+            // RANK1, PAIR, DUAL (the pair schedule for both systems, one
+            // barrier a step)
+            constexpr bool two = SCHED != RANK1;
+            int j = 0;
+            if constexpr (two) {
+                for (; j + 1 < k && j <= last; j += 2)
+                    step2<NT, NS>(t, o, j, cb + ((j >> 1) & 1) * 2 * bs, bs,
+                                  tid, bar, nbar[j]);
+            }
+            for (; j < k && j <= last; ++j)
+                step1<NT, NS>(t, o, j, cb + ((j >> two) & 1) * 2 * bs, bs,
+                              tid, bar, nbar[j]);
+        }
+        // L, y's right-hand side and 1 / L_jj of the systems are in the
+        // slots
         __threadfence_block();
-        bar_arrive(BAR_FULL + s, NTH + 32);
+        bar_arrive(BAR_FULL + s, HAND);
     }
 }
 
@@ -735,13 +930,14 @@ template <int NTH, int NT, int SCHED, int SROWS>
 cudaError_t launch(const float* G, const float* rhs, const float* reg,
                    float* out, int B, int k, int kp, int vec,
                    cudaStream_t stream, long long* resident) {
-    const size_t smem = sizeof(float) * layout(kp, SCHED == PANEL).total;
+    const size_t smem = sizeof(float) * layout(kp, SCHED).total;
     const auto kern = rank_panel_kernel<NTH, NT, SCHED, SROWS>;
+    constexpr int nth = block_threads(NTH, SCHED), ns = systems(SCHED);
     if (resident)
         return chol::resident_blocks(reinterpret_cast<const void*>(kern),
-                                     NTH + 32, smem, resident);
-    return chol::launch_persistent(kern, NTH + 32, smem, B, stream, G, rhs,
-                                   reg, out, B, k, kp, vec);
+                                     nth, smem, resident);
+    return chol::launch_persistent(kern, nth, smem, (B + ns - 1) / ns,
+                                   stream, G, rhs, reg, out, B, k, kp, vec);
 }
 
 // Launches the kernel of (SCHED, SROWS) at order k, or with resident set
@@ -751,6 +947,7 @@ cudaError_t dispatch(const void* G, const void* rhs, const void* reg,
                      void* out, int B, int k, void* stream,
                      long long* resident = nullptr) {
     if (k < 1 || k > KMAX || B < 0) return cudaErrorInvalidValue;
+    if (SCHED == SCHUR && k % 16) return cudaErrorInvalidValue;
     if (B == 0 && !resident) return cudaSuccess;
     const int kp = (k + 3) & ~3;
     const int vec = (k % 4 == 0) && (((uintptr_t)G & 15) == 0);
@@ -759,21 +956,41 @@ cudaError_t dispatch(const void* G, const void* rhs, const void* reg,
     auto rg = static_cast<const float*>(reg);
     auto o = static_cast<float*>(out);
     auto s = static_cast<cudaStream_t>(stream);
-    switch (frame_config(kp)) {
-    case 0:
+    if constexpr (SCHED == DUAL) {
+        if (frame_config(kp) > 0)
+            return launch<288, 2, SCHED, SROWS>(g, r, rg, o, B, k, kp, vec,
+                                                s, resident);
         return launch<160, 1, SCHED, SROWS>(g, r, rg, o, B, k, kp, vec, s,
                                             resident);
-    case 1:
-        return launch<224, 2, SCHED, SROWS>(g, r, rg, o, B, k, kp, vec, s,
-                                            resident);
-    default:
-        return launch<224, 3, SCHED, SROWS>(g, r, rg, o, B, k, kp, vec, s,
-                                            resident);
+    } else {
+        switch (frame_config(kp)) {
+        case 0:
+            return launch<160, 1, SCHED, SROWS>(g, r, rg, o, B, k, kp, vec,
+                                                s, resident);
+        case 1:
+            return launch<224, 2, SCHED, SROWS>(g, r, rg, o, B, k, kp, vec,
+                                                s, resident);
+        default:
+            return launch<224, 3, SCHED, SROWS>(g, r, rg, o, B, k, kp, vec,
+                                                s, resident);
+        }
     }
 }
 
-// kind: 0..2 the rank-1 schedules (fcols, srows) = (1, 1), (1, 2), (2, 1);
-// 3 the panel
+// The kernels of this source, by (schedule, srows): the rank-1 schedules
+// (fcols, srows) = (1, 1), (1, 2), (2, 1); the panel (PANEL, 1); Schur
+// (SCHUR, 1 or 2); dual (DUAL, 2). -1 for any other pair.
+int kind_of(int sched, int srows) {
+    return sched == RANK1 && srows == 1   ? 0
+           : sched == RANK1 && srows == 2 ? 1
+           : sched == PAIR && srows == 1  ? 2
+           : sched == PANEL && srows == 1 ? 3
+           : sched == SCHUR && srows == 1 ? 4
+           : sched == SCHUR && srows == 2 ? 5
+           : sched == DUAL && srows == 2  ? 6
+                                          : -1;
+}
+
 cudaError_t by_kind(int kind, const void* G, const void* rhs,
                     const void* reg, void* out, int B, int k, void* stream,
                     long long* resident) {
@@ -784,15 +1001,11 @@ cudaError_t by_kind(int kind, const void* G, const void* rhs,
     case 1: return dispatch<RANK1, 2>(G, rhs, reg, out, B, k, s, r);
     case 2: return dispatch<PAIR, 1>(G, rhs, reg, out, B, k, s, r);
     case 3: return dispatch<PANEL, 1>(G, rhs, reg, out, B, k, s, r);
+    case 4: return dispatch<SCHUR, 1>(G, rhs, reg, out, B, k, s, r);
+    case 5: return dispatch<SCHUR, 2>(G, rhs, reg, out, B, k, s, r);
+    case 6: return dispatch<DUAL, 2>(G, rhs, reg, out, B, k, s, r);
     default: return cudaErrorInvalidValue;
     }
-}
-
-int rank1_kind(int fcols, int srows) {
-    return fcols == 1 && srows == 1   ? 0
-           : fcols == 1 && srows == 2 ? 1
-           : fcols == 2 && srows == 1 ? 2
-                                      : -1;
 }
 
 }  // namespace
@@ -807,7 +1020,7 @@ extern "C" {
 int cholesky_solve_rank1(const void* G, const void* rhs, const void* reg,
                          void* out, int B, int k, int fcols, int srows,
                          void* stream) {
-    const int kind = rank1_kind(fcols, srows);
+    const int kind = fcols == 1 || fcols == 2 ? kind_of(fcols, srows) : -1;
     if (kind < 0) return (int)cudaErrorInvalidValue;
     return (int)by_kind(kind, G, rhs, reg, out, B, k, stream, nullptr);
 }
@@ -818,12 +1031,30 @@ int cholesky_solve_panel(const void* G, const void* rhs, const void* reg,
     return (int)by_kind(3, G, rhs, reg, out, B, k, stream, nullptr);
 }
 
-// *resident = the blocks of the kernel of (fcols, srows) (fcols = 8: the
-// panel kernel) at order k that the current device holds at once.
-// Launches nothing.
-int cholesky_rank_panel_resident(int fcols, int srows, int k,
+// The same solve with the two-level Schur factor, k % 16 == 0, and srows
+// (1 or 2) rows per substitution step.
+int cholesky_solve_schur(const void* G, const void* rhs, const void* reg,
+                         void* out, int B, int k, int srows, void* stream) {
+    const int kind = kind_of(SCHUR, srows);
+    if (kind < 0) return (int)cudaErrorInvalidValue;
+    return (int)by_kind(kind, G, rhs, reg, out, B, k, stream, nullptr);
+}
+
+// The same solve for two systems per block, their rank-2 factors
+// interleaved, with two-row substitutions. Any B (an odd B leaves the last
+// block's second system empty).
+int cholesky_solve_dual(const void* G, const void* rhs, const void* reg,
+                        void* out, int B, int k, void* stream) {
+    return (int)by_kind(6, G, rhs, reg, out, B, k, stream, nullptr);
+}
+
+// *resident = the blocks of the kernel of (sched, srows) at order k that
+// the current device holds at once (sched: 1 or 2, cholesky_solve_rank1's
+// fcols; 8 the panel kernel; 16 Schur; 32 dual, whose block carries two
+// systems). Launches nothing.
+int cholesky_rank_panel_resident(int sched, int srows, int k,
                                  long long* resident) {
-    const int kind = fcols == PW && srows == 1 ? 3 : rank1_kind(fcols, srows);
+    const int kind = kind_of(sched, srows);
     if (kind < 0) return (int)cudaErrorInvalidValue;
     return (int)by_kind(kind, nullptr, nullptr, nullptr, nullptr, 0, k,
                         nullptr, resident);

@@ -10,8 +10,10 @@ the Hu-Koren-Volinsky confidence-weighted implicit objective. ``score``
 returns the negative RMSE.
 
 Not ported yet (each raises ``NotImplementedError``): sharded fits
-(``n_shards > 1``, ``topology``), checkpointing and ``resume``, and
-serving (``recommend``, ``top_n``).
+(``n_shards > 1``; another ``topology`` without shards raises the
+reference's ``ValueError``), checkpointing and ``resume``, and serving
+(``recommend``, ``top_n``). The default init is the reference's
+``jax.random`` draw, reproduced by ``prng.py``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from recommendation_models_tpu_torch import prng
 from recommendation_models_tpu_torch.config import (
     DataConfig, SolveConfig, bucket_growth_for_rank, dense_min_degree_for_rank,
 )
@@ -238,10 +241,11 @@ class ALS(BaseEstimator):
         return user_layout, item_layout
 
     def _init_factors_host(self, n_users, n_items):
-        rng = np.random.default_rng(self.seed)
-        U = self.init_scale * rng.standard_normal((n_users, self.rank))
-        V = self.init_scale * rng.standard_normal((n_items, self.rank))
-        return U.astype(np.float32), V.astype(np.float32)
+        # the reference's jax.random draw, reproduced in NumPy (prng.py)
+        key_u, key_v = prng.split(prng.prng_key(self.seed))
+        scale = np.float32(self.init_scale)
+        return (scale * prng.normal(key_u, (n_users, self.rank)),
+                scale * prng.normal(key_v, (n_items, self.rank)))
 
     # ------------------------------------------------------------------
     def fit(self, R, U0=None, V0=None):
@@ -260,8 +264,9 @@ class ALS(BaseEstimator):
             raise _not_ported("a sharded fit (n_shards > 1)",
                               "Queue 1 item 13")
         if self.topology != "1d":
-            raise _not_ported(f"topology={self.topology!r}",
-                              "Queue 1 item 13")
+            raise ValueError(
+                f"topology={self.topology!r} needs a sharded fit: set "
+                f"n_shards > 1 (got {self.n_shards})")
         if self.checkpoint_dir and self.checkpoint_every:
             raise _not_ported("checkpointing", "Queue 1 item 11")
         device = resolve_device(self.platform)

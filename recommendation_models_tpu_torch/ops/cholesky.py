@@ -24,10 +24,10 @@ options (``cholesky_solve_t``, ``cholesky_solve``, ``cholesky_solve_flat``,
 - ``cholesky_solve_panel``: the rank-8 panel factor (TPU
   ``_cholesky_solve_kernel_panel``; ``csrc/cholesky_rank_panel.cu``);
 - ``cholesky_solve_schur``: the two-level Schur factor, k % 16 == 0 (TPU
-  ``_cholesky_solve_kernel_schur``; ``csrc/cholesky_variants.cu``);
+  ``_cholesky_solve_kernel_schur``; ``csrc/cholesky_rank_panel.cu``);
 - ``cholesky_solve_dual``: two systems per block with their rank-2 factors
   interleaved, then two-row substitutions (TPU
-  ``_cholesky_solve_kernel_dual``).
+  ``_cholesky_solve_kernel_dual``; ``csrc/cholesky_rank_panel.cu``).
 
 Shared contract: f32 factorization, ridge added on load, pivots clamped at
 ``max(d, 1e-30)``, so identity-padded and all-zero systems with rhs 0 solve
@@ -70,8 +70,8 @@ KERNELS = ("cholesky_solve_batched", "cholesky_solve_hot", "cholesky_solve_2g",
            "cholesky_solve_schur", "cholesky_solve_dual")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 ROUTED = dict.fromkeys(KERNELS, 0)
-PANEL_WIDTH = 8         # the panel width (csrc/cholesky_rank_panel.cu PW) and
-                        # the Schur phase's group (csrc/cholesky_variants.cu)
+PANEL_WIDTH = 8         # the panel width and the Schur phase's group
+                        # (csrc/cholesky_rank_panel.cu PW)
 RANK1_SCHEDULES = ((1, 1), (1, 2), (2, 1))   # (fcols, srows) of the kernel
 
 
@@ -377,12 +377,10 @@ SOURCES = {
     "cholesky_rank_panel": {
         "cholesky_solve_rank1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "cholesky_solve_panel": [_P, _P, _P, _P, _I, _I, _P],
-        "cholesky_rank_panel_resident": [_I, _I, _I,
-                                         ctypes.POINTER(ctypes.c_longlong)],
-    },
-    "cholesky_variants": {
         "cholesky_solve_schur": [_P, _P, _P, _P, _I, _I, _I, _P],
         "cholesky_solve_dual": [_P, _P, _P, _P, _I, _I, _P],
+        "cholesky_rank_panel_resident": [_I, _I, _I,
+                                         ctypes.POINTER(ctypes.c_longlong)],
     },
 }
 _LIBS = {}
@@ -455,11 +453,17 @@ def _resident(name: str, k: int, c: int, device: int) -> int:
     return resident.value
 
 
+# csrc/cholesky_rank_panel.cu's schedule codes (enum Sched) of the kernels
+# that are not cholesky_solve_rank1's (whose code is its fcols)
+SCHED_CODE = {"cholesky_solve_panel": 8, "cholesky_solve_schur": 16,
+              "cholesky_solve_dual": 32}
+
+
 @functools.lru_cache(maxsize=None)
-def _variant_resident(fcols: int, srows: int, k: int, device: int) -> int:
+def _variant_resident(sched: int, srows: int, k: int, device: int) -> int:
     resident = ctypes.c_longlong(0)
     lib = _lib("cholesky_rank_panel")
-    _raise_on(lib.cholesky_rank_panel_resident(fcols, srows, k,
+    _raise_on(lib.cholesky_rank_panel_resident(sched, srows, k,
                                                ctypes.byref(resident)),
               "cholesky_rank_panel_resident", lib)
     return resident.value
@@ -467,16 +471,24 @@ def _variant_resident(fcols: int, srows: int, k: int, device: int) -> int:
 
 def variant_resident(name: str, k: int, fcols: int = 1,
                      srows: int = 1) -> int:
-    """Blocks of the ``cholesky_solve_rank1`` kernel of (fcols, srows), or
-    of the ``cholesky_solve_panel`` kernel, at order k that the current
-    card holds at once (asked once). Launches nothing."""
-    if name == "cholesky_solve_panel":
-        fcols, srows = PANEL_WIDTH, 1
-    elif name == "cholesky_solve_rank1":
+    """Blocks of a ``csrc/cholesky_rank_panel.cu`` kernel at order k that
+    the current card holds at once (asked once; launches nothing):
+    ``cholesky_solve_rank1`` of (fcols, srows), ``cholesky_solve_panel``,
+    ``cholesky_solve_schur`` of srows (k % 16 == 0) or
+    ``cholesky_solve_dual``, whose block carries two systems."""
+    if name == "cholesky_solve_rank1":
         _check_schedule(fcols, srows)
+        sched = fcols
+    elif name == "cholesky_solve_schur":
+        _check_schur(k, srows)
+        sched = SCHED_CODE[name]
+    elif name == "cholesky_solve_panel":
+        sched, srows = SCHED_CODE[name], 1
+    elif name == "cholesky_solve_dual":
+        sched, srows = SCHED_CODE[name], 2
     else:
         raise ValueError(f"no residency query for {name}")
-    return _variant_resident(fcols, srows, k, torch.cuda.current_device())
+    return _variant_resident(sched, srows, k, torch.cuda.current_device())
 
 
 def solve_regime(name: str, batch: int, k: int, c: int = 0):
@@ -650,8 +662,8 @@ def cholesky_solve_schur(G: torch.Tensor, rhs: torch.Tensor,
     if not kernel_supported(k):
         ROUTED["cholesky_solve_schur"] += 1
         return anchor_solve(G, rhs, reg)
-    return _launch_solve("cholesky_solve_schur", "cholesky_variants", G, rhs,
-                         reg, ints=(srows,))
+    return _launch_solve("cholesky_solve_schur", "cholesky_rank_panel", G,
+                         rhs, reg, ints=(srows,))
 
 
 def cholesky_solve_dual(G: torch.Tensor, rhs: torch.Tensor,
@@ -663,8 +675,8 @@ def cholesky_solve_dual(G: torch.Tensor, rhs: torch.Tensor,
     if not kernel_supported(G.shape[1]):
         ROUTED["cholesky_solve_dual"] += 1
         return anchor_solve(G, rhs, reg)
-    return _launch_solve("cholesky_solve_dual", "cholesky_variants", G, rhs,
-                         reg)
+    return _launch_solve("cholesky_solve_dual", "cholesky_rank_panel", G,
+                         rhs, reg)
 
 
 # --------------------------------------------------------------------------

@@ -173,8 +173,10 @@ def parse_ptxas(log: str):
     """Per kernel of a ``-Xptxas -v`` log: registers, spill bytes (stores,
     loads), static shared memory, and, where the mangled name's first
     template argument gives the thread count (``ILi<n>E``), the blocks per
-    SM the registers allow. A kernel whose launch bound adds a warp to that
-    count (the rank/panel kernels: n + 32 threads) is read at n + 32."""
+    SM the registers allow. A kernel whose launch bound adds its
+    substitution warps to that count (the rank/panel kernels: n + 32
+    threads; n + 64 for the dual schedule, ``SCHED`` 32, its third template
+    argument) is read so."""
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -193,10 +195,13 @@ def parse_ptxas(log: str):
             cur["registers"] = int(m.group(1))
             m2 = re.search(r"(\d+) bytes smem", line)
             cur["static_smem"] = int(m2.group(1)) if m2 else 0
-            # the first int template argument of the mangled name (Li160E)
-            t = re.search(r"ILi(\d+)E", cur["kernel"])
+            # the int template arguments of the mangled name (Li160E...)
+            t = re.search(r"ILi(\d+)E((?:Li\d+E)*)", cur["kernel"])
             if t:
-                extra = 32 if "rank_panel_kernel" in cur["kernel"] else 0
+                extra = 0
+                if "rank_panel_kernel" in cur["kernel"]:
+                    rest = re.findall(r"Li(\d+)E", t.group(2))
+                    extra = 64 if rest[1:2] == ["32"] else 32
                 cur["threads"] = int(t.group(1)) + extra
                 cur["resident_by_registers"] = resident_by_registers(
                     cur["registers"], cur["threads"])

@@ -280,9 +280,39 @@ def test_sources_export_what_the_wrappers_call(source):
 
 def test_variant_resident_refuses_other_kernels():
     with pytest.raises(ValueError, match="no residency"):
-        pchol.variant_resident("cholesky_solve_schur", 64)
+        pchol.variant_resident("cholesky_solve_batched", 64)
     with pytest.raises(ValueError, match="fcols"):
         pchol.variant_resident("cholesky_solve_rank1", 64, 2, 2)
+    with pytest.raises(ValueError, match="k % 16"):
+        pchol.variant_resident("cholesky_solve_schur", 24)
+    with pytest.raises(ValueError, match="srows"):
+        pchol.variant_resident("cholesky_solve_schur", 64, srows=3)
+
+
+@pytest.mark.parametrize("name,args,code", [
+    ("cholesky_solve_rank1", (1, 1), (1, 1)),
+    ("cholesky_solve_rank1", (2, 1), (2, 1)),
+    ("cholesky_solve_panel", (), (8, 1)),
+    ("cholesky_solve_schur", (1, 1), (16, 1)),
+    ("cholesky_solve_schur", (1, 2), (16, 2)),
+    ("cholesky_solve_dual", (), (32, 2)),
+])
+def test_variant_resident_asks_the_kernel_of_each_schedule(monkeypatch, name,
+                                                           args, code):
+    """Each kernel of csrc/cholesky_rank_panel.cu has a residency query:
+    the wrapper's arguments reach the C export as the kernel's schedule
+    code (enum Sched) and srows. Checked up to the library call, which is
+    replaced here."""
+    asked = []
+
+    def query(sched, srows, k, device):
+        asked.append((sched, srows, k, device))
+        return 264
+
+    monkeypatch.setattr(pchol, "_variant_resident", query)
+    monkeypatch.setattr(pchol.torch.cuda, "current_device", lambda: 0)
+    assert pchol.variant_resident(name, 64, *args) == 264
+    assert asked == [(*code, 64, 0)]
 
 
 @pytest.mark.parametrize("variants", ["pair,rank1,pair_s1,panel,schur,"
@@ -317,8 +347,8 @@ def test_cuda_variant_kernels_match_plain_versions():
     """Each new CUDA kernel (every instantiation) against its plain version
     on the card, at k in {1, 10, 16, 64, 128} (Schur at the multiples of
     16) and B in {1, 37, 4096} (the dual kernel also at B=2); k past the
-    limit is routed (counted). Then B4 and B5a at their boundaries
-    (``_rank_panel_boundaries``)."""
+    limit is routed (counted). Then B4, B5a, B5b and B5c at their
+    boundaries (``_rank_panel_boundaries``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(0)
@@ -380,11 +410,13 @@ def test_cuda_variant_kernels_match_plain_versions():
 
 def _rank_panel_boundaries(rng, dev):
     """The kernels of csrc/cholesky_rank_panel.cu (B4 in its three
-    instantiations, B5a) at the orders around their tile configurations and
-    panel widths, at batches around the 256-row block and around their own
-    resident blocks (the persistent grid's wave), against the plain
+    instantiations, B5a, B5b in both, B5c) at the orders around their tile
+    configurations and panel widths (B5b at the multiples of 16), at
+    batches around the 256-row block and around their own resident blocks
+    (the persistent grid's wave; B5c's blocks carry two systems, so also
+    B = 2, 3 and twice its resident blocks +- 1), against the plain
     versions; each repeats bitwise, and identity and zero systems with
-    rhs 0 solve to exactly 0."""
+    rhs 0, inside one wave and past it, solve to exactly 0."""
     kernels = [(f"cholesky_solve_rank1 {s}",
                 lambda G, r, g, s=s: pchol.cholesky_solve_rank1(G, r, g, *s),
                 lambda G, r, g, s=s: pchol.cholesky_solve_rank1_plain(
@@ -396,16 +428,34 @@ def _rank_panel_boundaries(rng, dev):
                     pchol.cholesky_solve_panel_plain,
                     lambda k: pchol.variant_resident("cholesky_solve_panel",
                                                      k)))
-    for k in (1, 7, 13, 64, 68, 69, 128):
+    kernels += [(f"cholesky_solve_schur {s}",
+                 lambda G, r, g, s=s: pchol.cholesky_solve_schur(G, r, g, s),
+                 lambda G, r, g, s=s: pchol.cholesky_solve_schur_plain(
+                     G, r, g, s),
+                 lambda k, s=s: pchol.variant_resident(
+                     "cholesky_solve_schur", k, srows=s))
+                for s in (1, 2)]
+    kernels.append(("cholesky_solve_dual", pchol.cholesky_solve_dual,
+                    pchol.cholesky_solve_dual_plain,
+                    lambda k: pchol.variant_resident("cholesky_solve_dual",
+                                                     k)))
+    for k in (1, 7, 13, 16, 64, 68, 69, 128):
         n = 4_201
         A = rng.standard_normal((n, k, max(k // 2, 1))).astype(np.float32)
         G = _t(A @ A.transpose(0, 2, 1) / max(k // 2, 1)).to(dev)
         rhs = _t(rng.standard_normal((n, k)).astype(np.float32)).to(dev)
         reg = _t(rng.uniform(0.05, 0.2, n).astype(np.float32)).to(dev)
         for label, fn, plain, resident in kernels:
+            if label.startswith("cholesky_solve_schur") and k % 16:
+                continue
             res = resident(k)
             assert res >= 132, (label, k, res)
-            for b in sorted({1, 255, 256, 257, res - 1, res, res + 1, n}):
+            wave = res
+            batches = {1, 255, 256, 257, res - 1, res, res + 1, n}
+            if label == "cholesky_solve_dual":
+                wave = 2 * res
+                batches |= {2, 3, wave - 1, wave, wave + 1}
+            for b in sorted(batches):
                 if b > n:
                     continue
                 a = (G[:b].contiguous(), rhs[:b].contiguous(),
@@ -413,8 +463,10 @@ def _rank_panel_boundaries(rng, dev):
                 x = fn(*a)
                 _close(x.cpu().numpy(), plain(*a).cpu().numpy())
                 assert torch.equal(x, fn(*a)), (label, k, b)
-            z = torch.zeros(6, k, k, device=dev)
-            z[3:] = torch.eye(k, device=dev)
-            out = fn(z, torch.zeros(6, k, device=dev),
-                     torch.zeros(6, device=dev))
-            assert torch.equal(out, torch.zeros_like(out)), (label, k)
+            for nz in (6, wave + 1):
+                z = torch.zeros(nz, k, k, device=dev)
+                z[nz // 2:] = torch.eye(k, device=dev)
+                out = fn(z, torch.zeros(nz, k, device=dev),
+                         torch.zeros(nz, device=dev))
+                assert torch.equal(out, torch.zeros_like(out)), (label, k,
+                                                                 nz)

@@ -35,6 +35,7 @@ _PROBE = textwrap.dedent("""
     import recommendation_models_tpu_torch.ops.cholesky
     import recommendation_models_tpu_torch.ops.gather
     import recommendation_models_tpu_torch.ops.solve
+    import recommendation_models_tpu_torch.prng
     import recommendation_models_tpu_torch.probes.ablate_epoch
     import recommendation_models_tpu_torch.probes.dma_gather
     import recommendation_models_tpu_torch.probes.epoch_profile
@@ -90,7 +91,7 @@ def test_resolve_device(platform, expect):
 
 @pytest.mark.parametrize("kwargs,call", [
     (dict(n_shards=2), "fit"),
-    (dict(topology="obs_parallel"), "fit"),
+    (dict(topology="obs_parallel", n_shards=2), "fit"),
     (dict(checkpoint_dir="ckpt", checkpoint_every=1), "fit"),
     (dict(), "recommend"),
     (dict(), "top_n"),
@@ -105,3 +106,18 @@ def test_unported_paths_raise_naming_roadmap(kwargs, call):
           "top_n": lambda: m.top_n(0), "resume": lambda: m.resume("x")}[call]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fn()
+
+
+@pytest.mark.parametrize("topology", ["obs_parallel", "bogus"])
+def test_topology_without_shards_raises_like_the_reference(topology):
+    """Another topology than "1d" without shards is the caller's error in
+    both packages: ``ValueError``, with the reference's message."""
+    from recommendation_models_tpu import ALS as RefALS
+    R = tiny_problem(10, 8, seed=2)
+    with pytest.raises(ValueError) as ref:
+        RefALS(rank=3, n_sweeps=1, platform="cpu", topology=topology).fit(R)
+    with pytest.raises(ValueError) as got:
+        port.ALS(rank=3, n_sweeps=1, platform="cpu",
+                 topology=topology).fit(R)
+    assert str(got.value) == str(ref.value)
+    assert "needs a sharded fit" in str(got.value)

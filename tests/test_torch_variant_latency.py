@@ -39,6 +39,15 @@ def test_parse_ptxas_reads_each_kernel():
     assert [r["resident_by_registers"] for r in rows] == [7, 2]
 
 
+def test_parse_ptxas_counts_the_dual_kernels_two_warps():
+    """The dual schedule (SCHED 32) adds a substitution warp per system."""
+    log = LOG.replace("ILi160ELi1ELi1ELi1E", "ILi160ELi1ELi32ELi2E")
+    rows = vl.parse_ptxas(log)
+    assert rows[0]["threads"] == 224
+    assert rows[0]["resident_by_registers"] == vl.resident_by_registers(48,
+                                                                       224)
+
+
 @pytest.mark.parametrize("k,b,by", [(64, 65_536, "bytes"),
                                     (128, 65_536, "operations"),
                                     (64, 256, "bytes")])
