@@ -7,7 +7,7 @@ Run from the root of a checkout. Phases, in order; any failure exits
 non-zero before the result lines are printed:
 
 1. environment: the card, its power limit, torch and nvcc versions, and the
-   build of the port's CUDA source (timed);
+   build of the port's CUDA sources and the L2 probe's (timed);
 2. kernel ``cholesky_solve_batched`` against its plain PyTorch version at
    k=64: B=65,536 systems; both regimes and their boundary (B = 1, 255,
    256, 257, the latency kernel's resident count as the card reports it
@@ -47,11 +47,21 @@ non-zero before the result lines are printed:
    first 4,096 compared) and timed there;
 3c. the row gather-and-sum kernel ``gather_rows_sum`` (P1) against its
    plain version: at the gather probe's shape (62,423 x 128 f32 table,
-   200,000 ids) with 4, 8 and 16 slots; at the main path's gathers (one
-   launch over all of the user half's bucket ids into the item table, one
-   over the item half's into the user table, on the warm-start factors);
-   at 0, 1 and slots - 1 ids, k=13 and k=512, and an unaligned table; and
-   a bitwise repeat. Then the gather-rate path as a user runs it, with the
+   200,000 ids) with 4, 8 and 16 slots, with its device time
+   (``torch.profiler``), host µs per call and one device kernel per call
+   asserted, beside the L2 read rate (``probes.gather_latency``'s read
+   kernel of ``csrc/l2_probe.cu``, or a faster library yardstick) and the
+   L2 bound; at every k in {1, 7, 13, 16, 17, 64, 68, 128, 500, 512} with
+   slots 1 and 32 (and 8 at k = 64, 128), at the id counts of
+   ``probes.gather_latency.edge_counts`` (0, 1, and each warp step,
+   pipeline, block, grid-rule and grid-cap count +- 1), each repeated
+   bitwise, exact zeros for no ids; calls on two streams at once, bitwise
+   one stream's; at the main path's gathers (one launch over all of the
+   user half's bucket ids into the item table, one over the item half's
+   into the user table, on the warm-start factors) and at a real row
+   block of each half (device time, host µs, one kernel per call); at 0,
+   1 and 7 ids, k=13 and k=512, and an unaligned table. Then the
+   gather-rate path as a user runs it, with the
    launch count set to 0 just before and read just after: the probes
    ``probes.dma_gather``, ``probes.gather_rates`` (their defaults),
    ``probes.ablate_epoch.run`` on the ML-25M layouts (3 iterations) and
@@ -71,7 +81,9 @@ non-zero before the result lines are printed:
    and ``by_batch`` (device ms, host µs, library device ms and bound ms at
    each timed batch); a kernel the probe runs also has ``at_probe_shape``,
    its numbers at the probe's k=128, and ``gather_rows_sum`` has
-   ``at_main_path``, its numbers at both halves' gathers.
+   ``device_ms``, ``host_us``, ``l2_bound_ms`` and ``l2_tb_s`` at the
+   probe's shape, ``at_main_path`` (both halves' gathers) and
+   ``at_row_block`` (a row block of each half).
 
 ``--profile`` adds one profiled main-path sweep and prints its device time
 by kernel and the device's idle share (not run by default).
@@ -248,7 +260,9 @@ def phase_environment(torch):
                          text=True, timeout=60)
     log(f"# torch {torch.__version__} cuda {torch.version.cuda}; "
         f"nvcc: {ver.stdout.strip().splitlines()[-1]}")
-    sources = sorted({os.path.basename(p)[:-3] for p in SOURCE.values()})
+    # the kernels' sources, and the L2 probe's that phase 3c measures with
+    sources = sorted({os.path.basename(p)[:-3] for p in SOURCE.values()}
+                     | {"l2_probe"})
     t0 = time.perf_counter()
     build.build(*sources)        # one nvcc per source, all started together
     log(f"# build: {', '.join(f'csrc/{n}.cu' for n in sources)} in "
@@ -809,7 +823,11 @@ def phase_gather(torch, dev, ul, il):
     warm-start factor tables, at ragged sizes, and bitwise repeated."""
     from recommendation_models_tpu_torch.ops import gather as ga
     from recommendation_models_tpu_torch.ops.cholesky import block_batch
+    from recommendation_models_tpu_torch.config import SolveConfig
     from recommendation_models_tpu_torch.probes import dma_gather
+    from recommendation_models_tpu_torch.probes import gather_latency as gl
+    from recommendation_models_tpu_torch.probes.ablate_epoch import (
+        row_blocks)
     from recommendation_models_tpu_torch.probes.epoch_profile import (
         warm_start)
     from recommendation_models_tpu_torch.solver.als_sweep import (
@@ -818,6 +836,11 @@ def phase_gather(torch, dev, ul, il):
     table, idx = dma_gather.make_inputs(n_table, k, n, dev)
     res = {"instantiations": {}}
     err_all = 0.0
+    l2_rate = gl.l2_read_rate(dev)
+    log(f"# L2 read rate (probes.gather_latency.l2_read_rate: the read "
+        f"kernel of csrc/l2_probe.cu or a library yardstick, the fastest, "
+        f"over a warm 16 MB f32 tensor, device time): "
+        f"{l2_rate / 1e12:.3f} TB/s")
     for slots in dma_gather.SLOTS:
         _, err, ok = gather_check(torch, table, idx, slots)
         check(ok, f"gather_rows_sum slots={slots} disagrees with its plain "
@@ -833,10 +856,61 @@ def phase_gather(torch, dev, ul, il):
             f"{num['plain_ms']:.4f} library_ms={num['library_ms']:.4f} "
             f"bound_ms={num['bound_ms']:.5f} ({num['bound_by']}, "
             f"{num['distinct_rows']} distinct rows)")
+    # device time (profiler), host cost and device kernels per call at the
+    # probe's shape, slots 8
+    row = gl.measure("probe", table, idx, ga.DEFAULT_SLOTS, dev, l2_rate, 50,
+                     lib_reps=5)
+    check(row["kernels_per_call"] == 1,
+          f"gather_rows_sum ran {row['kernels_per_call']} device kernels "
+          f"per call at the probe's shape")
+    res.update(device_ms=row["device_ms"], host_us=row["host_us"],
+               l2_bound_ms=row["l2_bound_ms"], l2_tb_s=l2_rate / 1e12)
+    log(f"# P1 gather_rows_sum probe shape, slots {ga.DEFAULT_SLOTS}: device "
+        f"{row['device_ms']:.5f} ms ({row['tb_s']:.3f} TB/s), host "
+        f"{row['host_us']:.1f} us/call, {row['kernels_per_call']:g} kernel "
+        f"per call, l2_bound_ms={row['l2_bound_ms']:.5f}")
+    # the design's edges: every width at slots 1 and 32 (and 8 at k = 64
+    # and 128), at 0, 1 and each step, pipeline, block, grid-rule and
+    # grid-cap count +- 1 (probes.gather_latency.edge_counts on this card)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n_edge = 0
+    for ke in (1, 7, 13, 16, 17, 64, 68, 128, 500, 512):
+        vec = 4 if ke % 4 == 0 else 1
+        te = torch.randn(1000, ke, generator=gen, device=dev)
+        for slots in ((1, 8, 32) if ke in (64, 128) else (1, 32)):
+            cfg = ga.gather_config(ke, slots, vec)
+            counts = gl.edge_counts(ke, slots, vec, cfg["resident"])
+            pool = torch.randint(0, 1000, (counts[-1],), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            for ne in counts:
+                ids = pool[:ne]
+                x, err, ok = gather_check(torch, te, ids, slots)
+                check(ok, f"gather_rows_sum disagrees at k={ke}, {ne} ids, "
+                          f"slots={slots} ({cfg}; max abs err {err:.3e})")
+                check(torch.equal(x, ga.gather_rows_sum(te, ids, slots)),
+                      f"gather_rows_sum is not bitwise repeatable at k={ke}, "
+                      f"{ne} ids, slots={slots}")
+                if ne == 0:
+                    check(bool((x == 0).all()), "no ids did not give zeros")
+                err_all = max(err_all, err)
+                n_edge += 1
+    log(f"# P1 gather_rows_sum edge cases: {n_edge} agree, repeat bitwise")
+    # two streams at once give one stream's bits
+    want = ga.gather_rows_sum(table, idx)
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    got = []
+    for _ in range(4):
+        for st in streams:
+            with torch.cuda.stream(st):
+                got.append(ga.gather_rows_sum(table, idx))
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, want) for g in got),
+          "gather_rows_sum on two streams at once differs from one stream")
     # ragged sizes: no ids, one, fewer than the slots; k=13 (4-byte
-    # copies), k=512 with 32 slots (the widest ring), an unaligned table
+    # copies), k=512 with 32 slots, an unaligned table
     ragged = [(table, idx[:0], 8), (table, idx[:1], 8), (table, idx[:7], 8)]
-    gen = torch.Generator(device=dev).manual_seed(5)
+    gen.manual_seed(5)
     t13 = torch.randn(1000, 13, generator=gen, device=dev)
     t512 = torch.randn(3000, 512, generator=gen, device=dev)
     flat = torch.randn(600 * 64 + 1, generator=gen, device=dev)
@@ -856,7 +930,7 @@ def phase_gather(torch, dev, ul, il):
     # the main path's gathers: all of a half's bucket ids at once
     U0, V0 = (torch.from_numpy(a).to(dev) for a in warm_start(ul.n_rows,
                                                               il.n_rows))
-    at_main = {}
+    at_main, at_row = {}, {}
     for tag, layout, tbl in (("user_half", ul, V0), ("item_half", il, U0)):
         bs = device_buckets(layout, block_batch(RANK), dev)
         ids = torch.cat([b["indices"].reshape(-1) for b in bs
@@ -868,7 +942,11 @@ def phase_gather(torch, dev, ul, il):
         check(torch.equal(x, ga.gather_rows_sum(tbl, ids)),
               f"gather_rows_sum is not bitwise repeatable ({tag})")
         num = gather_numbers(torch, tbl, ids, 5)
-        num["max_abs_err"] = err
+        # no profiler time here: it drops calls a millisecond long, some
+        # runs all of them; `ms` (events, the stream kept full) is the
+        # device time of such calls
+        num.update(max_abs_err=err,
+                   l2_bound_ms=gl.l2_bound_ms(ids.shape[0], RANK, l2_rate))
         at_main[tag] = num
         err_all = max(err_all, err)
         log(f"# P1 gather_rows_sum at the main path's {tag} gather: table "
@@ -876,12 +954,41 @@ def phase_gather(torch, dev, ul, il):
             f"ms={num['ms']:.4f} ({ids.shape[0] / num['ms'] / 1e3:.1f} M "
             f"rows/s) plain_ms={num['plain_ms']:.4f} library_ms="
             f"{num['library_ms']:.4f} bound_ms={num['bound_ms']:.5f} "
-            f"({num['bound_by']}, {num['distinct_rows']} distinct rows)")
+            f"({num['bound_by']}, {num['distinct_rows']} distinct rows) "
+            f"l2_bound_ms={num['l2_bound_ms']:.4f}")
         del ids
+        # a real row block of the half (the one of median id count)
+        side = tag.split("_")[0]
+        bs = device_buckets(layout, block_batch(RANK), dev)
+        blocks = [b["indices"][s:e].reshape(-1) for b, s, e in
+                  row_blocks(bs, SolveConfig(rank=RANK, reg=0.1), RANK)]
+        ids = sorted(blocks, key=lambda i: i.shape[0])[len(blocks) // 2]
+        x, err, ok = gather_check(torch, tbl, ids)
+        check(ok and torch.equal(x, ga.gather_rows_sum(tbl, ids)),
+              f"gather_rows_sum disagrees or does not repeat at a {side} "
+              f"row block (max abs err {err:.3e})")
+        row = gl.measure(f"{side}_block", tbl, ids, ga.DEFAULT_SLOTS, dev,
+                         l2_rate, 200, lib_reps=5, blocks=len(blocks))
+        check(row["kernels_per_call"] == 1,
+              f"gather_rows_sum ran {row['kernels_per_call']} device kernels "
+              f"per call at a {side} row block")
+        at_row[side] = {f: row[f] for f in (
+            "n_gather", "blocks", "device_ms", "host_us", "event_ms",
+            "bytes_bound_ms", "l2_bound_ms", "plain_ms", "library_ms",
+            "max_abs_err")}
+        err_all = max(err_all, err)
+        log(f"# P1 gather_rows_sum at a {side} row block ({ids.shape[0]} ids, "
+            f"1 of {len(blocks)}): device {row['device_ms'] * 1e3:.2f} us, "
+            f"host {row['host_us']:.1f} us/call, event {row['event_ms']:.5f} "
+            f"ms, bound {row['bytes_bound_ms']:.5f} / L2 "
+            f"{row['l2_bound_ms']:.5f} ms, plain {row['plain_ms']:.4f}, "
+            f"library {row['library_ms']:.4f} ms")
+        del bs, blocks, ids
     x1 = ga.gather_rows_sum(table, idx)
     check(torch.equal(x1, ga.gather_rows_sum(table, idx)),
           "gather_rows_sum is not bitwise repeatable at the probe's shape")
-    res.update(max_abs_err=err_all, at_main_path=at_main)
+    res.update(max_abs_err=err_all, at_main_path=at_main,
+               at_row_block=at_row)
     return res
 
 
@@ -1091,8 +1198,9 @@ def main(argv) -> int:
                if "instantiations" in r else {}),
             **({"at_probe_shape": at_probe[name]} if name in at_probe
                else {}),
-            **({"at_main_path": r["at_main_path"]} if "at_main_path" in r
-               else {})})
+            **{f: r[f] for f in ("device_ms", "host_us", "l2_bound_ms",
+                                 "l2_tb_s", "at_main_path", "at_row_block")
+               if f in r}})
     check(all(k["launches"] > 0 for k in kernels), "a kernel never ran")
     log(f"# total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

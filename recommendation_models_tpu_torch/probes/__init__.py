@@ -42,31 +42,39 @@ def time_ms(fn: Callable, iters: int, warm: int = 0) -> float:
     return start.elapsed_time(end) / iters
 
 
+# profiled runs of ``device_rows`` before it gives up
+PROFILE_TRIES = 3
+
+
 def device_rows(fn: Callable, reps: int = 1, warm: int = 1):
     """The device activity of ``reps`` calls of ``fn`` under
     ``torch.profiler`` (CUDA activity only: kernels and copies, not runtime
     calls), after ``warm`` untimed calls: [(device µs, calls, name)],
-    longest first. Host gaps between the calls do not count. Raises if the
-    profiler recorded no device time."""
+    longest first. Host gaps between the calls do not count. The profiler
+    at times records none of a run's device activity, so a run with none
+    is profiled again, up to ``PROFILE_TRIES`` runs; raises if none
+    recorded any."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        if us > 0:
-            rows.append((us, ev.count, ev.key[:70]))
-    if not rows:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return sorted(rows, reverse=True)
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = []
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+            if us > 0:
+                rows.append((us, ev.count, ev.key[:70]))
+        if rows:
+            return sorted(rows, reverse=True)
+    raise RuntimeError(f"torch.profiler recorded no device time in "
+                       f"{PROFILE_TRIES} runs")
 
 
 def profiled_ms(fn: Callable, reps: int) -> float:

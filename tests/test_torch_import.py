@@ -40,6 +40,7 @@ _PROBE = textwrap.dedent("""
     import recommendation_models_tpu_torch.probes.dma_gather
     import recommendation_models_tpu_torch.probes.epoch_profile
     import recommendation_models_tpu_torch.probes.gather_budget
+    import recommendation_models_tpu_torch.probes.gather_latency
     import recommendation_models_tpu_torch.probes.gather_rates
     import recommendation_models_tpu_torch.probes.solve_latency
     import recommendation_models_tpu_torch.probes.solve_variants
