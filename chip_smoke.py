@@ -73,7 +73,18 @@ non-zero before the result lines are printed:
    0.3170; the kernels' launch counts come from this run. Then
    epoch_seconds as ``bench.py`` times it: the solver's whole-fit loop on
    uploaded layouts, which must reproduce the fit's history;
-6. one JSON line describing every kernel, then the result line. Each
+6. the ML-25M serving config (``probes/serving.py``, ``bench.py``'s
+   ``serving_bench``): on phase 5's ratings, a leave-2-out split trains
+   ``ALS(rank=64, alpha=1.0, reg=0.1, n_sweeps=8)`` through ``ALS.fit``
+   (launch counts set to 0 before and read after: B1 and B2 launched,
+   nothing routed; these counts stay out of the ``kernels`` line); then
+   ``recommend(exclude_seen=True)`` for 20,000 users with 'auto' and with
+   'exact' on the card (the cached catalog is a CUDA tensor; the two id
+   arrays equal; recall@10 within 0.005 of 0.13385 and NDCG@10 within
+   0.005 of 0.10337, the reference's TPU record; 512 users' ids equal to a
+   float64 NumPy selector's but for near-ties), users/s of a 65,536-user
+   query batch beside its bound, and the batch's device split;
+7. one JSON line describing every kernel, then the result line. Each
    entry's numbers are at its ``k`` and ``batch``; B4, B5a, B5b and B5c
    have ``resident`` (their kernel's resident blocks at k=64; B4 and B5b
    per instantiation in ``resident_by_instantiation``); B1, B2 and B3 also have
@@ -115,6 +126,13 @@ RANK = 64
 SWEEPS = 10
 RMSE_ANCHOR = 0.3170        # BENCH_r05.json train_rmse, ML-25M rank 64
 RMSE_ANCHOR_RTOL = 0.03
+# the serving config's recall@10 and NDCG@10 in the reference's record (TPU
+# v5 lite, BASELINE.md "Round-5 serving-quality closure"; its band over 3
+# fit seeds is 0.0018 and 0.0021): quality anchors, not speed targets
+SERVING_RECALL_ANCHOR = 0.13385
+SERVING_NDCG_ANCHOR = 0.10337
+SERVING_BAND = 0.005
+SERVING_CHECK_USERS = 512   # users held against a float64 NumPy selector
 HISTORY_RTOL = 1e-3
 
 # ML-1M-shaped rank-64 train-RMSE histories of the JAX package, recorded on
@@ -1138,6 +1156,96 @@ def phase_epoch(torch, dev, nnz, ul, il, main_hist, profile=False):
     return epoch_s
 
 
+def frozen_exact_topk(U, V, users, train, k):
+    """float64 scores, each user's training items excluded, exact top-k by
+    a stable sort (NumPy, independent of ``ops.topk``)."""
+    import numpy as np
+    sc = U[users].astype(np.float64) @ V.astype(np.float64).T
+    for j, u in enumerate(users):
+        sc[j, train.indices[train.indptr[u]:train.indptr[u + 1]]] = -np.inf
+    return np.argsort(-sc, axis=1, kind="stable")[:, :k], sc
+
+
+def phase_serving(torch, coo):
+    """The ML-25M serving config on the card through ``ALS.fit`` and
+    ``ALS.recommend`` (``probes/serving.py``): B1 and B2 launched by the
+    fit with nothing routed, the catalog on the card, quality against the
+    reference's anchors and a float64 selector, and users/s of a
+    65,536-user batch beside its bound and device split."""
+    import numpy as np
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.probes import SCALES
+    from recommendation_models_tpu_torch.probes import serving as sv
+    n_users, n_items = SCALES["ml25m"][:2]
+    t0 = time.perf_counter()
+    train, train_obs, eval_users, rel_eval = sv.serving_split(
+        coo, n_users, n_items)
+    split_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ch.reset_counts()
+    t0 = time.perf_counter()
+    model = sv.fit_serving_model(train)
+    fit_s = time.perf_counter() - t0
+    launches, routed = dict(ch.LAUNCHES), dict(ch.ROUTED)
+    fit_peak = torch.cuda.max_memory_allocated()
+    log(f"# serving fit ALS(rank={sv.RANK}, alpha=1.0, n_sweeps="
+        f"{sv.SWEEPS}), ML-25M leave-2-out: train_obs={train_obs} split "
+        f"{split_s:.1f}s fit_seconds={fit_s:.2f} (layout build included) "
+        f"history={[float(h) for h in model.history_]} "
+        f"max_memory_allocated={fit_peak} launches={launches} "
+        f"routed={routed}")
+    check(all(launches[n] > 0 for n in MAIN_KERNELS),
+          f"a kernel was not launched in the serving fit: {launches}")
+    check(not any(routed.values()), f"serving-fit calls were routed: {routed}")
+    check(np.isfinite(model.U_).all() and np.isfinite(model.V_).all(),
+          "the serving fit's factors are not finite")
+    record, q = sv.measure(model, train_obs, eval_users, rel_eval,
+                           torch.device("cuda"), "ml25m")
+    print(json.dumps(record), flush=True)
+    check(model._vdev_cache[1].is_cuda, "serving did not run on the card")
+    ex = record["extra"]
+    check(ex["eval_users"] == sv.EVAL_USERS, "too few eval users")
+    check(ex["auto_ids_equal_exact"], "'auto' and 'exact' served other ids")
+    ids = q["exact"]["ids"]
+    check(ids.shape == (sv.EVAL_USERS, sv.K) and (ids >= 0).all()
+          and (ids < n_items).all(), "served ids out of the catalog")
+    users = eval_users[:SERVING_CHECK_USERS]
+    want, sc = frozen_exact_topk(model.U_, model.V_, users, train, sv.K)
+    got = ids[:SERVING_CHECK_USERS]
+    rows, cols = np.nonzero(got != want)
+    gaps = [abs(sc[r, got[r, c]] - sc[r, want[r, c]])
+            / max(abs(sc[r, want[r, c]]), 1e-30) for r, c in zip(rows, cols)]
+    log(f"# serving ids against a float64 selector ({len(users)} users): "
+        f"{len(gaps)} near-tie swaps, largest relative gap "
+        f"{max(gaps, default=0.0):.2e}")
+    check(all(g < 1e-6 for g in gaps),
+          f"served ids differ from the float64 selector: {gaps[:5]}")
+    for key, anchor in (("recall_at_10", SERVING_RECALL_ANCHOR),
+                        ("ndcg_at_10", SERVING_NDCG_ANCHOR),
+                        ("recall_at_10_exact", SERVING_RECALL_ANCHOR),
+                        ("ndcg_at_10_exact", SERVING_NDCG_ANCHOR)):
+        check(abs(ex[key] - anchor) <= SERVING_BAND,
+              f"serving {key} {ex[key]:.5f} is not within {SERVING_BAND} "
+              f"of the reference's {anchor}")
+    split = ex["device_split_ms"]
+    log(f"# serving: recall@10={ex['recall_at_10']:.5f} (anchor "
+        f"{SERVING_RECALL_ANCHOR}) ndcg@10={ex['ndcg_at_10']:.5f} (anchor "
+        f"{SERVING_NDCG_ANCHOR}); recommend 20,000 users with exclusion "
+        f"{ex['recommend_seconds']}; {record['value']:.0f} users/s at "
+        f"B={ex['query_batch']} ({ex['batch_ms']:.3f} ms a batch; bound "
+        f"{ex['bound_ms']:.3f} ms unfused = "
+        f"{ex['query_batch'] / ex['bound_ms'] * 1e3:.0f} users/s, "
+        f"{ex['bound_ms_fused']:.3f} fused); device split ms: product "
+        f"{split['product']:.3f} selection {split['selection']:.3f} other "
+        f"{split['other']:.3f} (every product call traced: "
+        f"{split['complete']}); peak {ex['max_memory_allocated']} bytes; "
+        f"oracle {ex['oracle_users_per_sec']:.1f} users/s")
+    check(record["value"] > 0 and split["total"] > 0,
+          "the throughput run measured nothing")
+    return record
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1181,6 +1289,9 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     phase_epoch(torch, dev, coo[2].shape[0], ul, il, hist,
                 profile="--profile" in argv)
+    del ul, il
+    torch.cuda.empty_cache()
+    phase_serving(torch, coo)
     kernels = []
     for name in TPU_KERNEL:
         r = results[name]

@@ -8,11 +8,12 @@ package. Entry points run on the CUDA card unless the caller passes
 ``platform='cpu'``.
 
 Ported so far: the single-device explicit/implicit ALS fit (layout, grams,
-solves, sweeps, estimator), the solve variants (``ops.cholesky``
-entries and ``probes.solve_variants``) and the gather-rate probes
-(``ops.gather`` and ``probes.dma_gather``, ``gather_rates``,
-``ablate_epoch``, ``gather_budget``). Serving, IMC, checkpoints and the
-sharded programs are still to come (ROADMAP.md).
+solves, sweeps, estimator), serving (``ops.topk``, ``ALS.recommend`` and
+``top_n``, ``evaluate`` and ``probes.serving``), the solve variants
+(``ops.cholesky`` entries and ``probes.solve_variants``) and the
+gather-rate probes (``ops.gather`` and ``probes.dma_gather``,
+``gather_rates``, ``ablate_epoch``, ``gather_budget``). IMC, checkpoints
+and the sharded programs are still to come (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

@@ -9,11 +9,14 @@ Objectives: ``alpha=None`` is explicit least squares on ratings, ``alpha=a``
 the Hu-Koren-Volinsky confidence-weighted implicit objective. ``score``
 returns the negative RMSE.
 
+Serving (``recommend``, ``top_n``) runs ``ops.topk`` on the estimator's
+device against a cached copy of the catalog in the serving permutation's
+row order, with exact selection whatever ``method`` says.
+
 Not ported yet (each raises ``NotImplementedError``): sharded fits
 (``n_shards > 1``; another ``topology`` without shards raises the
-reference's ``ValueError``), checkpointing and ``resume``, and serving
-(``recommend``, ``top_n``). The default init is the reference's
-``jax.random`` draw, reproduced by ``prng.py``.
+reference's ``ValueError``), and checkpointing and ``resume``. The default
+init is the reference's ``jax.random`` draw, reproduced by ``prng.py``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,10 @@ from recommendation_models_tpu_torch.models.base import (
 )
 from recommendation_models_tpu_torch.ops.cholesky import (
     block_batch, hot_cols_auto,
+)
+from recommendation_models_tpu_torch.ops.gram import full_f32
+from recommendation_models_tpu_torch.ops.topk import (
+    grouped_exclusion_topk, permuted_topk, serving_permutation, topk_scores,
 )
 from recommendation_models_tpu_torch.solver.als_sweep import (
     device_buckets, half_sweep, make_scanned_fit, make_sweep_fns,
@@ -162,12 +169,20 @@ class ALS(BaseEstimator):
         )
 
     @classmethod
-    def from_reference_state(cls, state: dict) -> "ALS":
+    def from_reference_state(cls, state: dict, train_indptr=None,
+                             train_indices=None) -> "ALS":
         """A fitted port estimator from the JAX estimator's fitted state.
 
         ``state`` holds NumPy ``U_``, ``V_``, ``n_users_``, ``n_items_``,
         ``history_`` and ``params`` (the JAX estimator's ``get_params()``).
-        A ``data_config`` in the params is converted field by field."""
+        A ``data_config`` in the params is converted field by field.
+        ``train_indptr`` and ``train_indices`` (the training matrix's CSR
+        rows, both or neither) let ``recommend`` exclude seen items; without
+        them it warns and serves unfiltered, as the reference does after
+        ``resume()``."""
+        if (train_indptr is None) != (train_indices is None):
+            raise ValueError("pass BOTH train_indptr and train_indices, "
+                             "or neither")
         params = dict(state["params"])
         dc = params.get("data_config")
         if dc is not None and not isinstance(dc, DataConfig):
@@ -178,6 +193,9 @@ class ALS(BaseEstimator):
         model.n_users_ = int(state["n_users_"])
         model.n_items_ = int(state["n_items_"])
         model.history_ = list(np.asarray(state["history_"], np.float32))
+        if train_indptr is not None:
+            model._train_indptr = np.asarray(train_indptr, np.int64)
+            model._train_indices = np.asarray(train_indices)
         return model
 
     def _solve_config(self) -> SolveConfig:
@@ -318,6 +336,14 @@ class ALS(BaseEstimator):
         raise _not_ported("checkpoint resume", "Queue 1 item 11")
 
     # ------------------------------------------------------------------
+    def __getstate__(self):
+        """Picklable fitted estimator: the device copy of the catalog is
+        dropped (it uploads again at the next ``recommend``), so a model
+        pickled after serving on the card unpickles on a host without one."""
+        state = dict(super().__getstate__())
+        state.pop("_vdev_cache", None)
+        return state
+
     def _check_fitted(self):
         if getattr(self, "U_", None) is None:
             raise RuntimeError("this ALS instance is not fitted yet")
@@ -381,10 +407,65 @@ class ALS(BaseEstimator):
 
     def recommend(self, user_ids, n: int = 10, exclude_seen: bool = True,
                   method: str = "auto", recall_target: float = 0.99):
-        raise _not_ported("recommend", "Queue 1 item 8")
+        """Top-n unseen items per user: (scores (B, n), items (B, n)) as
+        NumPy arrays.
+
+        Selection is exact for every ``method`` ('auto', 'exact' or
+        'approx'; ``recall_target`` is accepted for the reference's
+        signature). With ``exclude_seen`` each user's training items are
+        dropped (``ops.topk.grouped_exclusion_topk``)."""
+        self._check_fitted()
+        user_ids = np.atleast_1d(np.asarray(user_ids, np.int64))
+        if user_ids.size and (user_ids.min() < 0
+                              or user_ids.max() >= self.n_users_):
+            raise ValueError(
+                f"user ids must be in [0, {self.n_users_}); got "
+                f"[{user_ids.min()}, {user_ids.max()}]")
+        n = min(n, self.n_items_)    # never ask top_k for more than exists
+        query_rows, topk = self._topk_backend(method, recall_target)
+        if exclude_seen and not hasattr(self, "_train_indptr"):
+            # an estimator built from factors alone has no training lists:
+            # serving with seen items would break the top_n contract
+            import warnings
+            warnings.warn(
+                "recommend(exclude_seen=True) on an estimator without "
+                "training indices (e.g. from_reference_state without "
+                "train_indptr and train_indices): seen items canNOT be "
+                "excluded; serving unfiltered scores. Call fit() to "
+                "restore exclusion.", stacklevel=2)
+        if not (exclude_seen and hasattr(self, "_train_indptr")):
+            return topk(query_rows(user_ids), n, None)
+        return grouped_exclusion_topk(user_ids, n, self._train_indptr,
+                                      self._train_indices, query_rows, topk)
+
+    def _topk_backend(self, method: str, recall_target: float):
+        """(query_rows, topk) callables for ``recommend``: host ``U_`` rows
+        uploaded per chunk, and ``ops.topk.topk_scores`` against the device
+        copy of ``V_`` in ``serving_permutation`` row order, cached on the
+        estimator and keyed on the identity of ``V_`` (and the device)."""
+        device = resolve_device(self.platform)
+        if device.type == "cuda":
+            full_f32()
+        perm_back, perm_fwd = serving_permutation(self.n_items_)
+        cache = getattr(self, "_vdev_cache", None)
+        if cache is None or cache[0] is not self.V_ \
+                or cache[1].device.type != device.type:
+            self._vdev_cache = (self.V_, torch.as_tensor(
+                self.V_[perm_back], dtype=torch.float32, device=device))
+        V_local = self._vdev_cache[1]
+
+        def query_rows(ids):
+            return torch.as_tensor(self.U_[ids], device=device)
+
+        def topk(Uq, k, excl):
+            return topk_scores(Uq, V_local, k, excl, method=method,
+                               recall_target=recall_target)
+        return query_rows, permuted_topk(topk, perm_back, perm_fwd)
 
     def top_n(self, user: int, n: int = 10, exclude_seen: bool = True):
-        raise _not_ported("top_n", "Queue 1 item 8")
+        """Single-user convenience: ranked item ids."""
+        _, items = self.recommend([user], n, exclude_seen)
+        return items[0]
 
 
 __all__ = ["ALS"]

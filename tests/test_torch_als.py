@@ -126,11 +126,15 @@ def test_get_set_params_clone_and_pickle():
     assert (c.rank, c.reg, c.lambda_) == (5, 0.7, 0.7)
     R = tiny_problem(20, 15, seed=5)
     fitted = ALS(rank=4, n_sweeps=2, platform="cpu").fit(R)
+    # pickled after serving: the device copy of the catalog is dropped
+    _, served = fitted.recommend([0, 3], n=4)
     back = pickle.loads(pickle.dumps(fitted))
+    assert "_vdev_cache" not in back.__dict__
     np.testing.assert_array_equal(back.U_, fitted.U_)
     np.testing.assert_array_equal(back.predict([[0, 1]]),
                                   fitted.predict([[0, 1]]))
     assert back.history_ == fitted.history_
+    np.testing.assert_array_equal(back.recommend([0, 3], n=4)[1], served)
 
 
 def test_aliases_and_validation():

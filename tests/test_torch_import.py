@@ -31,10 +31,12 @@ _PROBE = textwrap.dedent("""
     before = set(sys.modules)
     import recommendation_models_tpu_torch
     import recommendation_models_tpu_torch.data.layout_cache
+    import recommendation_models_tpu_torch.evaluate
     import recommendation_models_tpu_torch.ops.build
     import recommendation_models_tpu_torch.ops.cholesky
     import recommendation_models_tpu_torch.ops.gather
     import recommendation_models_tpu_torch.ops.solve
+    import recommendation_models_tpu_torch.ops.topk
     import recommendation_models_tpu_torch.prng
     import recommendation_models_tpu_torch.probes.ablate_epoch
     import recommendation_models_tpu_torch.probes.dma_gather
@@ -42,6 +44,7 @@ _PROBE = textwrap.dedent("""
     import recommendation_models_tpu_torch.probes.gather_budget
     import recommendation_models_tpu_torch.probes.gather_latency
     import recommendation_models_tpu_torch.probes.gather_rates
+    import recommendation_models_tpu_torch.probes.serving
     import recommendation_models_tpu_torch.probes.solve_latency
     import recommendation_models_tpu_torch.probes.solve_variants
     import recommendation_models_tpu_torch.solver.als_sweep
@@ -94,8 +97,6 @@ def test_resolve_device(platform, expect):
     (dict(n_shards=2), "fit"),
     (dict(topology="obs_parallel", n_shards=2), "fit"),
     (dict(checkpoint_dir="ckpt", checkpoint_every=1), "fit"),
-    (dict(), "recommend"),
-    (dict(), "top_n"),
     (dict(), "resume"),
 ])
 def test_unported_paths_raise_naming_roadmap(kwargs, call):
@@ -103,8 +104,7 @@ def test_unported_paths_raise_naming_roadmap(kwargs, call):
     R = tiny_problem(10, 8, seed=2)
     if call != "fit":
         m = port.ALS(rank=3, n_sweeps=1, platform="cpu").fit(R)
-    fn = {"fit": lambda: m.fit(R), "recommend": lambda: m.recommend([0]),
-          "top_n": lambda: m.top_n(0), "resume": lambda: m.resume("x")}[call]
+    fn = {"fit": lambda: m.fit(R), "resume": lambda: m.resume("x")}[call]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fn()
 
