@@ -9,15 +9,18 @@ package. Entry points run on the CUDA card unless the caller passes
 
 Ported so far: the single-device explicit/implicit ALS fit (layout, grams,
 solves, sweeps, estimator), serving (``ops.topk``, ``ALS.recommend`` and
-``top_n``, ``evaluate`` and ``probes.serving``), the solve variants
+``top_n``, ``evaluate`` and ``probes.serving``), the single-device IMC
+estimator (fit, cold start, serving; ``probes.imc``), checkpoint and resume
+of both estimators (``utils.checkpoint``), the solve variants
 (``ops.cholesky`` entries and ``probes.solve_variants``) and the
 gather-rate probes (``ops.gather`` and ``probes.dma_gather``,
-``gather_rates``, ``ablate_epoch``, ``gather_budget``). IMC, checkpoints
-and the sharded programs are still to come (ROADMAP.md).
+``gather_rates``, ``ablate_epoch``, ``gather_budget``). The sharded
+programs and the CLI and loader utilities are still to come (ROADMAP.md).
 """
 
 __version__ = "0.1.0"
 
 from recommendation_models_tpu_torch.models.als import ALS
+from recommendation_models_tpu_torch.models.imc import IMC
 
-__all__ = ["ALS", "__version__"]
+__all__ = ["ALS", "IMC", "__version__"]

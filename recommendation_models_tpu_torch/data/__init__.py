@@ -5,7 +5,11 @@ from recommendation_models_tpu_torch.data.layout import (
     csr_arrays,
     layout_from_coo,
 )
-from recommendation_models_tpu_torch.data.synthetic import synthetic_ratings
+from recommendation_models_tpu_torch.data.synthetic import (
+    synthetic_imc_ratings,
+    synthetic_ratings,
+    synthetic_side_features,
+)
 
 __all__ = [
     "Bucket",
@@ -13,5 +17,7 @@ __all__ = [
     "build_layout",
     "csr_arrays",
     "layout_from_coo",
+    "synthetic_imc_ratings",
     "synthetic_ratings",
+    "synthetic_side_features",
 ]

@@ -1,9 +1,11 @@
-"""Synthetic ratings generator (host-side numpy).
+"""Synthetic ratings and side features (host-side numpy).
 
-The same generator as the JAX package's ``data/synthetic.py``: for a given
-seed both produce byte-identical triplets, so the two packages train on
-the same data. Degrees are power-law over items (like MovieLens) and
-ratings come from a noisy low-rank ground truth.
+The same generators as the JAX package's ``data/synthetic.py``: for a given
+seed both produce byte-identical arrays, so the two packages train on the
+same data. ``synthetic_ratings``: degrees power-law over items (like
+MovieLens), ratings from a noisy low-rank ground truth.
+``synthetic_side_features`` and ``synthetic_imc_ratings``: dense feature
+matrices and observations of a bilinear ground truth, for IMC.
 """
 
 from __future__ import annotations
@@ -69,4 +71,48 @@ def synthetic_ratings(
     return users.astype(np.int32), items.astype(np.int32), ratings.astype(np.float32)
 
 
-__all__ = ["synthetic_ratings"]
+def synthetic_side_features(
+    n_users: int,
+    n_items: int,
+    d_user: int,
+    d_item: int,
+    seed: int = 0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Dense side-feature matrices X (n_users, d_user) and Y (n_items,
+    d_item), f32, unit-variance rows over the feature width."""
+    rng = np.random.default_rng(seed + 17)
+    X = rng.standard_normal((n_users, d_user)).astype(np.float32) / np.sqrt(d_user)
+    Y = rng.standard_normal((n_items, d_item)).astype(np.float32) / np.sqrt(d_item)
+    return X, Y
+
+
+def synthetic_imc_ratings(
+    X: np.ndarray,
+    Y: np.ndarray,
+    n_obs: int,
+    rank: int = 8,
+    noise: float = 0.05,
+    seed: int = 0,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Observations of a ground-truth bilinear model r = x' W* H*' y + eps,
+    deduplicated by (user, item).
+
+    Returns (users, items, ratings, W_true, H_true); a model that learns W
+    and H predicts for rows it never saw, through their features."""
+    rng = np.random.default_rng(seed + 29)
+    n_users, d_user = X.shape
+    n_items, d_item = Y.shape
+    W = rng.standard_normal((d_user, rank)).astype(np.float32)
+    H = rng.standard_normal((d_item, rank)).astype(np.float32)
+    users = rng.integers(0, n_users, size=n_obs).astype(np.int32)
+    items = rng.integers(0, n_items, size=n_obs).astype(np.int32)
+    key = users.astype(np.int64) * n_items + items
+    _, first = np.unique(key, return_index=True)
+    users, items = users[first], items[first]
+    r = np.einsum("ok,ok->o", X[users] @ W, Y[items] @ H)
+    r += noise * rng.standard_normal(r.shape[0]).astype(np.float32)
+    return users, items, r.astype(np.float32), W, H
+
+
+__all__ = ["synthetic_ratings", "synthetic_side_features",
+           "synthetic_imc_ratings"]

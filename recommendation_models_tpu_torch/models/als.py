@@ -13,10 +13,15 @@ Serving (``recommend``, ``top_n``) runs ``ops.topk`` on the estimator's
 device against a cached copy of the catalog in the serving permutation's
 row order, with exact selection whatever ``method`` says.
 
-Not ported yet (each raises ``NotImplementedError``): sharded fits
-(``n_shards > 1``; another ``topology`` without shards raises the
-reference's ``ValueError``), and checkpointing and ``resume``. The default
-init is the reference's ``jax.random`` draw, reproduced by ``prng.py``.
+Checkpoints: with ``checkpoint_dir`` and ``checkpoint_every``, ``fit``
+saves the factors and the history after every ``checkpoint_every``-th
+sweep (``utils.checkpoint``, on a background thread; ``fit`` waits for the
+last write), and ``resume`` loads the newest checkpoint.
+
+Not ported yet: sharded fits (``n_shards > 1`` raises
+``NotImplementedError``; another ``topology`` without shards raises the
+reference's ``ValueError``). The default init is the reference's
+``jax.random`` draw, reproduced by ``prng.py``.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from recommendation_models_tpu_torch.data.layout import (
 )
 from recommendation_models_tpu_torch.device import resolve_device
 from recommendation_models_tpu_torch.models.base import (
-    BaseEstimator, resolve_alias,
+    BaseEstimator, not_ported, resolve_alias,
 )
 from recommendation_models_tpu_torch.ops.cholesky import (
     block_batch, hot_cols_auto,
@@ -48,12 +53,9 @@ from recommendation_models_tpu_torch.ops.topk import (
 from recommendation_models_tpu_torch.solver.als_sweep import (
     device_buckets, half_sweep, make_scanned_fit, make_sweep_fns,
 )
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md, {item}); use "
-        "recommendation_models_tpu.ALS for it")
+from recommendation_models_tpu_torch.utils.checkpoint import (
+    load_latest, save_checkpoint, wait_pending,
+)
 
 
 class ALS(BaseEstimator):
@@ -279,14 +281,12 @@ class ALS(BaseEstimator):
         if (U0 is None) != (V0 is None):
             raise ValueError("warm starts need BOTH U0 and V0")
         if self.n_shards is not None and self.n_shards > 1:
-            raise _not_ported("a sharded fit (n_shards > 1)",
-                              "Queue 1 item 13")
+            raise not_ported("a sharded fit (n_shards > 1)",
+                             "Queue 1 item 13", "ALS")
         if self.topology != "1d":
             raise ValueError(
                 f"topology={self.topology!r} needs a sharded fit: set "
                 f"n_shards > 1 (got {self.n_shards})")
-        if self.checkpoint_dir and self.checkpoint_every:
-            raise _not_ported("checkpointing", "Queue 1 item 11")
         device = resolve_device(self.platform)
         indptr, indices, data, n_users, n_items = csr_arrays(R)
         self.n_users_, self.n_items_ = n_users, n_items
@@ -304,7 +304,9 @@ class ALS(BaseEstimator):
         U = torch.as_tensor(np.asarray(U0, np.float32), device=device)
         V = torch.as_tensor(np.asarray(V0, np.float32), device=device)
 
-        if not self.verbose:
+        stepwise = bool(self.verbose
+                        or (self.checkpoint_dir and self.checkpoint_every))
+        if not stepwise:
             # one loop over sweeps with no host readback (tol == 0) or one
             # scalar per sweep (tol > 0); sweeps never run come back as -1
             fit_fn = make_scanned_fit(ub, ib, n_users, n_items, scfg,
@@ -323,17 +325,62 @@ class ALS(BaseEstimator):
                 U, V = sweep(U, V)
                 cur = float(torch.sqrt(train_sse(U, V) / max(nnz, 1)))
                 self.history_.append(cur)
-                print(f"[ALS] sweep {s + 1}: train_rmse={cur:.6f}")
+                if self.verbose:
+                    print(f"[ALS] sweep {s + 1}: train_rmse={cur:.6f}")
+                self._maybe_checkpoint(s, U, V)
                 if self.tol > 0 and prev is not None and abs(prev - cur) < self.tol:
                     break
                 prev = cur
+            self._finish_checkpoints()
 
         self.U_ = U.cpu().numpy()
         self.V_ = V.cpu().numpy()
         return self
 
+    def _finish_checkpoints(self):
+        if self.checkpoint_dir and self.checkpoint_every:
+            wait_pending()
+
+    def _maybe_checkpoint(self, sweep_idx, U, V):
+        """Save U, V and the history after every ``checkpoint_every``-th
+        sweep, with the scalar hyperparameters and the table sizes as
+        metadata. The tables are copied to the host before the call
+        returns; the file is written on the background thread."""
+        if not self.checkpoint_dir or not self.checkpoint_every:
+            return
+        if (sweep_idx + 1) % self.checkpoint_every:
+            return
+        meta = {k: v for k, v in self.get_params().items()
+                if isinstance(v, (int, float, str, bool, type(None)))}
+        meta["n_users"], meta["n_items"] = self.n_users_, self.n_items_
+        save_checkpoint(
+            self.checkpoint_dir, step=sweep_idx + 1,
+            state=dict(U=U, V=V,
+                       history=np.asarray(self.history_, np.float32)),
+            metadata=meta, wait=False)
+
     def resume(self, checkpoint_dir: Optional[str] = None):
-        raise _not_ported("checkpoint resume", "Queue 1 item 11")
+        """Load the factors and the sweep history of the newest checkpoint
+        under ``checkpoint_dir`` (default: the estimator's); returns its
+        step.
+
+        The tables are sliced to the true sizes in the checkpoint's
+        metadata. A previous fit's serving state (its training lists and
+        the device copy of the catalog) is dropped: the training
+        observations are not checkpointed, so ``recommend(exclude_seen=
+        True)`` warns and serves unfiltered until the next ``fit``."""
+        step, state = load_latest(checkpoint_dir or self.checkpoint_dir)
+        for key in ("_train_indptr", "_train_indices", "_vdev_cache"):
+            self.__dict__.pop(key, None)
+        meta = state.get("metadata") or {}
+        U = np.asarray(state["U"])
+        V = np.asarray(state["V"])
+        self.n_users_ = int(meta.get("n_users", U.shape[0]))
+        self.n_items_ = int(meta.get("n_items", V.shape[0]))
+        self.U_ = U[: self.n_users_]
+        self.V_ = V[: self.n_items_]
+        self.history_ = list(np.asarray(state["history"]))
+        return step
 
     # ------------------------------------------------------------------
     def __getstate__(self):
@@ -424,15 +471,17 @@ class ALS(BaseEstimator):
         n = min(n, self.n_items_)    # never ask top_k for more than exists
         query_rows, topk = self._topk_backend(method, recall_target)
         if exclude_seen and not hasattr(self, "_train_indptr"):
-            # an estimator built from factors alone has no training lists:
-            # serving with seen items would break the top_n contract
+            # an estimator resumed or built from factors alone has no
+            # training lists: serving with seen items would break the top_n
+            # contract
             import warnings
             warnings.warn(
                 "recommend(exclude_seen=True) on an estimator without "
-                "training indices (e.g. from_reference_state without "
-                "train_indptr and train_indices): seen items canNOT be "
-                "excluded; serving unfiltered scores. Call fit() to "
-                "restore exclusion.", stacklevel=2)
+                "training indices (e.g. resumed from a checkpoint, or "
+                "from_reference_state without train_indptr and "
+                "train_indices): seen items canNOT be excluded; serving "
+                "unfiltered scores. Call fit() to restore exclusion.",
+                stacklevel=2)
         if not (exclude_seen and hasattr(self, "_train_indptr")):
             return topk(query_rows(user_ids), n, None)
         return grouped_exclusion_topk(user_ids, n, self._train_indptr,

@@ -42,6 +42,20 @@ def time_ms(fn: Callable, iters: int, warm: int = 0) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _cuda_rows(prof):
+    """[(device µs, calls, name)] of a finished profile's CUDA activity,
+    longest first."""
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us, ev.count, ev.key[:70]))
+    return sorted(rows, reverse=True)
+
+
 # profiled runs of ``device_rows`` before it gives up
 PROFILE_TRIES = 3
 
@@ -63,18 +77,27 @@ def device_rows(fn: Callable, reps: int = 1, warm: int = 1):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        rows = []
-        for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-            if us > 0:
-                rows.append((us, ev.count, ev.key[:70]))
+        rows = _cuda_rows(prof)
         if rows:
-            return sorted(rows, reverse=True)
+            return rows
     raise RuntimeError(f"torch.profiler recorded no device time in "
                        f"{PROFILE_TRIES} runs")
+
+
+def step_rows(fn: Callable, steps: int = 3):
+    """[(device µs, calls, name)] of the last of ``steps`` calls of ``fn``,
+    traced by ``torch.profiler`` in its active step after a wait and a
+    warm-up step: a trace begun at the call itself can lose the call's
+    first kernels."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=steps - 2, warmup=1, active=1)
+                 ) as prof:
+        for _ in range(steps):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return _cuda_rows(prof)
 
 
 def profiled_ms(fn: Callable, reps: int) -> float:
@@ -115,4 +138,4 @@ def timed(fn: Callable, iters: int, device: torch.device, label: str,
 
 
 __all__ = ["SCALES", "LAYOUT_CACHE_DIR", "time_ms", "device_rows",
-           "profiled_ms", "host_us", "timed"]
+           "step_rows", "profiled_ms", "host_us", "timed"]

@@ -42,7 +42,9 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from recommendation_models_tpu_torch.probes import PROFILE_TRIES, SCALES
+from recommendation_models_tpu_torch.probes import (
+    PROFILE_TRIES, SCALES, step_rows,
+)
 from recommendation_models_tpu_torch.probes.gather_latency import card
 
 RANK = 64
@@ -151,30 +153,6 @@ def _part(name: str) -> str:
     return "other"
 
 
-def _step_rows(fn, steps: int = 3):
-    """[(device µs, calls, name)] of the last of ``steps`` calls of ``fn``,
-    traced by ``torch.profiler`` in its active step after a wait and a
-    warm-up step: a trace begun at the call itself can lose the call's
-    first kernels."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=steps - 2, warmup=1, active=1)
-                 ) as prof:
-        for _ in range(steps):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        if us > 0:
-            rows.append((us, ev.count, ev.key[:70]))
-    return sorted(rows, reverse=True)
-
-
 def device_split(Uq, V):
     """Device ms of one ``topk_scores`` call by part (``torch.profiler``):
     product, selection, other; the top kernels of each part; and whether
@@ -185,7 +163,7 @@ def device_split(Uq, V):
     n_items = V.shape[0]
     blocks = 1 if n_items <= _SMALL_N else -(-n_items // _EXACT_BLOCK)
     for _ in range(PROFILE_TRIES):
-        rows = _step_rows(lambda: topk_scores(Uq, V, K))
+        rows = step_rows(lambda: topk_scores(Uq, V, K))
         traced = sum(n for _, n, name in rows if _part(name) == "product")
         if traced == blocks:
             break

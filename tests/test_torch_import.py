@@ -32,6 +32,7 @@ _PROBE = textwrap.dedent("""
     import recommendation_models_tpu_torch
     import recommendation_models_tpu_torch.data.layout_cache
     import recommendation_models_tpu_torch.evaluate
+    import recommendation_models_tpu_torch.models.imc
     import recommendation_models_tpu_torch.ops.build
     import recommendation_models_tpu_torch.ops.cholesky
     import recommendation_models_tpu_torch.ops.gather
@@ -44,10 +45,14 @@ _PROBE = textwrap.dedent("""
     import recommendation_models_tpu_torch.probes.gather_budget
     import recommendation_models_tpu_torch.probes.gather_latency
     import recommendation_models_tpu_torch.probes.gather_rates
+    import recommendation_models_tpu_torch.probes.imc
     import recommendation_models_tpu_torch.probes.serving
     import recommendation_models_tpu_torch.probes.solve_latency
     import recommendation_models_tpu_torch.probes.solve_variants
     import recommendation_models_tpu_torch.solver.als_sweep
+    import recommendation_models_tpu_torch.utils.checkpoint
+    from recommendation_models_tpu_torch import ALS, IMC
+    print("EXPORTS", sorted(recommendation_models_tpu_torch.__all__))
     new = set(sys.modules) - before
     # exact-key checks: "recommendation_models_tpu" is a prefix of the
     # port's own name, so a substring test would match the port itself
@@ -67,6 +72,7 @@ def test_port_imports_without_jax_reference_or_triton():
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
     assert "PORT True" in res.stdout
+    assert "EXPORTS ['ALS', 'IMC', '__version__']" in res.stdout
 
 
 def test_fit_without_platform_raises_without_card(monkeypatch):
@@ -93,20 +99,21 @@ def test_resolve_device(platform, expect):
         assert resolve_device(platform).type == expect
 
 
-@pytest.mark.parametrize("kwargs,call", [
-    (dict(n_shards=2), "fit"),
-    (dict(topology="obs_parallel", n_shards=2), "fit"),
-    (dict(checkpoint_dir="ckpt", checkpoint_every=1), "fit"),
-    (dict(), "resume"),
+@pytest.mark.parametrize("estimator,kwargs", [
+    ("ALS", dict(n_shards=2)),
+    ("ALS", dict(topology="obs_parallel", n_shards=2)),
+    ("IMC", dict(n_shards=8)),
 ])
-def test_unported_paths_raise_naming_roadmap(kwargs, call):
-    m = port.ALS(rank=3, n_sweeps=1, platform="cpu", **kwargs)
-    R = tiny_problem(10, 8, seed=2)
-    if call != "fit":
-        m = port.ALS(rank=3, n_sweeps=1, platform="cpu").fit(R)
-    fn = {"fit": lambda: m.fit(R), "resume": lambda: m.resume("x")}[call]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fn()
+def test_unported_paths_raise_naming_roadmap(estimator, kwargs):
+    args = (tiny_problem(10, 8, seed=2),)
+    if estimator == "IMC":
+        rng = np.random.default_rng(2)      # side features X, Y
+        args += (rng.standard_normal((10, 4)), rng.standard_normal((8, 3)))
+    m = getattr(port, estimator)(rank=3, n_sweeps=1, platform="cpu",
+                                 **kwargs)
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP.md, Queue 1 item 13.*{estimator}"):
+        m.fit(*args)
 
 
 @pytest.mark.parametrize("topology", ["obs_parallel", "bogus"])
