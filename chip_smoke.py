@@ -89,14 +89,41 @@ non-zero before the result lines are printed:
    ``IMC.fit`` on the card on 90% of the users, its history within 2e-2 of
    the JAX package's CPU history and the f64 objective of its factors and
    the cold-start RMSE of the held-out users within 1e-3 of the JAX
-   package's (the RMSE also under 0.7 std(r)); the timed fit (obs/s) and
-   one profiled sweep (device ms, launches, idle share);
+   package's (the RMSE also under 0.7 std(r)); the timed fit (obs/s, and
+   ``vs_baseline`` against one sweep of the port's NumPy oracle
+   ``oracle.OracleIMC`` on 100,000 observations) and one profiled sweep
+   (device ms, launches, idle share);
    ``recommend(exclude_seen=True)`` for 512 training users, ids equal to a
    float64 selector's but for near-ties; then a checkpoint round trip of
    ``ALS`` (ML-1M ratings, rank 64) and ``IMC``: 4 sweeps with
    ``checkpoint_every=2``, ``resume``, factors equal. No TPU kernel is on
    the IMC path, and its fit launches no kernel of the ``kernels`` line;
-8. one JSON line describing every kernel, then the result line. Each
+8. the training CLI (``train.py``) as a batch job runs it. ML-25M at full
+   width: phase 5's ratings written as a real-format ``ratings.csv``
+   (header, ids + 1, half stars, a fixed timestamp; ~465 MiB) under
+   ``build/chip_smoke/``, then ``train.main(["--ratings", csv, "--rank",
+   "64", "--n-sweeps", "10", "--metrics-jsonl", ...])`` in the process with
+   the launch counts set to 0 just before and read just after: B1 and B2
+   launched and nothing routed (these counts are printed and stay out of
+   the ``kernels`` line), the native parser used (no fallback warning),
+   the ``.rmtpu.npz`` cache written, the loaded ids (``vocab[ids] - 1``)
+   and ratings equal to phase 5's, and the summary's train RMSE (default
+   init) within 3% of 0.3170; the write, parse, remap and cache seconds,
+   the parser's Mrows/s (with the host's CPU model) and the summary's
+   ``fit_seconds`` and ``rows_per_sec`` are printed. Then ML-1M through
+   ``python -m recommendation_models_tpu_torch.train`` in subprocesses (no
+   ``--platform``): ``synthetic_ratings(6040, 3706, 1_000_209)`` written as
+   ``ratings.dat`` and fit at rank 64 with ``--holdout 1 --sse-mode
+   separate``, checkpoints every 5 sweeps, a ``torch.profiler`` trace and
+   ``--top-n 10``: exit 0, 10 per-sweep records and a summary whose train
+   and test RMSE are within 1e-3 of the JAX package's CLI on the same file
+   (recorded on a CPU, ``REF_CLI_ML1M``) and recall@10 and NDCG@10 within
+   0.005, and a trace with B1's kernel among its CUDA kernel events; again
+   with ``--resume`` (10 more sweeps from sweep 10); again from the cache
+   alone, the file deleted; and ``--synthetic ml1m --model imc --rank 32
+   --side-features 64 --n-sweeps 8``, whose history must equal, bitwise, the
+   history of ``IMC.fit`` on the same X, Y and R on the card;
+9. one JSON line describing every kernel, then the result line. Each
    entry's numbers are at its ``k`` and ``batch``; B4, B5a, B5b and B5c
    have ``resident`` (their kernel's resident blocks at k=64; B4 and B5b
    per instantiation in ``resident_by_instantiation``); B1, B2 and B3 also have
@@ -122,7 +149,10 @@ orders.
 from __future__ import annotations
 
 import json
+import logging
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -216,6 +246,28 @@ REF_IMC_ML1M_OBJECTIVE = 25718.831047005297
 REF_IMC_ML1M_COLD_RMSE = 0.1114293709397316
 IMC_HISTORY_RTOL = 2e-2
 IMC_COLD_GATE = 0.7         # tests/test_imc.py: cold RMSE < 0.7 std(r)
+
+# The JAX package's training CLI on the ML-1M-shaped ratings.dat that phase 8
+# writes, recorded on a CPU (the summary's numbers; recall and NDCG as the
+# CLI rounds them, to 4 places):
+#   python -c '
+#   from recommendation_models_tpu_torch.probes.parser import write_ratings
+#   from recommendation_models_tpu_torch.data.synthetic import (
+#       synthetic_ratings)
+#   u, i, r = synthetic_ratings(6040, 3706, 1_000_209, rank=16, seed=0)
+#   write_ratings("ml1m/ratings.dat", u + 1, i + 1, r, "dat")'
+#   JAX_PLATFORMS=cpu python -m recommendation_models_tpu.train \
+#       --ratings ml1m/ratings.dat --rank 64 --n-sweeps 10 --holdout 1 \
+#       --sse-mode separate --platform cpu --metrics-jsonl ref.jsonl
+# (646,100 ratings after the generator's dedupe; 6,040 users held out.)
+REF_CLI_ML1M = {"train_rmse": 0.2151706963777542,
+                "test_rmse": 1.2196555137634277,
+                "recall_at_10": 0.0012, "ndcg_at_10": 0.0005}
+CLI_RANKING_BAND = 0.005
+# B1's kernel in a profiler trace: chol_solve_kernel<NTH, NT, HOT=false,
+# TWO_G=false, LAT>, demangled or mangled
+B1_SYMBOL = re.compile(r"chol_solve_kernel<\s*\d+,\s*\d+,\s*false,\s*false,"
+                       r"|chol_solve_kernelILi\d+ELi\d+ELb0ELb0E")
 
 _PALLAS = "recommendation_models_tpu/ops/pallas/cholesky.py"
 TPU_KERNEL = {
@@ -1353,10 +1405,12 @@ def phase_imc(torch, dev, platform=None):
           f"IMC f64 objective {obj} differs from the reference's")
     check(cold_rel <= HISTORY_RTOL and cold_rmse < IMC_COLD_GATE * std,
           f"IMC cold-start RMSE {cold_rmse} fails")
-    check(record["value"] > 0 and ex["sweep_split"]["device_ms"] > 0,
-          "the IMC timed fit measured nothing")
+    check(record["value"] > 0 and ex["sweep_split"]["device_ms"] > 0
+          and record["vs_baseline"] > 0,
+          "the IMC timed fit or its oracle baseline measured nothing")
     log(f"# IMC timed fit on {ex['card']}: fit_seconds "
-        f"{ex['fit_seconds']:.4f}, {record['value']:.0f} obs/s")
+        f"{ex['fit_seconds']:.4f}, {record['value']:.0f} obs/s, "
+        f"vs_baseline {record['vs_baseline']:.2f}")
 
     # serving: 512 training users with exclusion, against float64
     n_users, n_items = X.shape[0], Y.shape[0]
@@ -1446,6 +1500,219 @@ def phase_checkpoints(torch, imc_data, platform=None):
                   "warn")
 
 
+class _Records(logging.Handler):
+    """Collects the port logger's records (the loader's ingest record and
+    any warning, such as the native parser's fallback)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def run_cli(args, label):
+    """``python -m recommendation_models_tpu_torch.train`` with ``args`` in
+    a subprocess from the checkout's root (on the card: no ``--platform``);
+    its stdout, after the exit code is checked."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "recommendation_models_tpu_torch.train",
+         *args], cwd=root, env=env, capture_output=True, text=True,
+        timeout=600)
+    secs = time.perf_counter() - t0
+    for line in res.stdout.splitlines():
+        if line.startswith("[train]"):
+            log(f"#   {label}: {line}")
+    log(f"# CLI {label}: exit {res.returncode} in {secs:.1f}s")
+    check(res.returncode == 0,
+          f"the CLI ({label}) exited {res.returncode}: {res.stderr[-3000:]}")
+    return res.stdout
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_ml1m_summary(summary, label):
+    """The ML-1M CLI run's summary against the JAX package's CLI on a CPU:
+    RMSEs within HISTORY_RTOL, recall@10 and NDCG@10 within
+    CLI_RANKING_BAND."""
+    rel = {k: abs(summary[k] - REF_CLI_ML1M[k]) / REF_CLI_ML1M[k]
+           for k in ("train_rmse", "test_rmse")}
+    gap = {k: abs(summary[k] - REF_CLI_ML1M[k])
+           for k in ("recall_at_10", "ndcg_at_10")}
+    log(f"# CLI {label} against the JAX CLI on a CPU: rel diff "
+        f"{ {k: float(f'{v:.2e}') for k, v in rel.items()} }, ranking gap "
+        f"{gap}")
+    check(all(v <= HISTORY_RTOL for v in rel.values()),
+          f"CLI {label}: RMSE differs from the JAX CLI's: {summary}")
+    check(all(v <= CLI_RANKING_BAND for v in gap.values()),
+          f"CLI {label}: recall/NDCG differ from the JAX CLI's: {summary}")
+
+
+def trace_kernels(trace_dir):
+    """Names of the CUDA kernel events of the Chrome traces in
+    ``trace_dir``."""
+    names = set()
+    for name in os.listdir(trace_dir):
+        if name.endswith(".pt.trace.json"):
+            with open(os.path.join(trace_dir, name)) as f:
+                events = json.load(f)["traceEvents"]
+            names |= {ev.get("name", "") for ev in events
+                      if ev.get("cat") == "kernel"}
+    return names
+
+
+def phase_cli(torch, coo, card):
+    """The training CLI on the card (``train.py``): ML-25M through a
+    real-format ratings.csv in the process, then ML-1M through the module
+    entry point in subprocesses (holdout, checkpoints, trace, resume, the
+    cache alone, IMC). The launch counts of this phase are printed here and
+    stay out of the ``kernels`` line."""
+    import numpy as np
+    import scipy.sparse as sp
+    from recommendation_models_tpu_torch import IMC, train
+    from recommendation_models_tpu_torch.data import movielens, native
+    from recommendation_models_tpu_torch.data.synthetic import (
+        synthetic_ratings)
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.probes import SCALES
+    from recommendation_models_tpu_torch.probes.parser import (
+        cpu_model, write_ratings)
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "ml1m"))
+
+    # ML-25M: phase 5's ratings as a real-format ratings.csv
+    u, i, r = coo
+    csv = os.path.join(root, "ratings.csv")
+    t0 = time.perf_counter()
+    write_ratings(csv, u + 1, i + 1, r, "csv")
+    write_s = time.perf_counter() - t0
+    mib = os.path.getsize(csv) / 2**20
+    log(f"# CLI ML-25M: wrote {csv}: {r.shape[0]} rows, {mib:.1f} MiB in "
+        f"{write_s:.2f}s")
+    check(native.available(), "the native ratings parser did not build")
+    jsonl = os.path.join(root, "ml25m.jsonl")
+    port_log = logging.getLogger("recommendation_models_tpu_torch")
+    handler = _Records()
+    port_log.addHandler(handler)
+    level = port_log.level
+    port_log.setLevel(logging.INFO)
+    try:
+        ch.reset_counts()
+        rc = train.main(["--ratings", csv, "--rank", str(RANK),
+                         "--n-sweeps", str(SWEEPS), "--metrics-jsonl", jsonl])
+        launches, routed = dict(ch.LAUNCHES), dict(ch.ROUTED)
+    finally:
+        port_log.removeHandler(handler)
+        port_log.setLevel(level)
+    check(rc == 0, f"train.main returned {rc}")
+    warned = [rec.getMessage() for rec in handler.records
+              if rec.levelno >= logging.WARNING]
+    ingest = [rec.ingest for rec in handler.records
+              if hasattr(rec, "ingest")]
+    check(not warned, f"the CLI's load warned: {warned}")
+    check(len(ingest) == 1 and ingest[0]["route"] == "native",
+          f"the native parser did not parse the file: {ingest}")
+    ing = ingest[0]
+    check(os.path.exists(csv + ".rmtpu.npz"), "no .rmtpu.npz cache written")
+    d = movielens.load_ratings_file(csv)
+    check(np.array_equal(d["user_vocab"][d["users"]] - 1, u)
+          and np.array_equal(d["item_vocab"][d["items"]] - 1, i)
+          and np.array_equal(d["ratings"], r),
+          "the loaded ids or ratings differ from phase 5's")
+    lines = read_jsonl(jsonl)
+    summary = lines[-1]
+    rmse = summary["train_rmse"]
+    log(f"# CLI ML-25M ingest on {cpu_model()}: parse {ing['parse_s']:.3f}s "
+        f"({ing['rows'] / ing['parse_s'] / 1e6:.2f} Mrows/s, "
+        f"{mib / ing['parse_s']:.0f} MiB/s, native), remap "
+        f"{ing['remap_s']:.3f}s, cache write {ing['cache_s']:.3f}s")
+    log(f"# CLI ML-25M fit on {card}: fit_seconds={summary['fit_seconds']} "
+        f"rows_per_sec={summary['rows_per_sec']} train_rmse={rmse:.4f} "
+        f"(anchor {RMSE_ANCHOR}, default init) launches={launches} "
+        f"routed={routed}")
+    check(len(lines) == SWEEPS + 1 and all(
+        np.isfinite(x["train_rmse"]) for x in lines),
+        f"the ML-25M JSONL has {len(lines)} records")
+    check(abs(rmse - RMSE_ANCHOR) <= RMSE_ANCHOR_RTOL * RMSE_ANCHOR,
+          f"CLI train RMSE {rmse:.4f} is not within 3% of {RMSE_ANCHOR}")
+    check(all(launches[n] > 0 for n in MAIN_KERNELS),
+          f"a kernel was not launched by the CLI: {launches}")
+    check(not any(routed.values()), f"CLI calls were routed: {routed}")
+    del d
+    torch.cuda.empty_cache()
+
+    # ML-1M through the module entry point, everything turned on
+    n_users, n_items, n_obs = SCALES["ml1m"]
+    u1, i1, r1 = synthetic_ratings(n_users, n_items, n_obs, rank=16, seed=0)
+    dat = os.path.join(root, "ml1m", "ratings.dat")
+    write_ratings(dat, u1 + 1, i1 + 1, r1, "dat")
+    ckpt, trace = os.path.join(root, "ckpt"), os.path.join(root, "trace")
+    j1, j2 = os.path.join(root, "ml1m.jsonl"), os.path.join(root, "cache.jsonl")
+    base = ["--ratings", dat, "--rank", str(RANK), "--n-sweeps", str(SWEEPS),
+            "--holdout", "1", "--sse-mode", "separate"]
+    run_cli(base + ["--metrics-jsonl", j1, "--checkpoint-dir", ckpt,
+                    "--checkpoint-every", "5", "--trace-dir", trace,
+                    "--top-n", "10"], "ML-1M")
+    lines = read_jsonl(j1)
+    per_sweep = [x for x in lines if set(x) == {"step", "ts", "train_rmse"}]
+    summary = lines[-1]
+    check(len(lines) == SWEEPS + 1 and len(per_sweep) == SWEEPS
+          and {"test_rmse", "recall_at_10", "ndcg_at_10"} <= set(summary),
+          f"the ML-1M JSONL is not 10 sweeps and a summary: {lines}")
+    check_ml1m_summary(summary, "ML-1M")
+    kernels = trace_kernels(trace)
+    b1 = sorted(n for n in kernels if B1_SYMBOL.search(n))
+    log(f"# CLI ML-1M trace: {len(kernels)} distinct kernels, B1's: {b1}")
+    check(b1, f"the trace holds no B1 kernel: {sorted(kernels)[:20]}")
+    check(sorted(os.listdir(ckpt))[-2:] == ["step_00000010",
+                                            "step_00000010.meta.json"],
+          f"no checkpoint of sweep 10: {os.listdir(ckpt)}")
+
+    out = run_cli(base + ["--metrics-jsonl", j1, "--checkpoint-dir", ckpt,
+                          "--checkpoint-every", "5", "--resume"],
+                  "ML-1M --resume")
+    resumed = read_jsonl(j1)[len(lines):]
+    check("resumed from sweep 10" in out and len(resumed) == SWEEPS + 1,
+          "the resumed run did not continue from sweep 10 for 10 sweeps")
+    check(resumed[-1]["train_rmse"] <= summary["train_rmse"],
+          "the resumed fit's train RMSE rose")
+
+    os.remove(dat)
+    run_cli(base + ["--metrics-jsonl", j2], "ML-1M from the cache")
+    check_ml1m_summary(read_jsonl(j2)[-1], "ML-1M from the cache")
+
+    # IMC with synthesized side features, against the Python API
+    j3 = os.path.join(root, "imc.jsonl")
+    run_cli(["--synthetic", "ml1m", "--model", "imc", "--rank", "32",
+             "--side-features", "64", "--n-sweeps", "8", "--metrics-jsonl",
+             j3], "IMC")
+    cli_hist = [x["train_rmse"] for x in read_jsonl(j3)[:-1]]
+    R = sp.csr_matrix((r1, (u1, i1)), shape=(n_users, n_items))
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((n_users, 64)).astype(np.float32)
+    Y = rng.standard_normal((n_items, 64)).astype(np.float32)
+    m = IMC(rank=32, reg=0.1, n_sweeps=8, seed=0).fit(R, X, Y)
+    api_hist = [float(h) for h in m.history_]
+    log(f"# CLI IMC history {cli_hist}; IMC.fit on the card equal: "
+        f"{cli_hist == api_hist}")
+    check(len(cli_hist) == 8 and all(np.isfinite(cli_hist)),
+          f"the IMC CLI history is not 8 finite values: {cli_hist}")
+    check(cli_hist == api_hist,
+          f"the IMC CLI history differs from IMC.fit's: {api_hist}")
+    log(f"# CLI phase: {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1465,7 +1732,7 @@ def main(argv) -> int:
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32, "TF32 is on")
     t_start = time.perf_counter()
-    phase_environment(torch)
+    card = phase_environment(torch)
     coo, ul, il = build_main_path_data()
     results = {"cholesky_solve_batched": phase_b1(
         torch, dev, flat_w=il.dense_ids.shape[0])}
@@ -1494,6 +1761,8 @@ def main(argv) -> int:
     phase_serving(torch, coo)
     torch.cuda.empty_cache()
     phase_imc(torch, dev)
+    torch.cuda.empty_cache()
+    phase_cli(torch, coo, card)
     kernels = []
     for name in TPU_KERNEL:
         r = results[name]

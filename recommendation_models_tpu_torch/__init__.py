@@ -14,8 +14,11 @@ estimator (fit, cold start, serving; ``probes.imc``), checkpoint and resume
 of both estimators (``utils.checkpoint``), the solve variants
 (``ops.cholesky`` entries and ``probes.solve_variants``) and the
 gather-rate probes (``ops.gather`` and ``probes.dma_gather``,
-``gather_rates``, ``ablate_epoch``, ``gather_budget``). The sharded
-programs and the CLI and loader utilities are still to come (ROADMAP.md).
+``gather_rates``, ``ablate_epoch``, ``gather_budget``), the training CLI
+(``python -m recommendation_models_tpu_torch.train``), the MovieLens loader
+with its native parser (``data.movielens``, ``data.native``), metrics and
+profiler traces (``utils.logging``, ``utils.profiling``) and the NumPy
+oracles (``oracle``). The sharded programs are still to come (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

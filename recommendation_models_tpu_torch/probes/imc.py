@@ -20,14 +20,18 @@ seed=0)``; users in the last 10% of ids are held out of training. Then:
   obs/s = training observations x 8 / fit_seconds;
 - one sweep under ``torch.profiler``: its device time by kernel and its
   launches, beside the sweep's wall time (synchronised), the host's time to
-  enqueue it, and the device's idle share of the timed fit's sweeps.
+  enqueue it, and the device's idle share of the timed fit's sweeps;
+- the CPU baseline, as ``imc_bench`` takes it: the port's copy of the NumPy
+  oracle (``oracle.OracleIMC``, 30 CG steps) for one sweep on the first
+  ``ORACLE_OBS`` training observations, scaled to obs/s.
 
 Prints lines, then one JSON line in ``imc_bench``'s schema: ``metric``,
-``value`` (obs/s), ``unit``, ``vs_baseline`` (null: the port has no copy
-of ``oracle/imc_numpy.py`` yet) and ``extra`` (``fit_seconds``,
-``cold_start_rmse``, ``train_objective``, ``device``, the card's name and
-power limit, the split). With ``--platform cpu`` (default scale ``tiny``)
-the fits run on the host, untimed, and every device number is null.
+``value`` (obs/s), ``unit``, ``vs_baseline`` (value over the oracle's
+obs/s) and ``extra`` (``fit_seconds``, ``cold_start_rmse``,
+``train_objective``, ``oracle_obs_per_sec``, ``device``, the card's name
+and power limit, the split). With ``--platform cpu`` (default scale
+``tiny``) the fits run on the host, untimed, and every device number and
+``vs_baseline`` are null.
 ``chip_smoke.py`` phase 7 runs the ML-1M config with these functions.
 """
 
@@ -54,6 +58,7 @@ REPS = 5
 SPLIT_REPS = 5      # sweeps of the wall and enqueue medians
 MAX_OBS = 2_000_000
 TRAIN_SHARE = 0.9    # users below 0.9 x n_users train; the rest are cold
+ORACLE_OBS = 100_000  # imc_bench's oracle subsample
 
 
 def imc_data(scale: str):
@@ -183,6 +188,21 @@ def sweep_split(inputs, fit_s: float):
     }
 
 
+def oracle_obs_per_sec(data) -> float:
+    """The CPU baseline of ``imc_bench`` (``bench.py:319-326``): obs/s of
+    one sweep of the NumPy oracle on the first ``ORACLE_OBS`` training
+    observations (the bench scales the time to the whole set and back,
+    which leaves this)."""
+    from recommendation_models_tpu_torch.oracle import OracleIMC
+    X, Y, users, items, ratings, cold = data
+    tr = ~cold
+    sub = min(ORACLE_OBS, int(tr.sum()))
+    o = OracleIMC(rank=RANK, reg=REG, n_sweeps=1, cg_iters=CG_ITERS, seed=0)
+    t0 = time.perf_counter()
+    o.fit(users[tr][:sub], items[tr][:sub], ratings[tr][:sub], X, Y)
+    return sub / (time.perf_counter() - t0)
+
+
 def measure(data, device, scale: str, reps: int = REPS):
     """Every number of the probe: (the JSON record, the quality model)."""
     from recommendation_models_tpu_torch.probes.gather_latency import card
@@ -210,12 +230,18 @@ def measure(data, device, scale: str, reps: int = REPS):
               f" ms, {split['launches']} launches (every gather traced: "
               f"{split['complete']}), idle share {split['idle_share']:.3f}",
               flush=True)
-    value = None if fit_s is None else train_obs * SWEEPS / fit_s
+    value = baseline = None
+    if on_card:
+        value = train_obs * SWEEPS / fit_s
+        baseline = oracle_obs_per_sec(data)
+        print(f"# CPU oracle (oracle.OracleIMC, one sweep on "
+              f"{min(ORACLE_OBS, train_obs)} obs): {baseline:.0f} obs/s; "
+              f"vs_baseline {value / baseline:.2f}", flush=True)
     return {
         "metric": f"imc_obs_per_sec_per_chip_rank{RANK}_{scale}_synth",
         "value": value,
         "unit": "obs/s/chip",
-        "vs_baseline": None,
+        "vs_baseline": None if value is None else value / baseline,
         "extra": {
             "fit_seconds": fit_s,
             "timed_fits": reps,
@@ -229,8 +255,8 @@ def measure(data, device, scale: str, reps: int = REPS):
             "quality_fit_seconds": fit_quality_s,
             "sweep_split": split,
             "max_memory_allocated": peak,
-            "vs_baseline_note": "null: the port has no copy of "
-                                "oracle/imc_numpy.py yet",
+            "oracle_obs_per_sec": baseline,
+            "oracle_obs": min(ORACLE_OBS, train_obs),
             "device": (torch.cuda.get_device_name(0) if on_card
                        else "cpu"),
             "card": card() if on_card else None,

@@ -31,6 +31,8 @@ _PROBE = textwrap.dedent("""
     before = set(sys.modules)
     import recommendation_models_tpu_torch
     import recommendation_models_tpu_torch.data.layout_cache
+    import recommendation_models_tpu_torch.data.movielens
+    import recommendation_models_tpu_torch.data.native
     import recommendation_models_tpu_torch.evaluate
     import recommendation_models_tpu_torch.models.imc
     import recommendation_models_tpu_torch.ops.build
@@ -38,6 +40,7 @@ _PROBE = textwrap.dedent("""
     import recommendation_models_tpu_torch.ops.gather
     import recommendation_models_tpu_torch.ops.solve
     import recommendation_models_tpu_torch.ops.topk
+    import recommendation_models_tpu_torch.oracle
     import recommendation_models_tpu_torch.prng
     import recommendation_models_tpu_torch.probes.ablate_epoch
     import recommendation_models_tpu_torch.probes.dma_gather
@@ -46,11 +49,16 @@ _PROBE = textwrap.dedent("""
     import recommendation_models_tpu_torch.probes.gather_latency
     import recommendation_models_tpu_torch.probes.gather_rates
     import recommendation_models_tpu_torch.probes.imc
+    import recommendation_models_tpu_torch.probes.parser
     import recommendation_models_tpu_torch.probes.serving
     import recommendation_models_tpu_torch.probes.solve_latency
     import recommendation_models_tpu_torch.probes.solve_variants
     import recommendation_models_tpu_torch.solver.als_sweep
+    import recommendation_models_tpu_torch.train
+    import recommendation_models_tpu_torch.utils
     import recommendation_models_tpu_torch.utils.checkpoint
+    import recommendation_models_tpu_torch.utils.logging
+    import recommendation_models_tpu_torch.utils.profiling
     from recommendation_models_tpu_torch import ALS, IMC
     print("EXPORTS", sorted(recommendation_models_tpu_torch.__all__))
     new = set(sys.modules) - before
@@ -129,3 +137,28 @@ def test_topology_without_shards_raises_like_the_reference(topology):
                  topology=topology).fit(R)
     assert str(got.value) == str(ref.value)
     assert "needs a sharded fit" in str(got.value)
+
+
+_BY_PATH = textwrap.dedent("""
+    import importlib.util, sys
+    for name in ("als_numpy", "imc_numpy"):
+        spec = importlib.util.spec_from_file_location(
+            name, "recommendation_models_tpu_torch/oracle/" + name + ".py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    print("LOADED", mod.OracleIMC.__name__)
+    print("TORCH", "torch" in sys.modules)
+    print("JAX", "jax" in sys.modules)
+    print("PKG", sorted(m for m in sys.modules
+                        if m.startswith("recommendation_models_tpu")))
+""")
+
+
+def test_oracle_loads_by_file_path_without_torch_jax_or_reference():
+    res = subprocess.run([sys.executable, "-c", _BY_PATH], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "LOADED OracleIMC" in res.stdout
+    assert "TORCH False" in res.stdout
+    assert "JAX False" in res.stdout
+    assert "PKG []" in res.stdout
