@@ -123,7 +123,30 @@ non-zero before the result lines are printed:
    alone, the file deleted; and ``--synthetic ml1m --model imc --rank 32
    --side-features 64 --n-sweeps 8``, whose history must equal, bitwise, the
    history of ``IMC.fit`` on the same X, Y and R on the card;
-9. one JSON line describing every kernel, then the result line. Each
+9. the 1-D sharded ALS (``parallel/sharded_als.py``) on one card, S shards
+   on ``Mesh((cuda:0,) * S)``. ML-25M at full width: phase 5's layouts
+   sharded two ways (``shard_layout``), ``ShardedALSProgram`` with
+   ``exchange='allgather'`` (dense block and hot columns kept) from phase
+   5's warm start placed by ``place_factors``, 10 sweeps through
+   ``make_fit`` with the launch counts set to 0 just before and read just
+   after: B1 and B2 launched, nothing routed, the history within rtol
+   1e-3 / atol 1e-4 of phase 5's (tests/test_sharded.py's shard-invariance
+   tolerance) and train RMSE within 3% of 0.3170; the set-up (both
+   ``shard_layout`` calls, the placement), the sweeps, one profiled
+   sweep's device time and phase 5's epoch beside them. Then sharded
+   serving on that fit: ``sharded_topk`` over the sharded V with each
+   user's training items excluded (``grouped_exclusion_topk``, k=10), for
+   20,000 users, whose ids must equal the exact float64 top-10 of the same
+   factors but for near-ties (relative gap under 1e-6). Then ML-1M, rank
+   64, on ``Mesh((cuda:0,) * 4)``: the program ``ALS(n_shards=4,
+   exchange=...)`` builds (``probes.exchange.program_for``) for
+   'allgather', 'all_to_all' and 'hybrid', explicit, and 'allgather'
+   implicit (alpha 1.0), each from phase 4's warm start for 10 sweeps, its
+   history within rtol 1e-3 / atol 1e-4 of the single-device ``ALS.fit``
+   on the card, and its ``collective_bytes_per_sweep()`` equal to the JAX
+   package's (``REF_SHARDED_BYTES_ML1M``); 'allgather' launches B1 and
+   B2, 'all_to_all' B1 only, 'hybrid' B2 only (``SHARDED_ML1M_KERNELS``);
+10. one JSON line describing every kernel, then the result line. Each
    entry's numbers are at its ``k`` and ``batch``; B4, B5a, B5b and B5c
    have ``resident`` (their kernel's resident blocks at k=64; B4 and B5b
    per instantiation in ``resident_by_instantiation``); B1, B2 and B3 also have
@@ -133,7 +156,9 @@ non-zero before the result lines are printed:
    its numbers at the probe's k=128, and ``gather_rows_sum`` has
    ``device_ms``, ``host_us``, ``l2_bound_ms`` and ``l2_tb_s`` at the
    probe's shape, ``at_main_path`` (both halves' gathers) and
-   ``at_row_block`` (a row block of each half).
+   ``at_row_block`` (a row block of each half). B1's and B2's ``launches``
+   are the main path's and the sharded phase's, each in
+   ``launches_by_path``.
 
 ``--profile`` adds one profiled main-path sweep and prints its device time
 by kernel and the device's idle share (not run by default).
@@ -269,6 +294,54 @@ CLI_RANKING_BAND = 0.005
 B1_SYMBOL = re.compile(r"chol_solve_kernel<\s*\d+,\s*\d+,\s*false,\s*false,"
                        r"|chol_solve_kernelILi\d+ELi\d+ELb0ELb0E")
 
+# The sharded phase (9): S on one card at ML-25M, S at ML-1M, the users
+# served, and tests/test_sharded.py's shard-invariance tolerance.
+SHARDED_S = 2
+SHARDED_ML1M_S = 4
+SHARDED_SERVE_USERS = 20_000
+SHARDED_RTOL, SHARDED_ATOL = 1e-3, 1e-4
+# The kernels each ML-1M exchange launches: every bucket of a layout with
+# hot columns takes B2, and B1 then serves only the dense block, which
+# 'hybrid' turns off; 'all_to_all' has neither block, so B1 takes every
+# bucket.
+SHARDED_ML1M_KERNELS = {
+    "allgather": ("cholesky_solve_batched", "cholesky_solve_hot"),
+    "all_to_all": ("cholesky_solve_batched",),
+    "hybrid": ("cholesky_solve_hot",),
+}
+# collective_bytes_per_sweep() of the JAX package's sharded programs at
+# ML-1M, rank 64, S = 4, recorded on a CPU:
+#   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=4 \
+#   python -c '
+#   import scipy.sparse as sp
+#   from recommendation_models_tpu import ALS
+#   from recommendation_models_tpu.data.synthetic import synthetic_ratings
+#   u, i, r = synthetic_ratings(6040, 3706, 1_000_209, rank=16, seed=0)
+#   R = sp.csr_matrix((r, (u, i)), shape=(6040, 3706))
+#   for ex, alpha in (("allgather", None), ("all_to_all", None),
+#                     ("hybrid", None), ("allgather", 1.0)):
+#       m = ALS(rank=64, reg=0.1, alpha=alpha, n_shards=4, exchange=ex,
+#               n_sweeps=1, platform="cpu").fit(R)
+#       print(ex, alpha, m.exchange_bytes_per_sweep_)'
+REF_SHARDED_BYTES_ML1M = {
+    ("allgather", None): {
+        "user_half": 711936, "item_half": 1159680,
+        "per_sweep_total": 1871616, "sse_extra": 711936,
+        "per_sweep_with_sse": 2583552},
+    ("all_to_all", None): {
+        "user_half": 723840, "item_half": 1179360,
+        "per_sweep_total": 1903200, "sse_extra": 723840,
+        "per_sweep_with_sse": 2627040},
+    ("hybrid", None): {
+        "user_half": 1166208, "item_half": 1413728,
+        "per_sweep_total": 2579936, "sse_extra": 1166208,
+        "per_sweep_with_sse": 3746144},
+    ("allgather", 1.0): {
+        "user_half": 711936, "item_half": 1159680, "psum_gram": 49152,
+        "per_sweep_total": 1920768, "sse_extra": 711936,
+        "per_sweep_with_sse": 2632704},
+}
+
 _PALLAS = "recommendation_models_tpu/ops/pallas/cholesky.py"
 TPU_KERNEL = {
     "cholesky_solve_batched": f"{_PALLAS}:226",
@@ -292,9 +365,11 @@ SOURCE = {
     "gather_rows_sum": _CSRC + "gather.cu",
 }
 MAIN_PATH = "ALS(rank=64).fit, ML-25M shape"
+SHARDED_PATH = (f"ShardedALSProgram(S={SHARDED_S}, allgather).make_fit on "
+                f"one card, ML-25M shape")
 PATH = {
-    "cholesky_solve_batched": MAIN_PATH,
-    "cholesky_solve_hot": MAIN_PATH,
+    "cholesky_solve_batched": f"{MAIN_PATH}; {SHARDED_PATH}",
+    "cholesky_solve_hot": f"{MAIN_PATH}; {SHARDED_PATH}",
     "cholesky_solve_2g": "ops.solve.solve_spd_t(Gt2=), k=64, B=65,536",
     "cholesky_solve_rank1": "probes.solve_variants, k=128, B=65,536",
     "cholesky_solve_panel": "probes.solve_variants, k=128, B=65,536",
@@ -1259,6 +1334,185 @@ def phase_epoch(torch, dev, nnz, ul, il, main_hist, profile=False):
     return epoch_s
 
 
+def exact_topk_gaps(U, V, users, train, got, k, chunk=1_000):
+    """The positions where ``got`` (the served ids of ``users``) differ
+    from the exact float64 top-k of U, V with each user's training items
+    excluded, as relative score gaps: argpartition then a sort by (score
+    descending, id ascending), ``chunk`` users at a time (NumPy,
+    independent of ``ops.topk``)."""
+    import numpy as np
+    Vt = V.astype(np.float64).T
+    gaps = []
+    for c in range(0, len(users), chunk):
+        us = users[c:c + chunk]
+        sc = U[us].astype(np.float64) @ Vt
+        for j, u in enumerate(us):
+            sc[j, train.indices[train.indptr[u]:train.indptr[u + 1]]] = (
+                -np.inf)
+        cand = np.argpartition(-sc, k, axis=1)[:, :k + 1]
+        rows = np.arange(len(us))[:, None]
+        csc = sc[rows, cand]
+        order = np.lexsort((cand, -csc), axis=1)[:, :k]
+        want = cand[rows, order]
+        g = got[c:c + chunk]
+        for r_, c_ in zip(*np.nonzero(g != want)):
+            a, b = sc[r_, g[r_, c_]], sc[r_, want[r_, c_]]
+            gaps.append(abs(a - b) / max(abs(b), 1e-30))
+    return gaps
+
+
+def phase_sharded(torch, dev, coo, ul, il, main_hist, epoch_s):
+    """The 1-D sharded ALS on one card: ML-25M at S=2 through
+    ``make_fit`` (the launch counts of B1 and B2 come from here), sharded
+    serving on that fit, and ML-1M at S=4 for each exchange against the
+    single-device fit and the JAX package's bytes."""
+    import numpy as np
+    import scipy.sparse as sp
+    from recommendation_models_tpu_torch import ALS
+    from recommendation_models_tpu_torch.config import SolveConfig
+    from recommendation_models_tpu_torch.data.layout import shard_layout
+    from recommendation_models_tpu_torch.data.synthetic import (
+        synthetic_ratings)
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.ops.topk import (
+        grouped_exclusion_topk, sharded_topk)
+    from recommendation_models_tpu_torch.parallel.mesh import (
+        Mesh, take_rows, to_host)
+    from recommendation_models_tpu_torch.parallel.sharded_als import (
+        ShardedALSProgram)
+    from recommendation_models_tpu_torch.probes import SCALES, device_rows
+    from recommendation_models_tpu_torch.probes.epoch_profile import (
+        warm_start)
+    from recommendation_models_tpu_torch.probes.exchange import (
+        fit_history, program_for)
+    t_phase = time.perf_counter()
+    u, i, r = coo
+    n_users, n_items = ul.n_rows, il.n_rows
+    nnz = r.shape[0]
+    mesh = Mesh([dev] * SHARDED_S)
+    t0 = time.perf_counter()
+    block = ch.block_batch(RANK)
+    uls = shard_layout(ul, SHARDED_S, row_multiple=block)
+    ils = shard_layout(il, SHARDED_S, row_multiple=block)
+    t_layout = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prog = ShardedALSProgram(uls, ils, mesh, SolveConfig(rank=RANK, reg=0.1))
+    U, V = prog.place_factors(*warm_start(n_users, n_items, RANK))
+    torch.cuda.synchronize()
+    t_place = time.perf_counter() - t0
+    del uls, ils
+    fit = prog.make_fit(SWEEPS, nnz=nnz)
+    ch.reset_counts()
+    t0 = time.perf_counter()
+    U, V, sse, n_done = fit(U, V)
+    sse_h = sse.cpu().numpy()
+    t_sweeps = time.perf_counter() - t0
+    launches = {n: ch.LAUNCHES[n] for n in MAIN_KERNELS}
+    routed = dict(ch.ROUTED)
+    hist = [float(h) for h in np.sqrt(np.maximum(sse_h[:n_done], 0) / nnz)]
+    rows = device_rows(lambda: prog.sweep_with_sse(U, V), reps=1, warm=0)
+    device_ms = sum(x[0] for x in rows) / 1e3
+    top = [(name, round(t / 1e3, 2), c) for t, c, name in rows[:5]]
+    rel = max(abs(a - b) / b for a, b in zip(hist, main_hist))
+    dense_w = next((b["dense_vals"].shape[0] for b in prog._ib[0]
+                    if "dense_vals" in b), 0)
+    log(f"# sharded ML-25M S={SHARDED_S} on one card (allgather, dense "
+        f"block {dense_w} rows a shard, hot columns): set-up shard_layout "
+        f"x2 {t_layout:.2f}s + placement {t_place:.2f}s; {SWEEPS} sweeps "
+        f"{t_sweeps:.3f}s ({t_sweeps / SWEEPS:.4f} s a sweep; phase 5's "
+        f"epoch {epoch_s:.4f} s, ratio {t_sweeps / SWEEPS / epoch_s:.2f}); "
+        f"device ms a sweep (profiled) {device_ms:.1f}, top kernels "
+        f"(name, ms, calls) {top}; history={hist} "
+        f"max rel diff vs phase 5 {rel:.2e}; launches={launches} "
+        f"routed={routed}")
+    check(n_done == SWEEPS, "the sharded fit ran too few sweeps")
+    check(np.allclose(hist, main_hist, rtol=SHARDED_RTOL, atol=SHARDED_ATOL),
+          f"the sharded history differs from phase 5's: {hist}")
+    check(abs(hist[-1] - RMSE_ANCHOR) <= RMSE_ANCHOR_RTOL * RMSE_ANCHOR,
+          f"sharded train RMSE {hist[-1]:.4f} is not within 3% of "
+          f"{RMSE_ANCHOR}")
+    check(all(launches[n] > 0 for n in MAIN_KERNELS),
+          f"a kernel was not launched by the sharded fit: {launches}")
+    check(not any(routed.values()), f"sharded calls were routed: {routed}")
+    check(all(b.device.type == dev.type for b in U + V),
+          "the sharded tables left the card")
+
+    # sharded serving on that fit
+    R = sp.csr_matrix((r, (u, i)), shape=(n_users, n_items))
+    users = np.sort(np.random.default_rng(1).choice(
+        n_users, SHARDED_SERVE_USERS, replace=False))
+    t0 = time.perf_counter()
+    sc, ids = grouped_exclusion_topk(
+        users, 10, R.indptr, R.indices,
+        lambda q: take_rows(U, q, dev),
+        lambda Uq, k, excl: sharded_topk(Uq, V, k, mesh, exclude=excl,
+                                         n_valid=n_items))
+    t_serve = time.perf_counter() - t0
+    U_h, V_h = to_host(U)[:n_users], to_host(V)[:n_items]
+    gaps = exact_topk_gaps(U_h, V_h, users, R, ids, 10)
+    log(f"# sharded serving: sharded_topk over the {SHARDED_S}-way V, "
+        f"{len(users)} users with exclusion, k=10 in {t_serve:.2f}s; ids "
+        f"against the exact float64 top-10: {len(gaps)} near-tie swaps, "
+        f"largest relative gap {max(gaps, default=0.0):.2e}")
+    check(ids.shape == (SHARDED_SERVE_USERS, 10) and (ids >= 0).all()
+          and (ids < n_items).all(), "sharded serving ids out of the catalog")
+    check(np.isfinite(sc).all(), "sharded serving scores are not finite")
+    check(all(g < 1e-6 for g in gaps),
+          f"sharded serving ids differ from the exact top-10: {gaps[:5]}")
+    del prog, fit, U, V, R
+    torch.cuda.empty_cache()
+
+    # ML-1M at S=4: each exchange against the single-device fit
+    n1, m1, o1 = SCALES["ml1m"]
+    u1, i1, r1 = synthetic_ratings(n1, m1, o1, rank=16, seed=0)
+    R1 = sp.csr_matrix((r1, (u1, i1)), shape=(n1, m1))
+    U0, V0 = warm_start(n1, m1, RANK)
+    mesh4 = Mesh([dev] * SHARDED_ML1M_S)
+    for alpha in (None, 1.0):
+        kw = dict(rank=RANK, reg=0.1, alpha=alpha, n_sweeps=SWEEPS,
+                  sse_mode="separate")
+        t0 = time.perf_counter()
+        single = [float(h) for h in ALS(**kw, platform=dev.type).fit(
+            R1, U0=U0, V0=V0).history_]
+        log(f"# ML-1M alpha={alpha} on one device: ALS.fit (layouts "
+            f"included) {time.perf_counter() - t0:.2f}s")
+        for ex in (("allgather", "all_to_all", "hybrid") if alpha is None
+                   else ("allgather",)):
+            t0 = time.perf_counter()
+            prog = program_for(ALS(**kw, n_shards=SHARDED_ML1M_S,
+                                   exchange=ex), R1, mesh4)
+            t_set = time.perf_counter() - t0
+            got_bytes = prog.collective_bytes_per_sweep()
+            ch.reset_counts()
+            t0 = time.perf_counter()
+            _, _, hist = fit_history(prog, U0, V0, SWEEPS, R1.nnz)
+            t_fit = time.perf_counter() - t0
+            lc = {n: ch.LAUNCHES[n] for n in MAIN_KERNELS}
+            rel = max(abs(a - b) / b for a, b in zip(hist, single))
+            log(f"# sharded ML-1M S={SHARDED_ML1M_S} exchange={ex} "
+                f"alpha={alpha}: set-up (layouts, plan, placement) "
+                f"{t_set:.2f}s, {SWEEPS} sweeps "
+                f"{t_fit:.2f}s; history max rel diff vs one device "
+                f"{rel:.2e}; bytes/shard/sweep {got_bytes['per_sweep_total']}"
+                f" (JAX package: "
+                f"{REF_SHARDED_BYTES_ML1M[ex, alpha]['per_sweep_total']}); "
+                f"launches={lc} routed={dict(ch.ROUTED)}")
+            check(got_bytes == REF_SHARDED_BYTES_ML1M[ex, alpha],
+                  f"ML-1M {ex} bytes differ from the JAX package's: "
+                  f"{got_bytes}")
+            check(np.allclose(hist, single, rtol=SHARDED_RTOL,
+                              atol=SHARDED_ATOL),
+                  f"ML-1M {ex} alpha={alpha} history differs from one "
+                  f"device's: {hist} vs {single}")
+            check(all((lc[n] > 0) == (n in SHARDED_ML1M_KERNELS[ex])
+                      for n in MAIN_KERNELS),
+                  f"ML-1M {ex}: unexpected launches {lc}")
+            check(not any(ch.ROUTED.values()), f"ML-1M {ex} calls routed")
+            del prog
+    log(f"# sharded phase: {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def frozen_exact_topk(U, V, users, train, k):
     """float64 scores, each user's training items excluded, exact top-k by
     a stable sort (NumPy, independent of ``ops.topk``)."""
@@ -1753,16 +2007,22 @@ def main(argv) -> int:
     phase_ml1m(torch, dev)
     main_launches, hist = phase_main_path(torch, coo)
     launches.update({n: main_launches[n] for n in MAIN_KERNELS})
+    by_path = {n: {"main": main_launches[n]} for n in MAIN_KERNELS}
     torch.cuda.empty_cache()
-    phase_epoch(torch, dev, coo[2].shape[0], ul, il, hist,
-                profile="--profile" in argv)
-    del ul, il
+    epoch_s = phase_epoch(torch, dev, coo[2].shape[0], ul, il, hist,
+                          profile="--profile" in argv)
     torch.cuda.empty_cache()
     phase_serving(torch, coo)
     torch.cuda.empty_cache()
     phase_imc(torch, dev)
     torch.cuda.empty_cache()
     phase_cli(torch, coo, card)
+    torch.cuda.empty_cache()
+    sharded_launches = phase_sharded(torch, dev, coo, ul, il, hist, epoch_s)
+    del ul, il
+    for n in MAIN_KERNELS:
+        by_path[n]["sharded"] = sharded_launches[n]
+        launches[n] += sharded_launches[n]
     kernels = []
     for name in TPU_KERNEL:
         r = results[name]
@@ -1770,6 +2030,8 @@ def main(argv) -> int:
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": TPU_KERNEL[name], "path": PATH[name],
             "launches": launches[name],
+            **({"launches_by_path": by_path[name]} if name in by_path
+               else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

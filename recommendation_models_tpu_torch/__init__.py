@@ -18,7 +18,10 @@ gather-rate probes (``ops.gather`` and ``probes.dma_gather``,
 (``python -m recommendation_models_tpu_torch.train``), the MovieLens loader
 with its native parser (``data.movielens``, ``data.native``), metrics and
 profiler traces (``utils.logging``, ``utils.profiling``) and the NumPy
-oracles (``oracle``). The sharded programs are still to come (ROADMAP.md).
+oracles (``oracle``), and the 1-D sharded ALS with its sharded serving
+(``parallel``, ``ALS(n_shards=S)``, ``ops.topk.sharded_topk``). Sharded
+IMC, the 2-D topology and multi-process runs are still to come
+(ROADMAP.md).
 """
 
 __version__ = "0.1.0"

@@ -44,8 +44,10 @@ class SolveConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh layout. Only the single-device program is ported; the
-    fields are kept so configurations carry over unchanged."""
+    """Device mesh layout: ``n_shards`` > 1 runs the 1-D sharded ALS
+    (``parallel/sharded_als.py``) with ``exchange`` 'allgather',
+    'all_to_all' or 'hybrid' (``exchange_head`` columns replicated). The
+    'obs_parallel' topology and sharded IMC are not ported yet."""
 
     n_shards: Optional[int] = None
     exchange: str = "allgather"

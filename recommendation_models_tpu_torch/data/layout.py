@@ -7,6 +7,9 @@ the most popular columns may move to per-bucket hot slabs. Padding rows
 carry the sentinel row id ``n_rows`` and mask 0, and every real row
 appears in exactly one bucket (or the dense block), so each bucket solves
 and scatter-sets independently.
+
+``shard_layout`` re-stacks a layout into per-shard blocks of identical
+shape for the sharded program (``parallel/sharded_als.py``).
 """
 
 from __future__ import annotations
@@ -69,6 +72,38 @@ class PaddedLayout:
         hot_nnz = sum(int(np.count_nonzero(b.hot_vals))
                       for b in self.buckets if b.hot_vals is not None)
         return 1.0 - (self.nnz - dense_nnz - hot_nnz) / tot
+
+
+@dataclasses.dataclass
+class ShardedLayout:
+    """Per-shard stacked buckets of one orientation.
+
+    Rows are assigned to ``n_shards`` contiguous blocks of
+    ``rows_per_shard``. Each bucket is stacked into ``(S, B, P)`` arrays
+    with the same ``(B, P)`` on every shard (padded to the maximum over
+    shards); ``row_ids`` are local to the shard (sentinel =
+    ``rows_per_shard``).
+    """
+
+    n_rows: int
+    n_cols: int
+    nnz: int
+    n_shards: int
+    rows_per_shard: int
+    pads: Tuple[int, ...]            # P per bucket
+    row_ids: Tuple[np.ndarray, ...]  # each (S, B) int32, local ids
+    indices: Tuple[np.ndarray, ...]  # each (S, B, P) int32, global col ids
+    values: Tuple[np.ndarray, ...]   # each (S, B, P) float32
+    mask: Tuple[np.ndarray, ...]     # each (S, B, P) float32
+    # Dense-whale block, row-sharded like the buckets: local ids (sentinel
+    # rows_per_shard), values in global column order (only an 'allgather'
+    # exchange, which sees the whole opposite table, can use them).
+    dense_ids: Optional[np.ndarray] = None   # (S, Wmax) int32 local ids
+    dense_vals: Optional[np.ndarray] = None  # (S, Wmax, n_cols) float16
+    # Hot-column block: the C global column ids (the same on every shard)
+    # and per-bucket (S, B, C) f16 value slabs aligned with row_ids.
+    hot_ids: Optional[np.ndarray] = None
+    hot_vals: Optional[Tuple[np.ndarray, ...]] = None
 
 
 def build_layout(
@@ -316,5 +351,73 @@ def bucket_row_multiple(n_bucket_rows: int, row_multiple: int) -> int:
     return row_multiple if n_bucket_rows >= row_multiple else 8
 
 
-__all__ = ["Bucket", "PaddedLayout", "build_layout", "layout_from_coo",
-           "csr_arrays", "bucket_row_multiple"]
+def shard_layout(layout: PaddedLayout, n_shards: int,
+                 row_multiple: int = 8) -> ShardedLayout:
+    """Re-stack a PaddedLayout into per-shard blocks of identical shapes.
+
+    Row ``r`` lives on shard ``r // rows_per_shard``. Each bucket's row
+    count is padded to its maximum over shards, rounded by
+    ``bucket_row_multiple`` (pass the solve block). The dense-whale and
+    hot-column blocks shard by row owner like the buckets, and their column
+    ids stay global, so a layout carrying them serves only the 'allgather'
+    exchange (``parallel.exchange.build_exchange_plan`` refuses it).
+    """
+    rows_per_shard = -(-layout.n_rows // n_shards)
+    has_hot = layout.hot_ids is not None
+    pads, all_rid, all_idx, all_val, all_msk = [], [], [], [], []
+    all_hv = [] if has_hot else None
+    for b in layout.buckets:
+        real = b.row_ids < layout.n_rows
+        shard_of = np.where(real, b.row_ids // rows_per_shard, -1)
+        counts = np.bincount(shard_of[shard_of >= 0], minlength=n_shards)
+        bmax = max(int(counts.max()) if counts.size else 0, 1)
+        mult = bucket_row_multiple(bmax, row_multiple)
+        bmax = -(-bmax // mult) * mult
+        rid = np.full((n_shards, bmax), rows_per_shard, dtype=np.int32)
+        idx = np.zeros((n_shards, bmax, b.pad), dtype=np.int32)
+        val = np.zeros((n_shards, bmax, b.pad), dtype=np.float32)
+        msk = np.zeros((n_shards, bmax, b.pad), dtype=np.float32)
+        hv = (np.zeros((n_shards, bmax, b.hot_vals.shape[1]), np.float16)
+              if has_hot else None)
+        for s in range(n_shards):
+            take = np.flatnonzero(shard_of == s)
+            k = take.shape[0]
+            rid[s, :k] = b.row_ids[take] - s * rows_per_shard
+            idx[s, :k] = b.indices[take]
+            val[s, :k] = b.values[take]
+            msk[s, :k] = b.mask[take]
+            if has_hot:
+                hv[s, :k] = b.hot_vals[take]
+        pads.append(b.pad)
+        all_rid.append(rid)
+        all_idx.append(idx)
+        all_val.append(val)
+        all_msk.append(msk)
+        if has_hot:
+            all_hv.append(hv)
+    dense_ids = dense_vals = None
+    if layout.dense_ids is not None:
+        shard_of = layout.dense_ids // rows_per_shard
+        counts = np.bincount(shard_of, minlength=n_shards)
+        wmax = -(-max(int(counts.max()), 1) // 8) * 8
+        dense_ids = np.full((n_shards, wmax), rows_per_shard, np.int32)
+        dense_vals = np.zeros((n_shards, wmax, layout.n_cols), np.float16)
+        for s in range(n_shards):
+            take = np.flatnonzero(shard_of == s)
+            k = take.shape[0]
+            dense_ids[s, :k] = layout.dense_ids[take] - s * rows_per_shard
+            dense_vals[s, :k] = layout.dense_vals[take]
+    return ShardedLayout(
+        n_rows=layout.n_rows, n_cols=layout.n_cols, nnz=layout.nnz,
+        n_shards=n_shards, rows_per_shard=rows_per_shard,
+        pads=tuple(pads), row_ids=tuple(all_rid), indices=tuple(all_idx),
+        values=tuple(all_val), mask=tuple(all_msk),
+        dense_ids=dense_ids, dense_vals=dense_vals,
+        hot_ids=(np.asarray(layout.hot_ids) if has_hot else None),
+        hot_vals=(tuple(all_hv) if has_hot else None),
+    )
+
+
+__all__ = ["Bucket", "PaddedLayout", "ShardedLayout", "build_layout",
+           "layout_from_coo", "csr_arrays", "bucket_row_multiple",
+           "shard_layout"]

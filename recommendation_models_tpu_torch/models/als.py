@@ -18,10 +18,19 @@ saves the factors and the history after every ``checkpoint_every``-th
 sweep (``utils.checkpoint``, on a background thread; ``fit`` waits for the
 last write), and ``resume`` loads the newest checkpoint.
 
-Not ported yet: sharded fits (``n_shards > 1`` raises
-``NotImplementedError``; another ``topology`` without shards raises the
-reference's ``ValueError``). The default init is the reference's
-``jax.random`` draw, reproduced by ``prng.py``.
+Sharded fits: ``n_shards > 1`` runs ``parallel.sharded_als`` on
+``parallel.mesh.get_mesh(n_shards, platform=...)`` (S entries of the host
+with ``platform='cpu'``, else the first S cards; fewer cards than asked
+raise ``ValueError``), with ``exchange`` 'allgather', 'all_to_all' or
+'hybrid'. The fitted tables stay on the mesh, padded and row-sharded;
+``U_`` and ``V_`` are host copies made at first access, and ``recommend``
+serves through ``ops.topk.sharded_topk`` without a whole-table host copy.
+Assigning ``U_`` or ``V_`` drops the device tables and the serving caches.
+``topology='obs_parallel'`` is not ported yet (``NotImplementedError``);
+another ``topology`` raises the reference's ``ValueError``. The default
+single-device init is the reference's ``jax.random`` draw, reproduced by
+``prng.py``; a sharded fit draws the reference's sharded init
+(``ShardedALSProgram.init_factors``).
 """
 
 from __future__ import annotations
@@ -48,7 +57,11 @@ from recommendation_models_tpu_torch.ops.cholesky import (
 )
 from recommendation_models_tpu_torch.ops.gram import full_f32
 from recommendation_models_tpu_torch.ops.topk import (
-    grouped_exclusion_topk, permuted_topk, serving_permutation, topk_scores,
+    grouped_exclusion_topk, permuted_topk, serving_permutation,
+    sharded_topk, topk_scores,
+)
+from recommendation_models_tpu_torch.parallel.mesh import (
+    get_mesh, take_rows, to_host,
 )
 from recommendation_models_tpu_torch.solver.als_sweep import (
     device_buckets, half_sweep, make_scanned_fit, make_sweep_fns,
@@ -142,6 +155,40 @@ class ALS(BaseEstimator):
     def _n_sweeps(self) -> int:
         return resolve_alias(self.n_sweeps, self.max_iter, 10,
                              "n_sweeps", "max_iter")
+
+    # Fitted factors. A sharded fit keeps its padded tables on the mesh
+    # (per-shard blocks); ``U_`` / ``V_`` copy them to the host at first
+    # access. Assigning either drops the device tables, and assigning
+    # ``V_`` the serving caches built from the old catalog.
+    _U_host = _V_host = None
+    _U_dev = _V_dev = None
+
+    @property
+    def U_(self) -> np.ndarray:
+        if self._U_host is None and self._U_dev is not None:
+            self._U_host = to_host(self._U_dev)[: self.n_users_]
+        return self._U_host
+
+    @U_.setter
+    def U_(self, value):
+        self._U_host = value
+        self._U_dev = None
+
+    @property
+    def V_(self) -> np.ndarray:
+        if self._V_host is None and self._V_dev is not None:
+            self._V_host = to_host(self._V_dev)[: self.n_items_]
+        return self._V_host
+
+    @V_.setter
+    def V_(self, value):
+        self._V_host = value
+        self._V_dev = None
+        self._drop_serving_caches()
+
+    def _drop_serving_caches(self):
+        for key in ("_vdev_cache", "_vserve_cache"):
+            self.__dict__.pop(key, None)
 
     # ------------------------------------------------------------------
     @classmethod
@@ -280,19 +327,33 @@ class ALS(BaseEstimator):
             raise ValueError(f"n_sweeps must be >= 1, got {self._n_sweeps}")
         if (U0 is None) != (V0 is None):
             raise ValueError("warm starts need BOTH U0 and V0")
-        if self.n_shards is not None and self.n_shards > 1:
-            raise not_ported("a sharded fit (n_shards > 1)",
-                             "Queue 1 item 13", "ALS")
-        if self.topology != "1d":
+        sharded = self.n_shards is not None and self.n_shards > 1
+        if not sharded and self.topology != "1d":
             raise ValueError(
                 f"topology={self.topology!r} needs a sharded fit: set "
                 f"n_shards > 1 (got {self.n_shards})")
-        device = resolve_device(self.platform)
+        if sharded:
+            if self.topology not in ("1d", "obs_parallel"):
+                raise ValueError(
+                    f"topology must be '1d' or 'obs_parallel', got "
+                    f"{self.topology!r}")
+            if self.topology == "obs_parallel":
+                raise not_ported("the 2-D observation-parallel fit "
+                                 "(topology='obs_parallel')",
+                                 "Queue 1 item 13e", "ALS")
+        else:
+            device = resolve_device(self.platform)
         indptr, indices, data, n_users, n_items = csr_arrays(R)
         self.n_users_, self.n_items_ = n_users, n_items
         self._train_indptr, self._train_indices = indptr, indices
         dcfg, scfg = self._data_config(), self._solve_config()
         nnz = indices.shape[0]
+        if sharded:
+            return self._fit_sharded(indptr, indices, data, U0, V0, dcfg,
+                                     scfg)
+        # a previous sharded fit's program holds its device buckets
+        self._sharded_program = None
+        self.__dict__.pop("exchange_bytes_per_sweep_", None)
 
         user_layout, item_layout = self._build_layouts(
             indptr, indices, data, n_users, n_items, dcfg)
@@ -337,6 +398,79 @@ class ALS(BaseEstimator):
         self.V_ = V.cpu().numpy()
         return self
 
+    def _sharded_program_on(self, mesh, indptr, indices, data, n_users,
+                            n_items, dcfg, scfg):
+        """The sharded program of this estimator on ``mesh``: both layouts
+        under the exchange's rules (``exchange_layout``), sharded by row
+        owner, and ``ShardedALSProgram`` over them."""
+        from recommendation_models_tpu_torch.data.layout import shard_layout
+        from recommendation_models_tpu_torch.parallel.sharded_als import (
+            ShardedALSProgram, exchange_layout,
+        )
+        S = mesh.size
+        dcfg, head = exchange_layout(dcfg, self.exchange, self.exchange_head)
+        ul, il = self._build_layouts(indptr, indices, data, n_users, n_items,
+                                     dcfg)
+        block = block_batch(self.rank)
+        return ShardedALSProgram(
+            shard_layout(ul, S, row_multiple=block),
+            shard_layout(il, S, row_multiple=block),
+            mesh, scfg, exchange=self.exchange, head=head)
+
+    def _fit_sharded(self, indptr, indices, data, U0, V0, dcfg, scfg):
+        """The 1-D sharded fit on ``get_mesh``'s mesh; the fitted tables
+        stay on the mesh."""
+        mesh = get_mesh(self.n_shards, platform=self.platform,
+                        num_slices=self.num_slices)
+        prog = self._sharded_program_on(mesh, indptr, indices, data,
+                                        self.n_users_, self.n_items_, dcfg,
+                                        scfg)
+        self._sharded_program = prog
+        self.exchange_bytes_per_sweep_ = prog.collective_bytes_per_sweep()
+        if self.verbose:
+            mb = self.exchange_bytes_per_sweep_["per_sweep_total"] / 2**20
+            print(f"[ALS] exchange={self.exchange} collective traffic "
+                  f"{mb:.2f} MiB/shard/sweep")
+        if U0 is not None:
+            U, V = prog.place_factors(U0, V0)
+        else:
+            U, V = prog.init_factors(self.seed, self.init_scale)
+        U, V = self._run_program_fit(prog, U, V, indices.shape[0])
+        # the padded tables stay on the mesh; U_ / V_ copy them lazily
+        self._U_dev, self._V_dev = U, V
+        self._U_host = self._V_host = None
+        self._drop_serving_caches()
+        return self
+
+    def _run_program_fit(self, prog, U, V, nnz):
+        """Drive a sharded program's fit and fill ``history_``: one loop
+        with no per-sweep readback (``prog.make_fit``), or, with verbose
+        output or checkpoints, a sweep at a time (``sweep_with_sse``)."""
+        nnz = max(nnz, 1)
+        stepwise = bool(self.verbose
+                        or (self.checkpoint_dir and self.checkpoint_every))
+        if not stepwise:
+            fit_fn = prog.make_fit(self._n_sweeps, tol=self.tol, nnz=nnz)
+            U, V, sse, n_done = fit_fn(U, V)
+            sse_h = np.maximum(sse.cpu().numpy()[:n_done], 0.0)
+            self.history_ = list(np.sqrt(sse_h / nnz))
+        else:
+            self.history_ = []
+            prev = None
+            for s in range(self._n_sweeps):
+                U, V, sse = prog.sweep_with_sse(U, V)
+                cur = float(torch.sqrt(torch.clamp_min(sse, 0.0) / nnz))
+                self.history_.append(cur)
+                if self.verbose:
+                    print(f"[ALS] sweep {s + 1}: train_rmse={cur:.6f}")
+                self._maybe_checkpoint(s, U, V)
+                if (self.tol > 0 and prev is not None
+                        and abs(prev - cur) < self.tol):
+                    break
+                prev = cur
+            self._finish_checkpoints()
+        return U, V
+
     def _finish_checkpoints(self):
         if self.checkpoint_dir and self.checkpoint_every:
             wait_pending()
@@ -344,12 +478,15 @@ class ALS(BaseEstimator):
     def _maybe_checkpoint(self, sweep_idx, U, V):
         """Save U, V and the history after every ``checkpoint_every``-th
         sweep, with the scalar hyperparameters and the table sizes as
-        metadata. The tables are copied to the host before the call
-        returns; the file is written on the background thread."""
+        metadata (a sharded fit saves its padded tables). The tables are
+        copied to the host before the call returns; the file is written on
+        the background thread."""
         if not self.checkpoint_dir or not self.checkpoint_every:
             return
         if (sweep_idx + 1) % self.checkpoint_every:
             return
+        if isinstance(U, tuple):        # a sharded program's blocks
+            U, V = to_host(U), to_host(V)
         meta = {k: v for k, v in self.get_params().items()
                 if isinstance(v, (int, float, str, bool, type(None)))}
         meta["n_users"], meta["n_items"] = self.n_users_, self.n_items_
@@ -366,11 +503,15 @@ class ALS(BaseEstimator):
 
         The tables are sliced to the true sizes in the checkpoint's
         metadata. A previous fit's serving state (its training lists and
-        the device copy of the catalog) is dropped: the training
-        observations are not checkpointed, so ``recommend(exclude_seen=
-        True)`` warns and serves unfiltered until the next ``fit``."""
+        the device copy of the catalog and a sharded fit's program) is
+        dropped: the training observations are not checkpointed, so
+        ``recommend(exclude_seen=True)`` warns and serves unfiltered until
+        the next ``fit``. A sharded fit's checkpoint holds padded tables;
+        they are sliced here."""
         step, state = load_latest(checkpoint_dir or self.checkpoint_dir)
-        for key in ("_train_indptr", "_train_indices", "_vdev_cache"):
+        for key in ("_train_indptr", "_train_indices", "_vdev_cache",
+                    "_vserve_cache", "_sharded_program",
+                    "exchange_bytes_per_sweep_"):
             self.__dict__.pop(key, None)
         meta = state.get("metadata") or {}
         U = np.asarray(state["U"])
@@ -384,15 +525,22 @@ class ALS(BaseEstimator):
 
     # ------------------------------------------------------------------
     def __getstate__(self):
-        """Picklable fitted estimator: the device copy of the catalog is
-        dropped (it uploads again at the next ``recommend``), so a model
-        pickled after serving on the card unpickles on a host without one."""
+        """Picklable fitted estimator: the device copies of the catalog and
+        a sharded fit's program are dropped (serving uploads the catalog
+        again), and a sharded fit's tables are copied to the host first,
+        so a model pickled after a fit on the card unpickles on a host
+        without one."""
         state = dict(super().__getstate__())
-        state.pop("_vdev_cache", None)
+        for key in ("_vdev_cache", "_vserve_cache", "_sharded_program"):
+            state.pop(key, None)
+        if state.get("_U_dev") is not None:
+            state["_U_host"], state["_V_host"] = self.U_, self.V_
+        state.pop("_U_dev", None)
+        state.pop("_V_dev", None)
         return state
 
     def _check_fitted(self):
-        if getattr(self, "U_", None) is None:
+        if self._U_host is None and self._U_dev is None:
             raise RuntimeError("this ALS instance is not fitted yet")
 
     def predict(self, users, items=None) -> np.ndarray:
@@ -488,10 +636,21 @@ class ALS(BaseEstimator):
                                       self._train_indices, query_rows, topk)
 
     def _topk_backend(self, method: str, recall_target: float):
-        """(query_rows, topk) callables for ``recommend``: host ``U_`` rows
-        uploaded per chunk, and ``ops.topk.topk_scores`` against the device
-        copy of ``V_`` in ``serving_permutation`` row order, cached on the
-        estimator and keyed on the identity of ``V_`` (and the device)."""
+        """(query_rows, topk) callables for ``recommend``.
+
+        After a sharded fit whose tables are still on the mesh: query rows
+        gathered from the sharded U onto the first shard's device, and
+        ``ops.topk.sharded_topk`` against the sharded V re-gathered once in
+        ``serving_permutation`` row order (cached; the padded rows stay
+        last, masked by ``n_valid``). Otherwise: host ``U_`` rows uploaded
+        per chunk, and ``ops.topk.topk_scores`` against the device copy of
+        ``V_`` in ``serving_permutation`` row order, cached on the
+        estimator and keyed on the identity of ``V_`` (and the device);
+        assigning ``V_`` clears both caches."""
+        prog = getattr(self, "_sharded_program", None)
+        if (prog is not None and self._U_dev is not None
+                and self._V_dev is not None):
+            return self._sharded_topk_backend(prog, method, recall_target)
         device = resolve_device(self.platform)
         if device.type == "cuda":
             full_f32()
@@ -509,6 +668,32 @@ class ALS(BaseEstimator):
         def topk(Uq, k, excl):
             return topk_scores(Uq, V_local, k, excl, method=method,
                                recall_target=recall_target)
+        return query_rows, permuted_topk(topk, perm_back, perm_fwd)
+
+    def _sharded_topk_backend(self, prog, method: str, recall_target: float):
+        mesh, n_items = prog.mesh, self.n_items_
+        U_dev, V_dev = self._U_dev, self._V_dev
+        home = mesh.devices[0]
+        if home.type == "cuda":
+            full_f32()
+        perm_back, perm_fwd = serving_permutation(n_items)
+        cache = getattr(self, "_vserve_cache", None)
+        if cache is None or cache[0] is not V_dev:
+            per = V_dev[0].shape[0]
+            ids = np.concatenate([perm_back,
+                                  np.arange(n_items, per * len(V_dev))])
+            self._vserve_cache = (V_dev, tuple(
+                take_rows(V_dev, ids[s * per:(s + 1) * per], d)
+                for s, d in enumerate(mesh.devices)))
+        V_serve = self._vserve_cache[1]
+
+        def query_rows(ids):
+            return take_rows(U_dev, ids, home)
+
+        def topk(Uq, k, excl):
+            return sharded_topk(Uq, V_serve, k, mesh, axis=prog.axis,
+                                exclude=excl, method=method,
+                                recall_target=recall_target, n_valid=n_items)
         return query_rows, permuted_topk(topk, perm_back, perm_fwd)
 
     def top_n(self, user: int, n: int = 10, exclude_seen: bool = True):

@@ -324,7 +324,7 @@ class IMC(BaseEstimator):
             raise ValueError(f"rank must be >= 1, got {self.rank}")
         if self.n_shards is not None and self.n_shards > 1:
             raise not_ported("a sharded IMC fit (n_shards > 1)",
-                             "Queue 1 item 13", "IMC")
+                             "Queue 1 item 13d", "IMC")
         device = resolve_device(self.platform)
         users, items, ratings = _as_triplets(R)
         X = np.asarray(X, np.float32)

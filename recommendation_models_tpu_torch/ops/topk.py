@@ -18,6 +18,10 @@ among equal values the lower index first (``_top_k``). ``torch.topk``
 promises no order among ties, so its picks are re-sorted and a row whose
 k-th and (k+1)-th values tie is selected again by a stable sort.
 
+``sharded_topk`` serves a catalog row-sharded over a mesh
+(``parallel.mesh``): a top-k on each shard, then one merge of the
+candidates.
+
 Exclusion of seen items overfetches ``k + E`` candidates and filters them
 (``_filter_seen``): the top-k unseen items are always among the top
 ``k + E``. The filter sorts each exclusion row and looks every candidate up
@@ -278,5 +282,79 @@ def grouped_exclusion_topk(user_ids, n, indptr, indices, query_rows, topk,
     return out_s, out_i
 
 
-__all__ = ["topk_scores", "grouped_exclusion_topk", "serving_permutation",
-           "permuted_topk"]
+def sharded_topk(
+    U_rows,
+    V,
+    k: int,
+    mesh,
+    axis: str = "data",
+    exclude=None,
+    method: str = "auto",
+    recall_target: float = 0.99,
+    n_valid: Optional[int] = None,
+):
+    """Top-k with the catalog row-sharded over ``mesh``; the queries go to
+    every shard.
+
+    ``V``: the whole (n, k) catalog (a tensor or array, padded with zero
+    rows to a multiple of the shard count and placed one block a shard),
+    or the per-shard blocks of a table that is already sharded (a sharded
+    fit's). Each shard selects its top ``fetch_shard`` candidates; the
+    candidates of every shard are gathered on the first shard's device and
+    merged into the top ``fetch`` there, so the traffic is O(B k S), not
+    O(B n). ``n_valid``: the true item count of a padded table; rows at or
+    past it never become candidates. Returns (scores (B, k), items (B, k))
+    on the first shard's device; with ``exclude`` (B, E, -1 = none) the
+    seen items are filtered from ``k + E`` candidates (``_filter_seen``).
+    """
+    S = mesh.shape[axis]
+    if isinstance(V, (torch.Tensor, np.ndarray)):
+        V = torch.as_tensor(V, dtype=torch.float32)
+        n_rows = V.shape[0]
+        per = -(-n_rows // S)
+        if per * S != n_rows:
+            V = torch.nn.functional.pad(V, (0, 0, 0, per * S - n_rows))
+        blocks = tuple(V[s * per:(s + 1) * per].to(d)
+                       for s, d in enumerate(mesh.devices))
+    else:
+        blocks = tuple(V)
+        per = blocks[0].shape[0]
+        n_rows = per * S
+    n_items = n_valid if n_valid is not None else n_rows
+    if k < 1 or k > n_items:
+        raise ValueError(
+            f"k must be in [1, n_items={n_items}], got {k} — the no-"
+            "exclude path would silently return fewer than k columns")
+    want = k if exclude is None else min(k + exclude.shape[1], n_items)
+    # a shard holds only `per` candidates, but the merge pools S of those,
+    # so its width stays `want`
+    fetch_shard = min(want, per)
+    fetch = min(want, S * fetch_shard)
+    _resolve_method(method, per, fetch_shard)
+    home = mesh.devices[0]
+    sc_parts, ix_parts = [], []
+    for s, v in enumerate(blocks):
+        u = torch.as_tensor(U_rows, dtype=torch.float32, device=v.device)
+        base = s * per
+        if per <= _SMALL_N:
+            sc = _scores(u, v)
+            if n_items < base + per:    # the padded tail of the catalog
+                sc[:, max(n_items - base, 0):] = -torch.inf
+            sc, ix = _top_k(sc, fetch_shard)
+        else:
+            sc, ix = _topk_exact_chunked(u, v, fetch_shard,
+                                         n_valid=n_items - base)
+        sc_parts.append(sc.to(home))
+        ix_parts.append((ix + base).to(home))
+    sc_all = torch.cat(sc_parts, dim=1)
+    ix_all = torch.cat(ix_parts, dim=1)
+    top_sc, pos = _top_k(sc_all, fetch)
+    top_ix = torch.gather(ix_all, 1, pos)
+    if exclude is None:
+        return top_sc[:, :k], top_ix[:, :k]
+    return _filter_seen(top_sc, top_ix, torch.as_tensor(exclude, device=home),
+                        k)
+
+
+__all__ = ["topk_scores", "sharded_topk", "grouped_exclusion_topk",
+           "serving_permutation", "permuted_topk"]

@@ -394,26 +394,29 @@ def make_scanned_program_fit(sweep_sse, n_sweeps: int, tol: float, nnz: int,
     """Generic whole-fit loop around ``sweep_sse(U, V, *extra) -> (U, V,
     sse)``.
 
-    Returns ``fit(U, V) -> (U, V, hist, n_done)``: ``hist`` is a device
-    tensor of per-sweep SSE with -1 for sweeps that never ran. With
-    ``tol == 0`` no value is read back during the fit; with ``tol > 0`` one
-    scalar per sweep is, for the stopping rule (stop once the train RMSE of
-    two consecutive sweeps differs by less than ``tol``)."""
+    Returns ``fit(U, V) -> (U, V, hist, n_done)``: ``hist`` is a tensor
+    of per-sweep SSE on the SSE's device, with -1 for sweeps that never
+    ran. U and V are whatever ``sweep_sse`` takes (tensors, or a sharded
+    program's per-shard blocks). With ``tol == 0`` no value is read back
+    during the fit; with ``tol > 0`` one scalar per sweep is, for the
+    stopping rule (stop once the train RMSE of two consecutive sweeps
+    differs by less than ``tol``)."""
 
     def fit(U, V):
-        hist = torch.full((n_sweeps,), -1.0, dtype=torch.float32,
-                          device=U.device)
-        n_done = 0
+        sses = []
         prev = None
-        for i in range(n_sweeps):
+        for _ in range(n_sweeps):
             U, V, sse = sweep_sse(U, V, *extra)
-            hist[i] = sse
-            n_done = i + 1
+            sses.append(sse)
             if tol > 0:
                 cur = math.sqrt(max(float(sse), 0.0) / nnz)
                 if prev is not None and abs(prev - cur) < tol:
                     break
                 prev = cur
+        n_done = len(sses)
+        hist = torch.full((n_sweeps,), -1.0, dtype=torch.float32,
+                          device=sses[0].device)
+        hist[:n_done] = torch.stack(sses)
         return U, V, hist, n_done
 
     return fit

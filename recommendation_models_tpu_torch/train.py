@@ -7,9 +7,11 @@ hyperparameters, checkpointing, metrics (JSONL + TensorBoard), and profiler
 tracing (``torch.profiler``, a Chrome trace in ``--trace-dir``).
 
 It runs on the CUDA card unless ``--platform cpu``; with no card and no
-``--platform`` the estimator raises. Not ported yet (ROADMAP.md, Queue 1
-item 13): sharded fits (``--n-shards`` > 1, which the estimators refuse)
-and the multi-process bootstrap (``--coordinator``, ``--num-processes``),
+``--platform`` the estimator raises. ``--n-shards S`` fits the 1-D sharded
+ALS over S cards (S entries of the host with ``--platform cpu``) and logs
+its per-sweep collective bytes. Not ported yet (ROADMAP.md, Queue 1 item
+13): sharded IMC (13d), ``--topology obs_parallel`` (13e) and the
+multi-process bootstrap (``--coordinator``, ``--num-processes``; 13f),
 which raise ``NotImplementedError``.
 
 Examples:
@@ -68,10 +70,11 @@ def build_parser() -> argparse.ArgumentParser:
     engine.add_argument("--compute-dtype", default="auto",
                         choices=["auto", "float32", "bfloat16"])
     engine.add_argument("--n-shards", type=int, default=None,
-                        help="> 1 is not ported yet (ROADMAP.md item 13)")
+                        help="> 1: the 1-D sharded ALS over that many "
+                             "cards (host entries with --platform cpu)")
     engine.add_argument("--num-slices", type=int, default=None,
-                        help="multislice device ordering of a sharded fit "
-                             "(not ported yet, ROADMAP.md item 13)")
+                        help="slices of a sharded fit's mesh (must "
+                             "divide --n-shards)")
     engine.add_argument("--sse-mode", default="auto",
                         choices=["auto", "riding", "separate"],
                         help="per-sweep SSE strategy (measured per-config"
@@ -90,7 +93,7 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["1d", "obs_parallel"],
                         help="'obs_parallel': the 2-D observation-parallel "
                              "sharded fit (not ported yet, ROADMAP.md "
-                             "item 13)")
+                             "item 13e)")
     engine.add_argument("--exchange", default="allgather",
                         choices=["allgather", "all_to_all", "hybrid"])
     engine.add_argument("--exchange-head", type=int, default=None,
@@ -102,7 +105,7 @@ def build_parser() -> argparse.ArgumentParser:
     dist = p.add_argument_group("distributed")
     dist.add_argument("--coordinator", default=None,
                       help="multi-host coordinator address host:port "
-                           "(not ported yet, ROADMAP.md item 13)")
+                           "(not ported yet, ROADMAP.md item 13f)")
     dist.add_argument("--num-processes", type=int, default=None)
     dist.add_argument("--process-id", type=int, default=None)
     out = p.add_argument_group("output")
@@ -140,20 +143,12 @@ def _load_data(args):
     return users, items, ratings, n_users, n_items
 
 
-def _initialize_distributed(args) -> None:
-    """The reference's multi-host bootstrap (``parallel/mesh.py``
-    ``initialize_distributed``): nothing to do for one process; a
-    multi-process run is item 13's."""
-    if args.coordinator is None and args.num_processes is None:
-        return
-    from recommendation_models_tpu_torch.models.base import not_ported
-    raise not_ported("the multi-process bootstrap (--coordinator, "
-                     "--num-processes)", "Queue 1 item 13", "train")
-
-
 def main(argv: Optional[list] = None) -> int:
     args = build_parser().parse_args(argv)
-    _initialize_distributed(args)
+    from recommendation_models_tpu_torch.parallel.mesh import (
+        initialize_distributed)
+    initialize_distributed(args.coordinator, args.num_processes,
+                           args.process_id)
 
     import scipy.sparse as sp
     from recommendation_models_tpu_torch.evaluate import leave_n_out
@@ -227,8 +222,7 @@ def main(argv: Optional[list] = None) -> int:
                 model.fit(R, X, Y)
 
     rows = (n_users + n_items) * len(getattr(model, "history_", [0]))
-    # per-sweep collective traffic of a sharded exchange: no port model has
-    # it until the sharded programs are ported (ROADMAP.md item 13)
+    # per-sweep collective traffic of a sharded exchange
     xbytes = getattr(model, "exchange_bytes_per_sweep_", None)
     for i, rmse in enumerate(model.history_):
         rec = dict(train_rmse=float(rmse))

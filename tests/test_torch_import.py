@@ -41,6 +41,11 @@ _PROBE = textwrap.dedent("""
     import recommendation_models_tpu_torch.ops.solve
     import recommendation_models_tpu_torch.ops.topk
     import recommendation_models_tpu_torch.oracle
+    import recommendation_models_tpu_torch.parallel
+    import recommendation_models_tpu_torch.parallel.exchange
+    import recommendation_models_tpu_torch.parallel.mesh
+    import recommendation_models_tpu_torch.parallel.scaling
+    import recommendation_models_tpu_torch.parallel.sharded_als
     import recommendation_models_tpu_torch.prng
     import recommendation_models_tpu_torch.probes.ablate_epoch
     import recommendation_models_tpu_torch.probes.dma_gather
@@ -49,7 +54,9 @@ _PROBE = textwrap.dedent("""
     import recommendation_models_tpu_torch.probes.gather_latency
     import recommendation_models_tpu_torch.probes.gather_rates
     import recommendation_models_tpu_torch.probes.imc
+    import recommendation_models_tpu_torch.probes.exchange
     import recommendation_models_tpu_torch.probes.parser
+    import recommendation_models_tpu_torch.probes.plan_build
     import recommendation_models_tpu_torch.probes.serving
     import recommendation_models_tpu_torch.probes.solve_latency
     import recommendation_models_tpu_torch.probes.solve_variants
@@ -108,7 +115,7 @@ def test_resolve_device(platform, expect):
 
 
 @pytest.mark.parametrize("estimator,kwargs", [
-    ("ALS", dict(n_shards=2)),
+    ("ALS", dict(topology="obs_parallel", n_shards=4, num_slices=2)),
     ("ALS", dict(topology="obs_parallel", n_shards=2)),
     ("IMC", dict(n_shards=8)),
 ])

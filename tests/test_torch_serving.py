@@ -215,3 +215,34 @@ def test_pickle_after_recommend_drops_the_device_catalog(carried):
         warnings.simplefilter("error")
         _, after = back.recommend(eval_users[:20], n=K)
     np.testing.assert_array_equal(after, before)
+
+
+@pytest.mark.parametrize("package", ["port", "reference"])
+def test_in_place_edit_of_v_serves_the_current_catalog(tmp_path, package):
+    """ROADMAP Queue 3: fit with checkpoints, resume into a fresh
+    estimator, serve, then ``V_ *= -1`` and serve again. Both packages
+    serve the exact top-5 of the current factors each time (the ``V_``
+    setter drops the cached catalog)."""
+    rng = np.random.default_rng(0)
+    R = sp.random(60, 40, density=0.2, random_state=1,
+                  data_rvs=lambda s: rng.uniform(1, 5, s).astype(np.float32)
+                  ).tocsr()
+    cls = ALS if package == "port" else RefALS
+    ckpt = tmp_path / package
+    ckpt.mkdir()             # the JAX package's async save needs the root
+    kw = dict(rank=4, n_sweeps=3, seed=0, checkpoint_every=1,
+              checkpoint_dir=str(ckpt), platform="cpu")
+    cls(**kw).fit(R)
+    model = cls(**kw)
+    model.resume()
+
+    def exact_top5():
+        sc = model.U_[:5].astype(np.float64) @ model.V_.astype(np.float64).T
+        return np.argsort(-sc, axis=1, kind="stable")[:, :5]
+
+    _, before = model.recommend(np.arange(5), 5, exclude_seen=False)
+    np.testing.assert_array_equal(before, exact_top5())
+    model.V_ *= -1
+    _, after = model.recommend(np.arange(5), 5, exclude_seen=False)
+    np.testing.assert_array_equal(after, exact_top5())
+    assert (after != before).any()

@@ -3,9 +3,10 @@ cases of tests/test_train_cli.py run through both CLIs with ``--platform
 cpu`` and ``--sse-mode separate``, on the same real-format ratings file
 (each CLI on its own copy: both loaders write the same cache name). The
 summaries have the same keys, and ``train_rmse`` and ``test_rmse`` agree
-within rtol 1e-3, as do the per-sweep records. The sharded case and the
-multi-process bootstrap raise the ``NotImplementedError`` that names
-ROADMAP item 13; with no ``--platform`` and no card the CLI raises the
+within rtol 1e-3, as do the per-sweep records; a sharded fit logs the same
+collective bytes. Sharded IMC, the 2-D topology and the multi-process
+bootstrap raise the ``NotImplementedError`` that names ROADMAP item 13;
+with no ``--platform`` and no card the CLI raises the
 port's ``RuntimeError``; ``build_parser()`` has the JAX one's options,
 defaults and choices."""
 
@@ -105,15 +106,30 @@ def test_cli_real_format_end_to_end(tmp_path, csv_pair):
 
 
 def test_cli_sharded_raises_naming_item_13(tmp_path, csv_pair):
-    """The JAX CLI logs the exchange traffic of a sharded fit
-    (tests/test_train_cli.py); the port has no sharded fit yet."""
-    port_csv, _ = csv_pair
-    jsonl = tmp_path / "m.jsonl"
+    """The sharded ALS fit of tests/test_train_cli.py through both CLIs:
+    the same records, each sweep's ``collective_bytes`` and the summary's
+    ``collective_bytes_per_sweep`` equal. A sharded IMC fit still raises
+    the ``NotImplementedError`` naming ROADMAP item 13."""
+    port_csv, ref_csv = csv_pair
+    csv = {"port": port_csv, "ref": ref_csv}
+    got, want = _run_both(lambda side: [
+        "--ratings", str(csv[side]), "--rank", "4", "--n-sweeps", "2",
+        "--n-shards", "8", "--exchange", "hybrid", "--exchange-head", "16"],
+        tmp_path)
+    _agree(got, want)
+    per_sweep = [r for r in got if "collective_bytes" in r]
+    assert len(per_sweep) == 2 and per_sweep[0]["collective_bytes"] > 0
+    assert ([r["collective_bytes"] for r in per_sweep]
+            == [r["collective_bytes"] for r in want
+                if "collective_bytes" in r])
+    assert (got[-1]["collective_bytes_per_sweep"]
+            == want[-1]["collective_bytes_per_sweep"] > 0)
+    jsonl = tmp_path / "imc.jsonl"
     with pytest.raises(NotImplementedError, match=ITEM_13):
         train.main([
-            "--ratings", str(port_csv), "--rank", "4", "--n-sweeps", "2",
-            "--n-shards", "8", "--exchange", "hybrid", "--exchange-head",
-            "16", "--platform", "cpu", "--metrics-jsonl", str(jsonl)])
+            "--ratings", str(port_csv), "--model", "imc", "--rank", "4",
+            "--n-sweeps", "2", "--n-shards", "8", "--platform", "cpu",
+            "--metrics-jsonl", str(jsonl)])
     assert not os.path.exists(jsonl) or not open(jsonl).read()
 
 
