@@ -146,7 +146,34 @@ non-zero before the result lines are printed:
    on the card, and its ``collective_bytes_per_sweep()`` equal to the JAX
    package's (``REF_SHARDED_BYTES_ML1M``); 'allgather' launches B1 and
    B2, 'all_to_all' B1 only, 'hybrid' B2 only (``SHARDED_ML1M_KERNELS``);
-10. one JSON line describing every kernel, then the result line. Each
+10. the 2-D observation-parallel ALS (``parallel/hybrid_als.py``) and the
+   sharded IMC on one card. ML-25M at full width, rank 64, ``(D, S) = (2,
+   2)`` on a 2-D mesh over ``(cuda:0,) * 4``: phase 5's ratings laid out
+   with ``DataConfig(dense_whales=False, hot_cols=0)`` and the rank-64
+   bucket growth (the 2-D program has neither block), ``shard_layout`` two
+   ways, ``split_layout_slices`` two ways, ``HybridALSProgram`` from phase
+   5's warm start placed by ``place_factors``, 5 sweeps through
+   ``make_fit`` with the launch counts set to 0 just before and read just
+   after: B1 launched (each position solves its row shard's summed
+   systems), B2 not, nothing routed, the history within rtol 1e-3 / atol
+   1e-4 of phase 5's first 5 sweeps; the set-up split (plain layouts,
+   ``shard_layout``, ``split_layout_slices``, placement), seconds and
+   device ms a sweep, and the peak device memory. Then ML-1M, rank 64,
+   ``(2, 2)``, explicit and implicit (alpha 1.0), the program
+   ``ALS(n_shards=4, num_slices=2, topology='obs_parallel')`` builds
+   (``probes.exchange.program_for``), from phase 4's warm start for 10
+   sweeps: its history within rtol 1e-3 / atol 1e-4 of the single-device
+   ``ALS.fit`` on the card, its ``collective_bytes_per_sweep()`` equal to
+   the JAX package's (``REF_HYBRID_BYTES_ML1M``). Then phase 7's IMC config
+   sharded four ways on ``Mesh((cuda:0,) * 4)`` (``probes.imc.sharded_fit``):
+   the history within 2e-2 of phase 7's, the f64 objective of its factors
+   within 1e-3 of phase 7's, ``exchange_bytes_per_sweep_`` equal to the
+   JAX package's (``REF_IMC_BYTES_ML1M``), the fit's seconds beside phase
+   7's; and ``recommend(exclude_seen=True, method='exact')`` for phase 7's
+   512 users through ``sharded_topk`` (the projected catalog row-sharded on
+   the card), whose ids must equal single-device serving of the same
+   factors but for near-ties (relative float64 gap under 1e-6);
+11. one JSON line describing every kernel, then the result line. Each
    entry's numbers are at its ``k`` and ``batch``; B4, B5a, B5b and B5c
    have ``resident`` (their kernel's resident blocks at k=64; B4 and B5b
    per instantiation in ``resident_by_instantiation``); B1, B2 and B3 also have
@@ -157,8 +184,8 @@ non-zero before the result lines are printed:
    ``device_ms``, ``host_us``, ``l2_bound_ms`` and ``l2_tb_s`` at the
    probe's shape, ``at_main_path`` (both halves' gathers) and
    ``at_row_block`` (a row block of each half). B1's and B2's ``launches``
-   are the main path's and the sharded phase's, each in
-   ``launches_by_path``.
+   are the main path's and the sharded phase's (B1's also the 2-D
+   phase's), each in ``launches_by_path``.
 
 ``--profile`` adds one profiled main-path sweep and prints its device time
 by kernel and the device's idle share (not run by default).
@@ -342,6 +369,40 @@ REF_SHARDED_BYTES_ML1M = {
         "per_sweep_with_sse": 2632704},
 }
 
+# The 2-D phase (10): (D, S) at ML-25M and ML-1M, the ML-25M sweeps, and
+# the sharded IMC's shard count.
+HYBRID_D, HYBRID_S = 2, 2
+HYBRID_SWEEPS = 5
+IMC_SHARDED_S = 4
+# collective_bytes_per_sweep() of the JAX package's 2-D program at ML-1M,
+# rank 64, (D, S) = (2, 2), and exchange_bytes_per_sweep_ of its sharded IMC
+# at phase 7's config, S = 4, recorded on a CPU (alpha does not enter the
+# 2-D count, and both objectives printed the same dict):
+#   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=4 \
+#   python -c '
+#   import scipy.sparse as sp
+#   from recommendation_models_tpu import ALS, IMC
+#   from recommendation_models_tpu.data.synthetic import (
+#       synthetic_ratings, synthetic_imc_ratings, synthetic_side_features)
+#   u, i, r = synthetic_ratings(6040, 3706, 1_000_209, rank=16, seed=0)
+#   R = sp.csr_matrix((r, (u, i)), shape=(6040, 3706))
+#   for alpha in (None, 1.0):
+#       m = ALS(rank=64, reg=0.1, alpha=alpha, n_shards=4, num_slices=2,
+#               topology="obs_parallel", n_sweeps=1, platform="cpu").fit(R)
+#       print(alpha, m.exchange_bytes_per_sweep_)
+#   X, Y = synthetic_side_features(6040, 3706, 64, 48, seed=0)
+#   u, i, r, _, _ = synthetic_imc_ratings(X, Y, 1_000_209, rank=32,
+#                                         noise=0.05, seed=0)
+#   tr = u < int(0.9 * 6040)
+#   m = IMC(rank=32, reg=0.1, n_sweeps=1, cg_iters=30, seed=0, n_shards=4,
+#           platform="cpu").fit((u[tr], i[tr], r[tr]), X, Y)
+#   print(m.exchange_bytes_per_sweep_)'
+REF_HYBRID_BYTES_ML1M = {
+    "ici": 1247488, "dcn": 81086720, "per_sweep_total": 82334208,
+    "sse_extra": 474368, "per_sweep_with_sse": 82808576}
+REF_IMC_BYTES_ML1M = {
+    "w_step": 761484, "h_step": 883980, "per_sweep_total": 1645464}
+
 _PALLAS = "recommendation_models_tpu/ops/pallas/cholesky.py"
 TPU_KERNEL = {
     "cholesky_solve_batched": f"{_PALLAS}:226",
@@ -367,8 +428,10 @@ SOURCE = {
 MAIN_PATH = "ALS(rank=64).fit, ML-25M shape"
 SHARDED_PATH = (f"ShardedALSProgram(S={SHARDED_S}, allgather).make_fit on "
                 f"one card, ML-25M shape")
+HYBRID_PATH = (f"HybridALSProgram(D={HYBRID_D}, S={HYBRID_S}).make_fit on "
+               f"one card, ML-25M shape")
 PATH = {
-    "cholesky_solve_batched": f"{MAIN_PATH}; {SHARDED_PATH}",
+    "cholesky_solve_batched": f"{MAIN_PATH}; {SHARDED_PATH}; {HYBRID_PATH}",
     "cholesky_solve_hot": f"{MAIN_PATH}; {SHARDED_PATH}",
     "cholesky_solve_2g": "ops.solve.solve_spd_t(Gt2=), k=64, B=65,536",
     "cholesky_solve_rank1": "probes.solve_variants, k=128, B=65,536",
@@ -1513,6 +1576,207 @@ def phase_sharded(torch, dev, coo, ul, il, main_hist, epoch_s):
     return launches
 
 
+def phase_hybrid(torch, dev, coo, main_hist, epoch_s, imc):
+    """The 2-D observation-parallel ALS on one card: ML-25M at (D, S) =
+    (2, 2) through ``make_fit`` (B1's launch count of this path comes from
+    here), ML-1M (2, 2) explicit and implicit against the single-device fit
+    and the JAX package's bytes; then phase 7's IMC sharded four ways,
+    against phase 7's fit, and its sharded serving."""
+    import numpy as np
+    import scipy.sparse as sp
+    from recommendation_models_tpu_torch import ALS
+    from recommendation_models_tpu_torch.config import (
+        DataConfig, SolveConfig, bucket_growth_for_rank)
+    from recommendation_models_tpu_torch.data.layout import (
+        layout_from_coo, shard_layout)
+    from recommendation_models_tpu_torch.data.synthetic import (
+        synthetic_ratings)
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.parallel.hybrid_als import (
+        HybridALSProgram, split_layout_slices)
+    from recommendation_models_tpu_torch.parallel.mesh import (
+        HybridMesh, Mesh)
+    from recommendation_models_tpu_torch.probes import (
+        SCALES, device_rows)
+    from recommendation_models_tpu_torch.probes import imc as pi
+    from recommendation_models_tpu_torch.probes.epoch_profile import (
+        warm_start)
+    from recommendation_models_tpu_torch.probes.exchange import (
+        fit_history, program_for)
+    t_phase = time.perf_counter()
+    D, S = HYBRID_D, HYBRID_S
+    mesh = HybridMesh([[dev] * S] * D)
+    u, i, r = coo
+    n_users, n_items = SCALES["ml25m"][:2]
+    nnz = r.shape[0]
+    t0 = time.perf_counter()
+    plain = DataConfig(dense_whales=False, hot_cols=0,
+                       bucket_growth=bucket_growth_for_rank(RANK))
+    ul = layout_from_coo(u, i, r, n_users, n_items, config=plain)
+    il = layout_from_coo(u, i, r, n_users, n_items, config=plain,
+                         transpose=True)
+    t_plain = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    uls, ils = shard_layout(ul, S), shard_layout(il, S)
+    t_shard = time.perf_counter() - t0
+    del ul, il
+    t0 = time.perf_counter()
+    split_layout_slices(uls, D)
+    split_layout_slices(ils, D)
+    t_split = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the program splits the layouts again, then uploads each position's
+    prog = HybridALSProgram(uls, ils, mesh, SolveConfig(rank=RANK, reg=0.1))
+    U, V = prog.place_factors(*warm_start(n_users, n_items, RANK))
+    torch.cuda.synchronize()
+    t_place = time.perf_counter() - t0 - t_split
+    widest = max(b["indices"].shape[1] for b in prog._ib[0][0])
+    del uls, ils
+    fit = prog.make_fit(HYBRID_SWEEPS, nnz=nnz)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ch.reset_counts()
+    t0 = time.perf_counter()
+    U, V, sse, n_done = fit(U, V)
+    sse_h = sse.cpu().numpy()
+    t_sweeps = time.perf_counter() - t0
+    launches = {n: ch.LAUNCHES[n] for n in MAIN_KERNELS}
+    routed = dict(ch.ROUTED)
+    peak = torch.cuda.max_memory_allocated()
+    hist = [float(h) for h in np.sqrt(np.maximum(sse_h[:n_done], 0) / nnz)]
+    ref = main_hist[:HYBRID_SWEEPS]
+    rel = max(abs(a - b) / b for a, b in zip(hist, ref))
+    rows = device_rows(lambda: prog.sweep_with_sse(U, V), reps=1, warm=0)
+    device_ms = sum(x[0] for x in rows) / 1e3
+    top = [(name, round(t / 1e3, 2), c) for t, c, name in rows[:5]]
+    per_sweep = t_sweeps / HYBRID_SWEEPS
+    log(f"# 2-D ML-25M (D, S) = ({D}, {S}) on one card (no dense block, no "
+        f"hot columns; widest item bucket {widest}): set-up plain layouts "
+        f"{t_plain:.2f}s + shard_layout x2 {t_shard:.2f}s + "
+        f"split_layout_slices x2 {t_split:.2f}s + placement {t_place:.2f}s;"
+        f" {HYBRID_SWEEPS} sweeps {t_sweeps:.3f}s ({per_sweep:.4f} s a "
+        f"sweep; phase 5's epoch {epoch_s:.4f} s, ratio "
+        f"{per_sweep / epoch_s:.2f}); device ms a sweep (profiled) "
+        f"{device_ms:.1f}, top kernels (name, ms, calls) {top}; "
+        f"max_memory_allocated={peak}; history={hist} max rel diff vs "
+        f"phase 5 {rel:.2e}; launches={launches} (B1: "
+        f"{2 * D * S} solves a sweep) routed={routed}; bytes/position/sweep "
+        f"{prog.collective_bytes_per_sweep()}")
+    check(n_done == HYBRID_SWEEPS, "the 2-D fit ran too few sweeps")
+    check(np.allclose(hist, ref, rtol=SHARDED_RTOL, atol=SHARDED_ATOL),
+          f"the 2-D history differs from phase 5's: {hist} vs {ref}")
+    check(launches["cholesky_solve_batched"] > 0
+          and launches["cholesky_solve_hot"] == 0,
+          f"the 2-D fit should launch B1 and not B2: {launches}")
+    check(not any(routed.values()), f"2-D calls were routed: {routed}")
+    check(all(b.device.type == dev.type for row in U + V for b in row),
+          "the 2-D tables left the card")
+    del prog, fit, U, V
+    torch.cuda.empty_cache()
+
+    # ML-1M (2, 2), explicit and implicit, against one device
+    n1, m1, o1 = SCALES["ml1m"]
+    u1, i1, r1 = synthetic_ratings(n1, m1, o1, rank=16, seed=0)
+    R1 = sp.csr_matrix((r1, (u1, i1)), shape=(n1, m1))
+    U0, V0 = warm_start(n1, m1, RANK)
+    for alpha in (None, 1.0):
+        kw = dict(rank=RANK, reg=0.1, alpha=alpha, n_sweeps=SWEEPS,
+                  sse_mode="separate")
+        t0 = time.perf_counter()
+        single = [float(h) for h in ALS(**kw, platform=dev.type).fit(
+            R1, U0=U0, V0=V0).history_]
+        t_single = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prog = program_for(ALS(**kw, n_shards=D * S, num_slices=D,
+                               topology="obs_parallel"), R1, mesh)
+        t_set = time.perf_counter() - t0
+        got_bytes = prog.collective_bytes_per_sweep()
+        ch.reset_counts()
+        t0 = time.perf_counter()
+        _, _, hist1 = fit_history(prog, U0, V0, SWEEPS, R1.nnz)
+        t_fit = time.perf_counter() - t0
+        lc = {n: ch.LAUNCHES[n] for n in MAIN_KERNELS}
+        rel = max(abs(a - b) / b for a, b in zip(hist1, single))
+        log(f"# 2-D ML-1M (D, S) = ({D}, {S}) alpha={alpha}: set-up "
+            f"(layouts, split, placement) {t_set:.2f}s, {SWEEPS} sweeps "
+            f"{t_fit:.2f}s (one device's ALS.fit, layouts included: "
+            f"{t_single:.2f}s); history max rel diff vs one device "
+            f"{rel:.2e}; bytes/position/sweep {got_bytes} (JAX package: "
+            f"{REF_HYBRID_BYTES_ML1M}); launches={lc} "
+            f"routed={dict(ch.ROUTED)}")
+        check(got_bytes == REF_HYBRID_BYTES_ML1M,
+              f"ML-1M 2-D bytes differ from the JAX package's: {got_bytes}")
+        check(np.allclose(hist1, single, rtol=SHARDED_RTOL,
+                          atol=SHARDED_ATOL),
+              f"ML-1M 2-D alpha={alpha} history differs from one "
+              f"device's: {hist1} vs {single}")
+        check(lc["cholesky_solve_batched"] > 0
+              and lc["cholesky_solve_hot"] == 0,
+              f"ML-1M 2-D: unexpected launches {lc}")
+        check(not any(ch.ROUTED.values()), "ML-1M 2-D calls routed")
+        del prog
+    torch.cuda.empty_cache()
+
+    # phase 7's IMC config sharded four ways on the card
+    X, Y, users, items, ratings, cold = imc["data"]
+    tr = ~cold
+    imesh = Mesh([dev] * IMC_SHARDED_S)
+    model, secs = pi.sharded_fit(imc["data"], imesh)
+    ihist = [float(h) for h in model.history_]
+    irel = [abs(a - b) / b for a, b in zip(ihist, imc["history"])]
+    obj = f64_objective(model, X, Y, users[tr], items[tr], ratings[tr],
+                        pi.REG)
+    obj_rel = abs(obj - imc["objective"]) / imc["objective"]
+    xbytes = model.exchange_bytes_per_sweep_
+    log(f"# sharded IMC ml1m S={IMC_SHARDED_S} on one card: fit "
+        f"{secs:.2f}s on the host clock (phase 7's single-device fit "
+        f"{imc['fit_seconds']:.2f}s, ratio {secs / imc['fit_seconds']:.2f});"
+        f" history {ihist}, rel diff vs phase 7 "
+        f"{[float(f'{x:.2e}') for x in irel]} (tolerance "
+        f"{IMC_HISTORY_RTOL}); f64 objective {obj:.6f} against phase 7's "
+        f"{imc['objective']:.6f} (rel {obj_rel:.2e}); bytes/shard/sweep "
+        f"{xbytes} (JAX package: {REF_IMC_BYTES_ML1M})")
+    check(len(ihist) == pi.SWEEPS and max(irel) <= IMC_HISTORY_RTOL,
+          f"the sharded IMC history differs from phase 7's: {irel}")
+    check(np.isfinite(model.W_).all() and np.isfinite(model.H_).all(),
+          "the sharded IMC factors are not finite")
+    check(obj_rel <= HISTORY_RTOL,
+          f"the sharded IMC f64 objective {obj} differs from phase 7's")
+    check(xbytes == REF_IMC_BYTES_ML1M,
+          f"the sharded IMC bytes differ from the JAX package's: {xbytes}")
+    check_users = np.unique(users[tr])[:SERVING_CHECK_USERS]
+    t0 = time.perf_counter()
+    _, got = model.recommend(check_users, n=10, exclude_seen=True,
+                             method="exact")
+    t_serve = time.perf_counter() - t0
+    blocks = model._veff_dev_cache[2][0]
+    check(len(blocks) == IMC_SHARDED_S
+          and all(b.device.type == dev.type for b in blocks),
+          "sharded IMC serving did not run on the card's mesh")
+    model._fit_sharded_ = False         # the same factors, one device
+    _, want = model.recommend(check_users, n=10, exclude_seen=True,
+                              method="exact")
+    model._fit_sharded_ = True
+    Ueff = np.float64(np.float32(X)) @ np.float64(model.W_)
+    Veff = np.float64(np.float32(Y)) @ np.float64(model.H_)
+    rows_, cols_ = np.nonzero(got != want)
+    gaps = []
+    for a, b in zip(rows_, cols_):
+        q = Ueff[check_users[a]]
+        x, y = q @ Veff[got[a, b]], q @ Veff[want[a, b]]
+        gaps.append(abs(x - y) / max(abs(y), 1e-30))
+    log(f"# sharded IMC recommend ({len(check_users)} users, exclusion, "
+        f"exact) through sharded_topk in {t_serve:.2f}s against "
+        f"single-device serving of the same factors: {len(gaps)} near-tie "
+        f"swaps, largest relative gap {max(gaps, default=0.0):.2e}")
+    check(got.shape == (len(check_users), 10) and (got >= 0).all()
+          and (got < Y.shape[0]).all(), "sharded IMC ids out of the catalog")
+    check(all(g < 1e-6 for g in gaps),
+          f"sharded IMC ids differ from single-device serving: {gaps[:5]}")
+    log(f"# 2-D and sharded IMC phase: {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def frozen_exact_topk(U, V, users, train, k):
     """float64 scores, each user's training items excluded, exact top-k by
     a stable sort (NumPy, independent of ``ops.topk``)."""
@@ -1620,7 +1884,9 @@ def phase_imc(torch, dev, platform=None):
     through ``IMC.fit`` against the JAX package's recorded history, f64
     objective and cold-start RMSE; the timed fit and one profiled sweep;
     ``recommend(exclude_seen=True)`` for 512 training users against a
-    float64 selector; then a checkpoint round trip of each estimator."""
+    float64 selector; then a checkpoint round trip of each estimator.
+    Returns the data, the history, the f64 objective and the quality fit's
+    seconds, which phase 10 holds the sharded fit against."""
     import numpy as np
     import scipy.sparse as sp
     from recommendation_models_tpu_torch.probes import imc as pi
@@ -1686,6 +1952,8 @@ def phase_imc(torch, dev, platform=None):
     check(all(g < 1e-6 for g in gaps),
           f"IMC served ids differ from the float64 selector: {gaps[:5]}")
     phase_checkpoints(torch, data, platform)
+    return dict(data=data, history=hist, objective=obj,
+                fit_seconds=ex["quality_fit_seconds"])
 
 
 def phase_checkpoints(torch, imc_data, platform=None):
@@ -2014,7 +2282,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     phase_serving(torch, coo)
     torch.cuda.empty_cache()
-    phase_imc(torch, dev)
+    imc = phase_imc(torch, dev)
     torch.cuda.empty_cache()
     phase_cli(torch, coo, card)
     torch.cuda.empty_cache()
@@ -2023,6 +2291,12 @@ def main(argv) -> int:
     for n in MAIN_KERNELS:
         by_path[n]["sharded"] = sharded_launches[n]
         launches[n] += sharded_launches[n]
+    torch.cuda.empty_cache()
+    hybrid_launches = phase_hybrid(torch, dev, coo, hist, epoch_s, imc)
+    by_path["cholesky_solve_batched"]["hybrid_2d"] = hybrid_launches[
+        "cholesky_solve_batched"]
+    launches["cholesky_solve_batched"] += hybrid_launches[
+        "cholesky_solve_batched"]
     kernels = []
     for name in TPU_KERNEL:
         r = results[name]

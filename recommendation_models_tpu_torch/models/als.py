@@ -26,8 +26,12 @@ raise ``ValueError``), with ``exchange`` 'allgather', 'all_to_all' or
 ``U_`` and ``V_`` are host copies made at first access, and ``recommend``
 serves through ``ops.topk.sharded_topk`` without a whole-table host copy.
 Assigning ``U_`` or ``V_`` drops the device tables and the serving caches.
-``topology='obs_parallel'`` is not ported yet (``NotImplementedError``);
-another ``topology`` raises the reference's ``ValueError``. The default
+``topology='obs_parallel'`` with ``num_slices=D`` runs
+``parallel.hybrid_als`` on ``get_hybrid_mesh(n_shards, num_slices=D)``'s
+``(D, n_shards // D)`` mesh (the observations split across the D slices,
+the per-row normal equations summed across them); its fitted tables come
+back to the host, and serving takes the single-device route. Another
+``topology`` raises the reference's ``ValueError``. The default
 single-device init is the reference's ``jax.random`` draw, reproduced by
 ``prng.py``; a sharded fit draws the reference's sharded init
 (``ShardedALSProgram.init_factors``).
@@ -50,7 +54,7 @@ from recommendation_models_tpu_torch.data.layout import (
 )
 from recommendation_models_tpu_torch.device import resolve_device
 from recommendation_models_tpu_torch.models.base import (
-    BaseEstimator, not_ported, resolve_alias,
+    BaseEstimator, resolve_alias,
 )
 from recommendation_models_tpu_torch.ops.cholesky import (
     block_batch, hot_cols_auto,
@@ -61,7 +65,7 @@ from recommendation_models_tpu_torch.ops.topk import (
     sharded_topk, topk_scores,
 )
 from recommendation_models_tpu_torch.parallel.mesh import (
-    get_mesh, take_rows, to_host,
+    get_hybrid_mesh, get_mesh, take_rows, to_host,
 )
 from recommendation_models_tpu_torch.solver.als_sweep import (
     device_buckets, half_sweep, make_scanned_fit, make_sweep_fns,
@@ -337,10 +341,6 @@ class ALS(BaseEstimator):
                 raise ValueError(
                     f"topology must be '1d' or 'obs_parallel', got "
                     f"{self.topology!r}")
-            if self.topology == "obs_parallel":
-                raise not_ported("the 2-D observation-parallel fit "
-                                 "(topology='obs_parallel')",
-                                 "Queue 1 item 13e", "ALS")
         else:
             device = resolve_device(self.platform)
         indptr, indices, data, n_users, n_items = csr_arrays(R)
@@ -348,6 +348,9 @@ class ALS(BaseEstimator):
         self._train_indptr, self._train_indices = indptr, indices
         dcfg, scfg = self._data_config(), self._solve_config()
         nnz = indices.shape[0]
+        if sharded and self.topology == "obs_parallel":
+            return self._fit_hybrid_2d(indptr, indices, data, U0, V0, dcfg,
+                                       scfg)
         if sharded:
             return self._fit_sharded(indptr, indices, data, U0, V0, dcfg,
                                      scfg)
@@ -440,6 +443,72 @@ class ALS(BaseEstimator):
         self._U_dev, self._V_dev = U, V
         self._U_host = self._V_host = None
         self._drop_serving_caches()
+        return self
+
+    def _hybrid_shape(self):
+        """(D, S) of the 2-D fit: ``num_slices`` slices of ``n_shards //
+        num_slices``, with the reference's errors."""
+        if self.exchange != "allgather":
+            raise ValueError(
+                "topology='obs_parallel' has its own comm pattern (intra-"
+                "slice gathers + DCN gram psum); exchange modes apply to "
+                "the 1-D topology only")
+        if not self.num_slices or self.num_slices < 2:
+            # a one-slice mesh has no observation split at all
+            raise ValueError(
+                "topology='obs_parallel' needs num_slices >= 2 (the dcn "
+                f"axis carries the observation split), got "
+                f"{self.num_slices!r}")
+        D = self.num_slices
+        if self.n_shards % D:
+            raise ValueError(
+                f"n_shards={self.n_shards} must be divisible by "
+                f"num_slices={D} for the 2-D (dcn x data) mesh")
+        return D, self.n_shards // D
+
+    def _hybrid_program_on(self, mesh, indptr, indices, data, n_users,
+                           n_items, dcfg, scfg):
+        """The 2-D program of this estimator on ``mesh``: layouts with
+        neither the dense block nor the hot columns (they need the whole
+        opposite table at a position), sharded ``S`` ways with the
+        reference's default row multiple."""
+        from recommendation_models_tpu_torch.data.layout import shard_layout
+        from recommendation_models_tpu_torch.parallel.hybrid_als import (
+            HybridALSProgram,
+        )
+        _, S = self._hybrid_shape()
+        dcfg = dataclasses.replace(dcfg, dense_whales=False, hot_cols=0)
+        ul, il = self._build_layouts(indptr, indices, data, n_users, n_items,
+                                     dcfg)
+        return HybridALSProgram(shard_layout(ul, S), shard_layout(il, S),
+                                mesh, scfg)
+
+    def _fit_hybrid_2d(self, indptr, indices, data, U0, V0, dcfg, scfg):
+        """The observation-parallel fit on ``get_hybrid_mesh``'s ``(D, S)``
+        mesh (``n_shards`` = D·S devices). The fitted tables come back to
+        the host; serving takes the single-device route."""
+        D, S = self._hybrid_shape()
+        mesh = get_hybrid_mesh(self.n_shards, num_slices=D,
+                               platform=self.platform)
+        prog = self._hybrid_program_on(mesh, indptr, indices, data,
+                                       self.n_users_, self.n_items_, dcfg,
+                                       scfg)
+        self._sharded_program = None
+        self.exchange_bytes_per_sweep_ = prog.collective_bytes_per_sweep()
+        if self.verbose:
+            b = self.exchange_bytes_per_sweep_
+            print(f"[ALS] obs-parallel 2-D mesh (dcn={D} x data={S}): "
+                  f"{b['ici'] / 2**20:.2f} MiB ICI + "
+                  f"{b['dcn'] / 2**20:.2f} MiB DCN /device/sweep")
+        if U0 is not None:
+            U, V = prog.place_factors(U0, V0)
+        else:
+            U, V = prog.init_factors(self.seed, self.init_scale)
+        U, V = self._run_program_fit(prog, U, V, indices.shape[0])
+        # the setters drop a previous 1-D fit's device tables and both
+        # cached catalogs
+        self.U_ = to_host(U)[: self.n_users_]
+        self.V_ = to_host(V)[: self.n_items_]
         return self
 
     def _run_program_fit(self, prog, U, V, nnz):

@@ -23,8 +23,15 @@ flag per sweep. ``verbose`` and checkpoints take a host loop over sweeps.
 Serving (``recommend``, ``top_n``) scores the projected catalog ``Y H`` with
 ``ops.topk`` on the estimator's device.
 
-Not ported yet: sharded fits (``n_shards > 1`` raises
-``NotImplementedError``).
+Sharded fits: ``n_shards > 1`` row-shards the users (W step) and items (H
+step) over ``get_mesh(n_shards, platform=...)`` (``sharded_sweep_fn``):
+each shard accumulates its own rows' grams, and the (d, k) reductions of
+the CG are summed over the shards; W and H stay replicated. ``tol > 0``
+then takes the host loop, as in the reference. After a sharded fit
+``recommend`` serves the projected catalog row-sharded over the fit's mesh
+through ``ops.topk.sharded_topk``; an estimator unpickled on a host with
+fewer cards warns and serves on one device, and a mesh that cannot be built
+raises.
 """
 
 from __future__ import annotations
@@ -44,14 +51,16 @@ from recommendation_models_tpu_torch.data.layout import (
 from recommendation_models_tpu_torch.device import resolve_device
 from recommendation_models_tpu_torch.evaluate import grouped_by_user
 from recommendation_models_tpu_torch.models.base import (
-    BaseEstimator, not_ported, resolve_alias,
+    BaseEstimator, resolve_alias,
 )
 from recommendation_models_tpu_torch.ops.gram import (
     check_full_f32, full_f32, gram_rhs,
 )
 from recommendation_models_tpu_torch.ops.topk import (
-    grouped_exclusion_topk, permuted_topk, serving_permutation, topk_scores,
+    grouped_exclusion_topk, permuted_topk, serving_permutation, sharded_topk,
+    topk_scores,
 )
+from recommendation_models_tpu_torch.parallel.mesh import get_mesh, shard_put
 from recommendation_models_tpu_torch.solver.als_sweep import (
     device_buckets, resolve_gather_budget,
 )
@@ -111,27 +120,50 @@ def _factor_grams(Z, buckets, n_rows: int, chunk: int = 512,
 
 
 def _solve_factor(F, Z, buckets, n_rows: int, M0, reg: float,
-                  cg_iters: int):
+                  cg_iters: int, sharded: bool = False):
     """``min_M ½ Σ_Ω (f_rowᵀ M z_col − r)² + reg/2 ‖M‖²`` by restarted CG
     whose Hessian-apply is ``Fᵀ[(F M) ⊙_rows G] + reg M``: dense products,
     no gather inside the loop. Returns (M, sse(M)); the residual at the new
-    M comes exactly from the same grams (the objective is quadratic)."""
-    check_full_f32(F)
-    G, RHS, r2 = _factor_grams(Z, buckets, n_rows)
-    b = (F.T @ RHS).reshape(-1)
+    M comes exactly from the same grams (the objective is quadratic).
+
+    ``sharded``: F, Z and buckets are per-shard sequences (each shard's row
+    block of F, the gathered opposite projection and its buckets, on the
+    shard's device; ``n_rows`` the rows a shard). Then b, r2, every
+    matvec's ``Fᵀ T`` and quad are summed over the shards onto M0's device
+    (the reference's psum), where the CG runs once on the summed values
+    every shard of the reference holds alike."""
+    shards = tuple(zip(F, Z, buckets)) if sharded else ((F, Z, buckets),)
+    home = M0.device
+
+    def psum(parts):
+        acc = parts[0].to(home)
+        for part in parts[1:]:
+            acc = acc + part.to(home)
+        return acc
+
+    grams = []
+    for f, z, bk in shards:
+        check_full_f32(f)
+        grams.append(_factor_grams(z, bk, n_rows))
+    b = psum([(f.T @ g[1]).reshape(-1) for (f, _, _), g in zip(shards, grams)])
+    r2 = psum([g[2] for g in grams])
     shape = M0.shape
 
-    def row_gram(T):            # "ukl,uk->ul": T[u] @ G[u] for every row
+    def row_gram(T, G):         # "ukl,uk->ul": T[u] @ G[u] for every row
         return torch.bmm(T.unsqueeze(1), G).squeeze(1)
 
     def matvec(Mf):
         M = Mf.view(shape)
-        return (F.T @ row_gram(F @ M) + reg * M).reshape(-1)
+        return (psum([f.T @ row_gram(f @ M.to(f.device), g[0])
+                      for (f, _, _), g in zip(shards, grams)])
+                + reg * M).reshape(-1)
 
     M = _cg(matvec, b, M0.reshape(-1), cg_iters).view(shape)
-    T = F @ M
-    quad = (row_gram(T) * T).sum()
-    sse = r2 - 2.0 * torch.dot(b, M.reshape(-1)) + quad
+    quad = []
+    for (f, _, _), g in zip(shards, grams):
+        T = f @ M.to(f.device)
+        quad.append((row_gram(T, g[0]) * T).sum())
+    sse = r2 - 2.0 * torch.dot(b, M.reshape(-1)) + psum(quad)
     return M, sse
 
 
@@ -146,9 +178,9 @@ def _imc_sweep(W, H, X, Y, ub, ib, reg: float, cg_iters: int, n_users: int,
     return W, H, obj
 
 
-def _imc_fit(W, H, X, Y, ub, ib, reg: float, cg_iters: int, n_sweeps: int,
-             n_users: int, n_items: int, tol: float = 0.0):
-    """The whole fit: (W, H, hist (n_sweeps,) on the device, sweeps run).
+def _sweep_loop(sweep, W, H, n_sweeps: int, tol: float = 0.0):
+    """The whole fit of ``sweep(W, H) -> (W, H, obj)``: (W, H, hist
+    (n_sweeps,) on W's device, sweeps run).
 
     ``tol == 0`` runs every sweep and reads nothing back. ``tol > 0`` stops
     before sweep i >= 2 once ``|obj[i-2] − obj[i-1]| < tol``, compared in
@@ -161,10 +193,81 @@ def _imc_fit(W, H, X, Y, ub, ib, reg: float, cg_iters: int, n_sweeps: int,
         if tol > 0 and i >= 2 and not bool(
                 torch.abs(hist[i - 2] - hist[i - 1]) >= tol):
             break
-        W, H, hist[i] = _imc_sweep(W, H, X, Y, ub, ib, reg, cg_iters,
-                                   n_users, n_items)
+        W, H, hist[i] = sweep(W, H)
         i += 1
     return W, H, hist, i
+
+
+def _imc_fit(W, H, X, Y, ub, ib, reg: float, cg_iters: int, n_sweeps: int,
+             n_users: int, n_items: int, tol: float = 0.0):
+    """The single-device fit, ``_sweep_loop`` over ``_imc_sweep``."""
+    return _sweep_loop(
+        lambda W, H: _imc_sweep(W, H, X, Y, ub, ib, reg, cg_iters, n_users,
+                                n_items), W, H, n_sweeps, tol)
+
+
+def sharded_sweep_fn(mesh, X, Y, user_layout, item_layout, reg: float,
+                     cg_iters: int, rank: int):
+    """The sharded IMC sweep on a 1-D ``mesh`` of S shards: (``sweep(W, H)
+    -> (W, H, obj)``, the per-shard bytes of a sweep).
+
+    Users (the W step) and items (the H step) are row-sharded: X and Y are
+    padded to ``rows_per_shard · S`` rows, and each shard takes its rows'
+    buckets of ``shard_layout(layout, S)``. W and H stay replicated (one
+    copy on the first shard's device). A half-step gathers the projections
+    of every shard's own feature rows (``Y_loc H``, rank wide, not the
+    features) and solves ``_solve_factor(sharded=True)``. The bytes are the
+    reference's analytic count: a half-step's tiled gather of the local
+    projection, then the (d, k) sums of b and of each CG matvec, and two
+    scalars, as a ring all-reduce, 2(S-1)/S of their bytes."""
+    from recommendation_models_tpu_torch.data.layout import shard_layout
+    from recommendation_models_tpu_torch.parallel.mesh import (
+        all_gather, shard_put,
+    )
+    from recommendation_models_tpu_torch.parallel.sharded_als import (
+        put_buckets,
+    )
+    axis = mesh.axis_names[0]
+    S = mesh.size
+    ul = shard_layout(user_layout, S)
+    il = shard_layout(item_layout, S)
+    n_users, n_items = X.shape[0], Y.shape[0]
+
+    def pad_rows(A, rows_per_shard):
+        return np.pad(np.asarray(A, np.float32),
+                      ((0, rows_per_shard * S - A.shape[0]), (0, 0)))
+
+    Xs = shard_put(mesh, axis, pad_rows(X, ul.rows_per_shard))
+    Ys = shard_put(mesh, axis, pad_rows(Y, il.rows_per_shard))
+    ub, ib = put_buckets(mesh, axis, ul), put_buckets(mesh, axis, il)
+
+    def tower(F, M, n):
+        # the global projection F M on each shard: every shard projects
+        # its own rows, then the (rows, k) results are gathered
+        return tuple(t[:n] for t in all_gather(
+            mesh, [f @ M.to(f.device) for f in F]))
+
+    def sweep(W, H):
+        W, _ = _solve_factor(Xs, tower(Ys, H, n_items), ub, ul.rows_per_shard,
+                             W, reg, cg_iters, sharded=True)
+        H, sse = _solve_factor(Ys, tower(Xs, W, n_users), ib,
+                               il.rows_per_shard, H, reg, cg_iters,
+                               sharded=True)
+        obj = 0.5 * sse + 0.5 * reg * ((W ** 2).sum() + (H ** 2).sum())
+        return W, H, obj
+
+    mv = cg_matvec_count(cg_iters)
+    ring = 2 * (S - 1) / S
+
+    def half_bytes(rows_per_shard, d):
+        gather = (S - 1) * rows_per_shard * rank * 4
+        psum = int(ring * 4 * (d * rank * (mv + 1) + 2))
+        return gather + psum
+
+    out = {"w_step": half_bytes(il.rows_per_shard, X.shape[1]),
+           "h_step": half_bytes(ul.rows_per_shard, Y.shape[1])}
+    out["per_sweep_total"] = out["w_step"] + out["h_step"]
+    return sweep, out
 
 
 def _cg(matvec, b, x0, iters: int, restart: int = 16):
@@ -319,13 +422,28 @@ class IMC(BaseEstimator):
 
         R: scipy sparse or dense matrix, or a (users, items, ratings)
         triplet tuple. X: (n_users, d_user), Y: (n_items, d_item). W0, H0:
-        optional warm starts."""
+        optional warm starts. ``n_shards > 1`` fits on
+        ``get_mesh(n_shards, platform=..., num_slices=...)``'s mesh."""
+        return self._fit(R, X, Y, W0, H0, mesh=None)
+
+    def _fit(self, R, X, Y, W0, H0, mesh):
+        """``fit``; a sharded fit (``n_shards > 1``) runs on ``mesh`` (a
+        1-D mesh of ``n_shards`` devices), None meaning ``get_mesh``'s. A
+        one-card host runs S shards only through an explicit ``Mesh((cuda:0,)
+        * S)``."""
         if self.rank < 1:
             raise ValueError(f"rank must be >= 1, got {self.rank}")
-        if self.n_shards is not None and self.n_shards > 1:
-            raise not_ported("a sharded IMC fit (n_shards > 1)",
-                             "Queue 1 item 13d", "IMC")
-        device = resolve_device(self.platform)
+        sharded = bool(self.n_shards and self.n_shards > 1)
+        if sharded:
+            if mesh is None:
+                mesh = get_mesh(self.n_shards, platform=self.platform,
+                                num_slices=self.num_slices)
+            if mesh.size != self.n_shards:
+                raise ValueError(f"a mesh of {mesh.size} devices for "
+                                 f"n_shards={self.n_shards}")
+            device = mesh.devices[0]
+        else:
+            device = resolve_device(self.platform)
         users, items, ratings = _as_triplets(R)
         X = np.asarray(X, np.float32)
         Y = np.asarray(Y, np.float32)
@@ -346,19 +464,36 @@ class IMC(BaseEstimator):
         W_h, H_h = self._init_factors_host(X.shape[1], Y.shape[1], W0, H0)
 
         full_f32()
-        ub = device_buckets(user_layout, 1, device)
-        ib = device_buckets(item_layout, 1, device)
-        Xd = torch.as_tensor(X, device=device)
-        Yd = torch.as_tensor(Y, device=device)
         W = torch.as_tensor(W_h, device=device)
         H = torch.as_tensor(H_h, device=device)
+        xbytes = None
+        if sharded:
+            sweep, xbytes = sharded_sweep_fn(mesh, X, Y, user_layout,
+                                             item_layout, reg, cg_iters,
+                                             self.rank)
+        else:
+            ub = device_buckets(user_layout, 1, device)
+            ib = device_buckets(item_layout, 1, device)
+            Xd = torch.as_tensor(X, device=device)
+            Yd = torch.as_tensor(Y, device=device)
 
+            def sweep(W, H):
+                return _imc_sweep(W, H, Xd, Yd, ub, ib, reg, cg_iters,
+                                  n_users, n_items)
+
+        # as the reference: a sharded fit with tol takes the host loop
         stepwise = bool(self.verbose
-                        or (self.checkpoint_dir and self.checkpoint_every))
+                        or (self.checkpoint_dir and self.checkpoint_every)
+                        or (sharded and self.tol > 0))
         if not stepwise:
-            W, H, hist, n_done = _imc_fit(W, H, Xd, Yd, ub, ib, reg,
-                                          cg_iters, self._n_sweeps, n_users,
-                                          n_items, tol=float(self.tol))
+            if sharded:
+                W, H, hist, n_done = _sweep_loop(sweep, W, H,
+                                                 self._n_sweeps)
+            else:
+                W, H, hist, n_done = _imc_fit(W, H, Xd, Yd, ub, ib, reg,
+                                              cg_iters, self._n_sweeps,
+                                              n_users, n_items,
+                                              tol=float(self.tol))
             self.history_ = list(hist.cpu().numpy().astype(np.float64)
                                  [:n_done])
         else:
@@ -366,8 +501,7 @@ class IMC(BaseEstimator):
             self.history_ = []
             prev = None
             for s in range(self._n_sweeps):
-                W, H, obj = _imc_sweep(W, H, Xd, Yd, ub, ib, reg, cg_iters,
-                                       n_users, n_items)
+                W, H, obj = sweep(W, H)
                 cur = float(obj)
                 self.history_.append(cur)
                 if self.verbose:
@@ -387,6 +521,14 @@ class IMC(BaseEstimator):
         self._train_indptr, self._train_items = grouped_by_user(
             users, items, n_users)
         self._veff_cache = None
+        self._veff_dev_cache = None
+        # the route recommend() takes onto the fit's mesh
+        self._fit_sharded_ = sharded
+        self._serve_mesh = mesh if sharded else None
+        if xbytes is None:
+            self.__dict__.pop("exchange_bytes_per_sweep_", None)
+        else:
+            self.exchange_bytes_per_sweep_ = xbytes
         return self
 
     # ------------------------------------------------------------------
@@ -419,9 +561,12 @@ class IMC(BaseEstimator):
         fit's features, training lists and projected catalog are dropped:
         ``predict`` and ``recommend`` then need X and Y passed, and
         ``recommend(exclude_seen=True)`` warns and serves unfiltered until
-        the next ``fit``."""
+        the next ``fit``. A sharded fit's serving route and caches are
+        dropped too; the checkpoint holds the replicated W and H."""
         step, state = load_latest(checkpoint_dir or self.checkpoint_dir)
-        for key in ("_X", "_Y", "_train_indptr", "_train_items"):
+        for key in ("_X", "_Y", "_train_indptr", "_train_items",
+                    "_veff_dev_cache", "_serve_mesh", "_fit_sharded_",
+                    "exchange_bytes_per_sweep_"):
             self.__dict__.pop(key, None)
         self.W_ = np.asarray(state["W"])
         self.H_ = np.asarray(state["H"])
@@ -431,10 +576,12 @@ class IMC(BaseEstimator):
 
     # ------------------------------------------------------------------
     def __getstate__(self):
-        """Picklable fitted estimator: the projected catalog's device copy
-        is dropped and rebuilt at the next ``recommend``."""
+        """Picklable fitted estimator: the projected catalog's device copies
+        and a sharded fit's mesh are dropped and rebuilt at the next
+        ``recommend`` (``_serving_mesh``)."""
         state = dict(super().__getstate__())
-        state.pop("_veff_cache", None)
+        for key in ("_veff_cache", "_veff_dev_cache", "_serve_mesh"):
+            state.pop(key, None)
         return state
 
     def _check_fitted(self):
@@ -505,6 +652,50 @@ class IMC(BaseEstimator):
                 perm_back, perm_fwd, veff))
         return self._veff_cache[2]
 
+    def _serving_mesh(self):
+        """The mesh a sharded fit serves on: the fit's, or, for an
+        estimator unpickled without it, ``get_mesh(n_shards, ...)`` on this
+        host, which raises where it cannot be built (no card, say). The one
+        exception: a host with fewer cards than ``n_shards`` warns and
+        serves on one device (None)."""
+        mesh = getattr(self, "_serve_mesh", None)
+        if mesh is not None:
+            return mesh
+        if (resolve_device(self.platform).type == "cuda"
+                and torch.cuda.device_count() < self.n_shards):
+            warnings.warn(
+                f"this IMC was fitted on {self.n_shards} shards, and this "
+                f"host has {torch.cuda.device_count()} CUDA device(s): "
+                "serving on one device", stacklevel=3)
+            return None
+        return get_mesh(self.n_shards, platform=self.platform,
+                        num_slices=self.num_slices)
+
+    def _veff_dev_cached(self):
+        """The projected training catalog ``_Y @ H_`` row-sharded over the
+        serving mesh, for serving after a sharded fit: (the per-shard
+        blocks in ``serving_permutation`` row order, padded with zero rows
+        to ``per · S``, mesh, axis, perm_back, perm_fwd), cached under
+        ``_veff_cached``'s key; None where ``_serving_mesh`` serves on one
+        device."""
+        h_key = hash(np.asarray(self.H_).tobytes())
+        cache = getattr(self, "_veff_dev_cache", None)
+        if cache is not None and cache[0] == h_key and cache[1] is self._Y:
+            return cache[2]
+        mesh = self._serving_mesh()
+        if mesh is None:
+            return None
+        axis = mesh.axis_names[0]
+        S = mesh.size
+        n = self._Y.shape[0]
+        perm_back, perm_fwd = serving_permutation(n)
+        veff = np.asarray((self._Y @ self.H_)[perm_back], np.float32)
+        per = -(-n // S)
+        veff = np.pad(veff, ((0, per * S - n), (0, 0)))
+        out = (shard_put(mesh, axis, veff), mesh, axis, perm_back, perm_fwd)
+        self._veff_dev_cache = (h_key, self._Y, out)
+        return out
+
     def recommend(self, user_ids, n: int = 10, X=None, Y=None,
                   exclude_seen: bool = False, method: str = "auto",
                   recall_target: float = 0.99):
@@ -523,29 +714,47 @@ class IMC(BaseEstimator):
                 "recommend() needs feature matrices: this estimator was "
                 "resumed from a checkpoint without training features — "
                 "pass X and Y explicitly (or call fit())")
-        device = resolve_device(self.platform)
-        if device.type == "cuda":
-            full_f32()
         X = self._X if X is None else np.asarray(X, np.float32)
         fresh_Y = Y is not None
         Y = self._Y if Y is None else np.asarray(Y, np.float32)
         user_ids = np.atleast_1d(np.asarray(user_ids, np.int64))
 
+        sharded = None
+        if not fresh_Y and getattr(self, "_fit_sharded_", False):
+            # after a sharded fit, serving stays on the mesh: the projected
+            # catalog is row-sharded and each shard scores its own rows
+            sharded = self._veff_dev_cached()
+        if sharded is not None:
+            Veff_sh, mesh, axis, perm_back, perm_fwd = sharded
+            device = mesh.devices[0]
+            n_cat = Y.shape[0]
+            n = min(n, n_cat)
+
+            def topk_raw(Uq, kk, excl):
+                return sharded_topk(Uq, Veff_sh, kk, mesh, axis=axis,
+                                    exclude=excl, method=method,
+                                    recall_target=recall_target,
+                                    n_valid=n_cat)
+        else:
+            device = resolve_device(self.platform)
+            if fresh_Y:
+                # a fresh catalog gets its own decorrelating permutation
+                perm_back, perm_fwd = serving_permutation(Y.shape[0])
+                Veff = torch.as_tensor((Y @ self.H_)[perm_back],
+                                       device=device)
+            else:
+                Veff, perm_back, perm_fwd, _ = self._veff_cached()
+            n = min(n, Veff.shape[0])
+
+            def topk_raw(Uq, kk, excl):
+                return topk_scores(Uq, Veff, kk, excl, method=method,
+                                   recall_target=recall_target)
+        if device.type == "cuda":
+            full_f32()
+        topk = permuted_topk(topk_raw, perm_back, perm_fwd)
+
         def query_rows(ids):
             return torch.as_tensor(X[ids] @ self.W_, device=device)
-
-        if fresh_Y:
-            # a fresh catalog gets its own decorrelating permutation
-            perm_back, perm_fwd = serving_permutation(Y.shape[0])
-            Veff = torch.as_tensor((Y @ self.H_)[perm_back], device=device)
-        else:
-            Veff, perm_back, perm_fwd, _ = self._veff_cached()
-        n = min(n, Veff.shape[0])
-
-        def topk_raw(Uq, kk, excl):
-            return topk_scores(Uq, Veff, kk, excl, method=method,
-                               recall_target=recall_target)
-        topk = permuted_topk(topk_raw, perm_back, perm_fwd)
 
         if exclude_seen and not hasattr(self, "_train_indptr"):
             warnings.warn(
@@ -574,4 +783,4 @@ class IMC(BaseEstimator):
         return items[0]
 
 
-__all__ = ["IMC", "cg_matvec_count", "gram_block_rows"]
+__all__ = ["IMC", "cg_matvec_count", "gram_block_rows", "sharded_sweep_fn"]

@@ -135,8 +135,8 @@ def _half_sweep(mesh: Mesh, V: Blocks, buckets, plan, n_local_rows: int,
     return tuple(new), psum(mesh, sse)[0]
 
 
-def _put_buckets(mesh: Mesh, axis: str, layout: ShardedLayout,
-                 plan: Optional[ExchangePlan]):
+def put_buckets(mesh: Mesh, axis: str, layout: ShardedLayout,
+                plan: Optional[ExchangePlan] = None):
     """Per-shard device buckets in ``solver.als_sweep.device_buckets``'s
     format: for each shard, a tuple of bucket dicts (then the dense block
     and the hot ids, if any) on that shard's device. Under a plan the
@@ -229,8 +229,8 @@ class ShardedALSProgram:
         else:
             raise ValueError(f"unknown exchange mode {exchange!r}")
         self._uplan_host, self._iplan_host = u_plan, i_plan
-        self._ub = _put_buckets(mesh, self.axis, user_layout, u_plan)
-        self._ib = _put_buckets(mesh, self.axis, item_layout, i_plan)
+        self._ub = put_buckets(mesh, self.axis, user_layout, u_plan)
+        self._ib = put_buckets(mesh, self.axis, item_layout, i_plan)
         self._uplan = _put_plan(mesh, self.axis, u_plan)
         self._iplan = _put_plan(mesh, self.axis, i_plan)
         self._sse_separate = sse_separate_for(cfg, user_layout.nnz)
@@ -323,4 +323,4 @@ class ShardedALSProgram:
         return out
 
 
-__all__ = ["ShardedALSProgram", "exchange_layout"]
+__all__ = ["ShardedALSProgram", "exchange_layout", "put_buckets"]

@@ -42,14 +42,17 @@ from recommendation_models_tpu_torch.probes.gather_latency import card
 
 
 def program_for(estimator, R, mesh):
-    """The ``ShardedALSProgram`` that ``estimator.fit(R)`` builds for its
-    ``exchange`` (layout rules and head included), on ``mesh`` instead of
-    ``get_mesh(n_shards)``."""
+    """The program that ``estimator.fit(R)`` builds, on ``mesh`` instead of
+    its own mesh: the ``ShardedALSProgram`` of its ``exchange`` (layout
+    rules and head included) on a 1-D mesh, or with
+    ``topology='obs_parallel'`` the ``HybridALSProgram`` on a 2-D one."""
     from recommendation_models_tpu_torch.data.layout import csr_arrays
     indptr, indices, data, n_users, n_items = csr_arrays(R)
-    return estimator._sharded_program_on(
-        mesh, indptr, indices, data, n_users, n_items,
-        estimator._data_config(), estimator._solve_config())
+    build = (estimator._hybrid_program_on
+             if estimator.topology == "obs_parallel"
+             else estimator._sharded_program_on)
+    return build(mesh, indptr, indices, data, n_users, n_items,
+                 estimator._data_config(), estimator._solve_config())
 
 
 def fit_history(prog, U0, V0, n_sweeps: int, nnz: int):

@@ -32,7 +32,8 @@ obs/s) and ``extra`` (``fit_seconds``, ``cold_start_rmse``,
 and power limit, the split). With ``--platform cpu`` (default scale
 ``tiny``) the fits run on the host, untimed, and every device number and
 ``vs_baseline`` are null.
-``chip_smoke.py`` phase 7 runs the ML-1M config with these functions.
+``chip_smoke.py`` phase 7 runs the ML-1M config with these functions, and
+phase 10 the same fit sharded four ways on one card (``sharded_fit``).
 """
 
 from __future__ import annotations
@@ -88,6 +89,21 @@ def quality_fit(data, platform=None):
     pred = model.predict(users[cold], items[cold])
     cold_rmse = float(np.sqrt(np.mean((pred - ratings[cold]) ** 2)))
     return model, secs, cold_rmse
+
+
+def sharded_fit(data, mesh):
+    """``quality_fit``'s estimator with ``n_shards = mesh.size``, fit on
+    ``mesh`` (``IMC._fit``: a one-card host runs S shards only through an
+    explicit ``Mesh((cuda:0,) * S)``): (model, seconds on the host clock,
+    layouts and upload included)."""
+    from recommendation_models_tpu_torch import IMC
+    X, Y, users, items, ratings, cold = data
+    tr = ~cold
+    t0 = time.perf_counter()
+    model = IMC(rank=RANK, reg=REG, n_sweeps=SWEEPS, cg_iters=CG_ITERS,
+                seed=0, n_shards=mesh.size)
+    model._fit((users[tr], items[tr], ratings[tr]), X, Y, None, None, mesh)
+    return model, time.perf_counter() - t0
 
 
 def uploaded(data, device):

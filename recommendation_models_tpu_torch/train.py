@@ -8,11 +8,12 @@ tracing (``torch.profiler``, a Chrome trace in ``--trace-dir``).
 
 It runs on the CUDA card unless ``--platform cpu``; with no card and no
 ``--platform`` the estimator raises. ``--n-shards S`` fits the 1-D sharded
-ALS over S cards (S entries of the host with ``--platform cpu``) and logs
-its per-sweep collective bytes. Not ported yet (ROADMAP.md, Queue 1 item
-13): sharded IMC (13d), ``--topology obs_parallel`` (13e) and the
-multi-process bootstrap (``--coordinator``, ``--num-processes``; 13f),
-which raise ``NotImplementedError``.
+ALS, or with ``--model imc`` the sharded IMC, over S cards (S entries of
+the host with ``--platform cpu``); ``--topology obs_parallel --num-slices
+D`` fits the 2-D observation-parallel ALS over ``D x S/D`` of them. Each
+logs its per-sweep collective bytes. Not ported yet (ROADMAP.md, Queue 1
+item 13f): the multi-process bootstrap (``--coordinator``,
+``--num-processes``), which raises ``NotImplementedError``.
 
 Examples:
   python -m recommendation_models_tpu_torch.train --synthetic ml1m --rank 64
@@ -70,8 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
     engine.add_argument("--compute-dtype", default="auto",
                         choices=["auto", "float32", "bfloat16"])
     engine.add_argument("--n-shards", type=int, default=None,
-                        help="> 1: the 1-D sharded ALS over that many "
-                             "cards (host entries with --platform cpu)")
+                        help="> 1: the sharded ALS (or IMC) over that "
+                             "many cards (host entries with --platform "
+                             "cpu)")
     engine.add_argument("--num-slices", type=int, default=None,
                         help="slices of a sharded fit's mesh (must "
                              "divide --n-shards)")
@@ -92,8 +94,8 @@ def build_parser() -> argparse.ArgumentParser:
     engine.add_argument("--topology", default="1d",
                         choices=["1d", "obs_parallel"],
                         help="'obs_parallel': the 2-D observation-parallel "
-                             "sharded fit (not ported yet, ROADMAP.md "
-                             "item 13e)")
+                             "sharded ALS over (--num-slices, --n-shards / "
+                             "--num-slices) devices")
     engine.add_argument("--exchange", default="allgather",
                         choices=["allgather", "all_to_all", "hybrid"])
     engine.add_argument("--exchange-head", type=int, default=None,

@@ -43,6 +43,7 @@ _PROBE = textwrap.dedent("""
     import recommendation_models_tpu_torch.oracle
     import recommendation_models_tpu_torch.parallel
     import recommendation_models_tpu_torch.parallel.exchange
+    import recommendation_models_tpu_torch.parallel.hybrid_als
     import recommendation_models_tpu_torch.parallel.mesh
     import recommendation_models_tpu_torch.parallel.scaling
     import recommendation_models_tpu_torch.parallel.sharded_als
@@ -120,15 +121,35 @@ def test_resolve_device(platform, expect):
     ("IMC", dict(n_shards=8)),
 ])
 def test_unported_paths_raise_naming_roadmap(estimator, kwargs):
+    """The paths that raised ``NotImplementedError`` before the 2-D ALS and
+    the sharded IMC were ported now take the reference's outcome: the 2-D
+    fit and the sharded IMC fit agree with the JAX package, and
+    ``obs_parallel`` without ``num_slices`` raises its ``ValueError``."""
+    import recommendation_models_tpu as ref
     args = (tiny_problem(10, 8, seed=2),)
     if estimator == "IMC":
         rng = np.random.default_rng(2)      # side features X, Y
         args += (rng.standard_normal((10, 4)), rng.standard_normal((8, 3)))
     m = getattr(port, estimator)(rank=3, n_sweeps=1, platform="cpu",
                                  **kwargs)
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP.md, Queue 1 item 13.*{estimator}"):
-        m.fit(*args)
+    r = getattr(ref, estimator)(rank=3, n_sweeps=1, platform="cpu",
+                                **kwargs)
+    if "num_slices" not in kwargs and estimator == "ALS":
+        with pytest.raises(ValueError) as want:
+            r.fit(*args)
+        with pytest.raises(ValueError) as got:
+            m.fit(*args)
+        assert str(got.value) == str(want.value)
+        return
+    m.fit(*args)
+    r.fit(*args)
+    # tests/test_mesh_hybrid.py's estimator tolerance, tests/test_imc.py's
+    tables, tol = ((("U_", "V_"), dict(rtol=2e-4, atol=2e-5))
+                   if estimator == "ALS" else
+                   (("W_", "H_"), dict(rtol=5e-3, atol=5e-3)))
+    for t in tables:
+        np.testing.assert_allclose(getattr(m, t), getattr(r, t), **tol)
+    assert m.exchange_bytes_per_sweep_ == r.exchange_bytes_per_sweep_
 
 
 @pytest.mark.parametrize("topology", ["obs_parallel", "bogus"])

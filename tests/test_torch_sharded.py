@@ -9,7 +9,8 @@ inputs, JAX on its 8 forced CPU devices and the port on a CPU mesh:
 - the per-sweep exchange bytes exactly;
 - shard-count invariance of the port against its own single-device fit
   (the cases of tests/test_sharded.py), sharded checkpoints, pickling, the
-  mesh's collectives and the errors of what is not ported.
+  mesh's collectives, the callers' errors and the error of what is not
+  ported (the multi-process bootstrap).
 
 The card's case (``gpu``) runs two shards on one card through B1 and B2:
 ``python -m pytest --noconftest -m gpu tests/test_torch_sharded.py``."""
@@ -317,9 +318,15 @@ def test_mesh_collectives():
 
 def test_errors_of_what_is_not_ported_and_of_the_caller(monkeypatch):
     R = tiny_problem(10, 8, seed=2)
-    with pytest.raises(NotImplementedError, match=r"item 13e.*ALS"):
-        ALS(rank=3, n_sweeps=1, n_shards=4, num_slices=2,
+    # the 2-D fit is ported (item 13e): the reference's error, the same
+    # message
+    with pytest.raises(ValueError) as want:
+        RefALS(rank=3, n_sweeps=1, n_shards=4, num_slices=3,
+               topology="obs_parallel", platform="cpu").fit(R)
+    with pytest.raises(ValueError) as got:
+        ALS(rank=3, n_sweeps=1, n_shards=4, num_slices=3,
             topology="obs_parallel", platform="cpu").fit(R)
+    assert str(got.value) == str(want.value)
     with pytest.raises(ValueError) as want:
         RefALS(rank=3, n_sweeps=1, n_shards=2, topology="ring",
                platform="cpu").fit(R)
@@ -336,8 +343,13 @@ def test_errors_of_what_is_not_ported_and_of_the_caller(monkeypatch):
     assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="not divisible by num_slices"):
         pmesh.get_mesh(6, platform="cpu", num_slices=4)
-    with pytest.raises(NotImplementedError, match="item 13e"):
-        pmesh.get_hybrid_mesh(8, num_slices=2, platform="cpu")
+    from recommendation_models_tpu.parallel.mesh import (
+        get_hybrid_mesh as ref_get_hybrid_mesh)
+    with pytest.raises(ValueError) as want:
+        ref_get_hybrid_mesh(8, num_slices=3, platform="cpu")
+    with pytest.raises(ValueError) as got:
+        pmesh.get_hybrid_mesh(8, num_slices=3, platform="cpu")
+    assert str(got.value) == str(want.value)
     pmesh.initialize_distributed()              # one process: nothing
     with pytest.raises(NotImplementedError, match="item 13f"):
         pmesh.initialize_distributed("localhost:1234", 2, 0)

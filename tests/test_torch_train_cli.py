@@ -4,11 +4,11 @@ cpu`` and ``--sse-mode separate``, on the same real-format ratings file
 (each CLI on its own copy: both loaders write the same cache name). The
 summaries have the same keys, and ``train_rmse`` and ``test_rmse`` agree
 within rtol 1e-3, as do the per-sweep records; a sharded fit logs the same
-collective bytes. Sharded IMC, the 2-D topology and the multi-process
-bootstrap raise the ``NotImplementedError`` that names ROADMAP item 13;
-with no ``--platform`` and no card the CLI raises the
-port's ``RuntimeError``; ``build_parser()`` has the JAX one's options,
-defaults and choices."""
+collective bytes, as do the sharded IMC (``--model imc --n-shards``) and
+the 2-D ALS (``--topology obs_parallel``). The multi-process bootstrap
+raises the ``NotImplementedError`` that names ROADMAP item 13f; with no
+``--platform`` and no card the CLI raises the port's ``RuntimeError``;
+``build_parser()`` has the JAX one's options, defaults and choices."""
 
 import argparse
 import json
@@ -105,18 +105,9 @@ def test_cli_real_format_end_to_end(tmp_path, csv_pair):
     _agree(got, want)
 
 
-def test_cli_sharded_raises_naming_item_13(tmp_path, csv_pair):
-    """The sharded ALS fit of tests/test_train_cli.py through both CLIs:
-    the same records, each sweep's ``collective_bytes`` and the summary's
-    ``collective_bytes_per_sweep`` equal. A sharded IMC fit still raises
-    the ``NotImplementedError`` naming ROADMAP item 13."""
-    port_csv, ref_csv = csv_pair
-    csv = {"port": port_csv, "ref": ref_csv}
-    got, want = _run_both(lambda side: [
-        "--ratings", str(csv[side]), "--rank", "4", "--n-sweeps", "2",
-        "--n-shards", "8", "--exchange", "hybrid", "--exchange-head", "16"],
-        tmp_path)
-    _agree(got, want)
+def _same_bytes(got, want):
+    """Each sweep's ``collective_bytes`` and the summary's
+    ``collective_bytes_per_sweep`` equal, and not zero."""
     per_sweep = [r for r in got if "collective_bytes" in r]
     assert len(per_sweep) == 2 and per_sweep[0]["collective_bytes"] > 0
     assert ([r["collective_bytes"] for r in per_sweep]
@@ -124,13 +115,54 @@ def test_cli_sharded_raises_naming_item_13(tmp_path, csv_pair):
                 if "collective_bytes" in r])
     assert (got[-1]["collective_bytes_per_sweep"]
             == want[-1]["collective_bytes_per_sweep"] > 0)
-    jsonl = tmp_path / "imc.jsonl"
-    with pytest.raises(NotImplementedError, match=ITEM_13):
-        train.main([
-            "--ratings", str(port_csv), "--model", "imc", "--rank", "4",
-            "--n-sweeps", "2", "--n-shards", "8", "--platform", "cpu",
-            "--metrics-jsonl", str(jsonl)])
-    assert not os.path.exists(jsonl) or not open(jsonl).read()
+
+
+def test_cli_sharded_raises_naming_item_13(tmp_path, csv_pair):
+    """The sharded ALS fit of tests/test_train_cli.py through both CLIs:
+    the same records, each sweep's ``collective_bytes`` and the summary's
+    ``collective_bytes_per_sweep`` equal. The sharded IMC fit, which raised
+    the ``NotImplementedError`` naming ROADMAP item 13 until it was ported,
+    agrees with the JAX CLI's the same way (its objective history within
+    tests/test_imc.py's rtol 5e-3)."""
+    port_csv, ref_csv = csv_pair
+    csv = {"port": port_csv, "ref": ref_csv}
+    got, want = _run_both(lambda side: [
+        "--ratings", str(csv[side]), "--rank", "4", "--n-sweeps", "2",
+        "--n-shards", "8", "--exchange", "hybrid", "--exchange-head", "16"],
+        tmp_path)
+    _agree(got, want)
+    _same_bytes(got, want)
+    (tmp_path / "imc").mkdir()
+    got, want = _run_both(lambda side: [
+        "--ratings", str(csv[side]), "--model", "imc", "--rank", "4",
+        "--n-sweeps", "2", "--n-shards", "8"], tmp_path / "imc")
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        assert g["train_rmse"] == pytest.approx(w["train_rmse"], rel=5e-3)
+    _same_bytes(got, want)
+
+
+def test_cli_obs_parallel_matches_reference(tmp_path, csv_pair):
+    """``--topology obs_parallel`` through both CLIs: the same records at
+    the estimator tolerance, the same collective bytes; with ``--model
+    imc`` both CLIs refuse the topology with the same message."""
+    port_csv, ref_csv = csv_pair
+    csv = {"port": port_csv, "ref": ref_csv}
+    got, want = _run_both(lambda side: [
+        "--ratings", str(csv[side]), "--rank", "4", "--n-sweeps", "2",
+        "--n-shards", "8", "--num-slices", "2", "--topology",
+        "obs_parallel", "--holdout", "1"], tmp_path)
+    _agree(got, want)
+    _same_bytes(got, want)
+    argv = ["--ratings", str(port_csv), "--model", "imc", "--rank", "4",
+            "--n-sweeps", "1", "--n-shards", "2", "--topology",
+            "obs_parallel", "--platform", "cpu"]
+    with pytest.raises(SystemExit) as want:
+        ref_train.main(argv)
+    with pytest.raises(SystemExit) as got:
+        train.main(argv)
+    assert str(got.value) == str(want.value) and "als only" in str(got.value)
 
 
 @pytest.mark.parametrize("argv", [
@@ -139,10 +171,22 @@ def test_cli_sharded_raises_naming_item_13(tmp_path, csv_pair):
     ["--model", "imc", "--n-shards", "2"],
     ["--topology", "obs_parallel", "--n-shards", "2", "--num-slices", "2"],
 ])
-def test_cli_unported_paths_raise_naming_item_13(argv):
-    with pytest.raises(NotImplementedError, match=ITEM_13):
-        train.main(["--synthetic", "tiny", "--rank", "2", "--n-sweeps", "1",
-                    "--platform", "cpu"] + argv)
+def test_cli_unported_paths_raise_naming_item_13(argv, tmp_path):
+    """The multi-process bootstrap (item 13f) still raises. The sharded IMC
+    and the 2-D ALS (items 13d and 13e), which raised here until they were
+    ported, now run, and their summaries agree with the JAX CLI's."""
+    base = ["--synthetic", "tiny", "--rank", "2", "--n-sweeps", "1"]
+    if "--coordinator" in argv or "--num-processes" in argv:
+        with pytest.raises(NotImplementedError, match=ITEM_13 + "f"):
+            train.main(base + ["--platform", "cpu"] + argv)
+        return
+    got, want = _run_both(lambda side: base + argv, tmp_path)
+    assert len(got) == len(want) == 2
+    assert sorted(got[-1]) == sorted(want[-1])
+    assert got[-1]["train_rmse"] == pytest.approx(want[-1]["train_rmse"],
+                                                  rel=5e-3)
+    assert (got[-1]["collective_bytes_per_sweep"]
+            == want[-1]["collective_bytes_per_sweep"])
 
 
 def test_cli_process_id_alone_does_nothing(tmp_path):
