@@ -173,7 +173,32 @@ non-zero before the result lines are printed:
    512 users through ``sharded_topk`` (the projected catalog row-sharded on
    the card), whose ids must equal single-device serving of the same
    factors but for near-ties (relative float64 gap under 1e-6);
-11. one JSON line describing every kernel, then the result line. Each
+11. the multi-process runtime (``parallel.mesh.initialize_distributed``,
+   gloo on 127.0.0.1) on the one card: MP_P processes, one shard each on
+   ``cuda:0``, each child with a time limit and killed by its PID past it
+   (``probes.multiprocess.launch``). The training CLI at ML-25M, rank 64,
+   ``--n-shards 2 --exchange allgather --n-sweeps 5`` (auto layout: dense
+   block, hot columns) with ``--coordinator``, ``--num-processes`` and
+   ``--process-id``: both processes exit 0, only process 0 prints and
+   writes the JSONL, whose history equals (rtol 1e-6) the same sharded fit
+   in this one process on ``Mesh((cuda:0,) * 2)`` from the same default
+   sharded init and falls at every sweep; its sweep-5 RMSE is printed
+   beside phase 8's single-device CLI (another init: not gated). Then
+   ``python -m recommendation_models_tpu_torch.probes.multiprocess`` in
+   MP_P processes: ML-25M 1-D allgather (each process launches B1 and B2
+   and routes nothing; its set-up seconds, seconds a sweep beside phase
+   9's one-process S = 2 sweep, and peak memory are printed; these launch
+   counts, summed, are the ``multiprocess`` path of the ``kernels``
+   line); ML-1M 'allgather', 'all_to_all', 'hybrid' explicit and
+   'allgather' implicit (alpha 1.0), each history equal (rtol 1e-6) to the
+   same program in one process and its ``collective_bytes_per_sweep()``
+   equal to the JAX package's at S = 2 (``REF_MP_BYTES_ML1M``); the ML-1M
+   2-D program, one slice a process, the same way; a fault injection at
+   ML-1M (exit 17 after sweep 2 with checkpoints, then ``--resume``, whose
+   finished history equals the uninterrupted run's); and phase 7's IMC
+   config sharded over the processes (history within 2e-2 of phase 7's,
+   f64 objective within 1e-3);
+12. one JSON line describing every kernel, then the result line. Each
    entry's numbers are at its ``k`` and ``batch``; B4, B5a, B5b and B5c
    have ``resident`` (their kernel's resident blocks at k=64; B4 and B5b
    per instantiation in ``resident_by_instantiation``); B1, B2 and B3 also have
@@ -184,8 +209,8 @@ non-zero before the result lines are printed:
    ``device_ms``, ``host_us``, ``l2_bound_ms`` and ``l2_tb_s`` at the
    probe's shape, ``at_main_path`` (both halves' gathers) and
    ``at_row_block`` (a row block of each half). B1's and B2's ``launches``
-   are the main path's and the sharded phase's (B1's also the 2-D
-   phase's), each in ``launches_by_path``.
+   are the main path's, the sharded phase's and the multi-process
+   phase's (B1's also the 2-D phase's), each in ``launches_by_path``.
 
 ``--profile`` adds one profiled main-path sweep and prints its device time
 by kernel and the device's idle share (not run by default).
@@ -403,6 +428,53 @@ REF_HYBRID_BYTES_ML1M = {
 REF_IMC_BYTES_ML1M = {
     "w_step": 761484, "h_step": 883980, "per_sweep_total": 1645464}
 
+# The multi-process phase (11): processes on the one card (one shard each),
+# each child's time limit, and the tolerance of a
+# history against the same program in one process (the gathers and the
+# sums in shard order make it bit for bit; f32 RMSE rounding aside).
+MP_P = 2
+MP_TIMEOUT = 300
+MP_RTOL = 1e-6
+# collective_bytes_per_sweep() of the JAX package's sharded programs at
+# ML-1M, rank 64, S = 2 (and of its 2-D program at (D, S) = (2, 1)),
+# recorded on a CPU:
+#   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=2 \
+#   python -c '
+#   import scipy.sparse as sp
+#   from recommendation_models_tpu import ALS
+#   from recommendation_models_tpu.data.synthetic import synthetic_ratings
+#   u, i, r = synthetic_ratings(6040, 3706, 1_000_209, rank=16, seed=0)
+#   R = sp.csr_matrix((r, (u, i)), shape=(6040, 3706))
+#   for ex, alpha in (("allgather", None), ("all_to_all", None),
+#                     ("hybrid", None), ("allgather", 1.0)):
+#       m = ALS(rank=64, reg=0.1, alpha=alpha, n_shards=2, exchange=ex,
+#               n_sweeps=1, platform="cpu").fit(R)
+#       print(ex, alpha, m.exchange_bytes_per_sweep_)
+#   m = ALS(rank=64, reg=0.1, n_shards=2, num_slices=2,
+#           topology="obs_parallel", n_sweeps=1, platform="cpu").fit(R)
+#   print(m.exchange_bytes_per_sweep_)'
+REF_MP_BYTES_ML1M = {
+    ("allgather", None): {
+        "user_half": 474368, "item_half": 773120,
+        "per_sweep_total": 1247488, "sse_extra": 474368,
+        "per_sweep_with_sse": 1721856},
+    ("all_to_all", None): {
+        "user_half": 482560, "item_half": 786240,
+        "per_sweep_total": 1268800, "sse_extra": 482560,
+        "per_sweep_with_sse": 1751360},
+    ("hybrid", None): {
+        "user_half": 777472, "item_half": 937632,
+        "per_sweep_total": 1715104, "sse_extra": 777472,
+        "per_sweep_with_sse": 2492576},
+    ("allgather", 1.0): {
+        "user_half": 474368, "item_half": 773120, "psum_gram": 32768,
+        "per_sweep_total": 1280256, "sse_extra": 474368,
+        "per_sweep_with_sse": 1754624},
+    "obs_parallel": {
+        "ici": 0, "dcn": 162173440, "per_sweep_total": 162173440,
+        "sse_extra": 0, "per_sweep_with_sse": 162173440},
+}
+
 _PALLAS = "recommendation_models_tpu/ops/pallas/cholesky.py"
 TPU_KERNEL = {
     "cholesky_solve_batched": f"{_PALLAS}:226",
@@ -430,9 +502,12 @@ SHARDED_PATH = (f"ShardedALSProgram(S={SHARDED_S}, allgather).make_fit on "
                 f"one card, ML-25M shape")
 HYBRID_PATH = (f"HybridALSProgram(D={HYBRID_D}, S={HYBRID_S}).make_fit on "
                f"one card, ML-25M shape")
+MP_PATH = (f"ShardedALSProgram(S={MP_P}, allgather) across {MP_P} processes "
+           f"on one card (probes.multiprocess), ML-25M shape")
 PATH = {
-    "cholesky_solve_batched": f"{MAIN_PATH}; {SHARDED_PATH}; {HYBRID_PATH}",
-    "cholesky_solve_hot": f"{MAIN_PATH}; {SHARDED_PATH}",
+    "cholesky_solve_batched": (f"{MAIN_PATH}; {SHARDED_PATH}; {HYBRID_PATH}; "
+                               f"{MP_PATH}"),
+    "cholesky_solve_hot": f"{MAIN_PATH}; {SHARDED_PATH}; {MP_PATH}",
     "cholesky_solve_2g": "ops.solve.solve_spd_t(Gt2=), k=64, B=65,536",
     "cholesky_solve_rank1": "probes.solve_variants, k=128, B=65,536",
     "cholesky_solve_panel": "probes.solve_variants, k=128, B=65,536",
@@ -1573,7 +1648,7 @@ def phase_sharded(torch, dev, coo, ul, il, main_hist, epoch_s):
             check(not any(ch.ROUTED.values()), f"ML-1M {ex} calls routed")
             del prog
     log(f"# sharded phase: {time.perf_counter() - t_phase:.1f}s")
-    return launches
+    return launches, t_sweeps / SWEEPS
 
 
 def phase_hybrid(torch, dev, coo, main_hist, epoch_s, imc):
@@ -1774,6 +1849,219 @@ def phase_hybrid(torch, dev, coo, main_hist, epoch_s, imc):
     check(all(g < 1e-6 for g in gaps),
           f"sharded IMC ids differ from single-device serving: {gaps[:5]}")
     log(f"# 2-D and sharded IMC phase: {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
+def run_processes(argv_for, label, timeout, expect=0):
+    """``argv_for(rank, coordinator)`` in MP_P processes at once
+    (``probes.multiprocess.launch``: a fresh coordinator on 127.0.0.1, each
+    process killed by its PID past ``timeout``), from the checkout's root;
+    each process's stdout, after every exit code is checked."""
+    from recommendation_models_tpu_torch.probes.multiprocess import launch
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    res = launch(argv_for, MP_P, timeout, env=env, cwd=root)
+    secs = time.perf_counter() - t0
+    log(f"# {MP_P} processes {label}: exit {[rc for rc, _, _ in res]} in "
+        f"{secs:.1f}s")
+    for rank, (rc, out, err) in enumerate(res):
+        check(rc == expect, f"{label}: process {rank} exited {rc} (want "
+              f"{expect}): {out[-2000:]} {err[-3000:]}")
+    return [out for _, out, _ in res]
+
+
+def run_probe(outdir, label, *extra, timeout=MP_TIMEOUT, expect=0):
+    """``probes.multiprocess`` in MP_P processes on the card, one shard a
+    process: each process's JSON line."""
+    outs = run_processes(lambda rank, coord: [
+        sys.executable, "-m",
+        "recommendation_models_tpu_torch.probes.multiprocess", coord,
+        str(MP_P), str(rank), outdir, *extra], label, timeout, expect)
+    return [json.loads(out.strip().splitlines()[-1]) for out in outs]
+
+
+def same_history(got, want, label):
+    rel = max(abs(a - b) / b for a, b in zip(got, want))
+    check(len(got) == len(want) and rel <= MP_RTOL,
+          f"{label}: the history differs from one process's: {got} vs "
+          f"{want}")
+    return rel
+
+
+def phase_multiprocess(torch, dev, coo, cli_hist, sharded_sweep_s, imc):
+    """The multi-process runtime on one card: MP_P processes, one shard
+    each on ``cuda:0``, through gloo on 127.0.0.1. The CLI at ML-25M and
+    the programs of ``probes.multiprocess`` (ML-25M 1-D allgather with its
+    launch counts, ML-1M exchanges, the 2-D program, sharded IMC, a crash
+    and its resume), each held against the same program in this one
+    process on ``Mesh((cuda:0,) * MP_P)`` (``coo``: the main path's
+    ratings, which ``probes.multiprocess`` makes alike in each process).
+    ``cli_hist``: phase 8's single-device CLI history at ML-25M. The ML-1M
+    launches, untimed, run at once. Returns B1's and B2's launches
+    summed over the processes of the ML-25M run."""
+    import concurrent.futures
+    import types
+    import numpy as np
+    import scipy.sparse as sp
+    from recommendation_models_tpu_torch.parallel.mesh import (
+        HybridMesh, Mesh)
+    from recommendation_models_tpu_torch.probes import SCALES
+    from recommendation_models_tpu_torch.probes import imc as pi
+    from recommendation_models_tpu_torch.probes import multiprocess as mp
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke", "multiprocess")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    mesh = Mesh([dev] * MP_P)
+    sweeps = mp.SWEEPS["ml25m"]
+
+    def one_process(model, scale, R, exchange="allgather", alpha=None,
+                    scanned=False):
+        m = (HybridMesh([[dev]] * MP_P) if model == "hybrid2d" else mesh)
+        prog = mp.build_program(model, scale, R, m, exchange, alpha)
+        res = mp.run_als(prog, scale, R.nnz, dev, scanned=scanned)
+        del prog
+        torch.cuda.empty_cache()
+        return res
+
+    # ML-25M through the CLI, one shard a process
+    jsonl = os.path.join(root, "cli_ml25m.jsonl")
+    outs = run_processes(lambda rank, coord: [
+        sys.executable, "-m", "recommendation_models_tpu_torch.train",
+        "--synthetic", "ml25m", "--rank", str(RANK), "--n-shards", str(MP_P),
+        "--exchange", "allgather", "--n-sweeps", str(sweeps),
+        "--metrics-jsonl", jsonl, "--coordinator", coord,
+        "--num-processes", str(MP_P), "--process-id", str(rank)],
+        "CLI ML-25M", MP_TIMEOUT)
+    for line in outs[0].splitlines():
+        if line.startswith("[train]"):
+            log(f"#   CLI process 0: {line}")
+    check(not any(line.startswith("[train]") for out in outs[1:]
+                  for line in out.splitlines()),
+          "a process other than 0 printed the CLI's summary")
+    lines = read_jsonl(jsonl)
+    mp_hist = [x["train_rmse"] for x in lines[:-1]]
+    check(len(lines) == sweeps + 1,
+          f"the CLI's JSONL has {len(lines)} records")
+    u, i, r = coo
+    R25 = sp.csr_matrix((r, (u, i)), shape=SCALES["ml25m"][:2])
+    ref25 = one_process("als", "ml25m", R25, scanned=True)
+    rel = same_history(mp_hist, ref25["history"], "CLI ML-25M")
+    check(all(b < a for a, b in zip(mp_hist, mp_hist[1:])),
+          f"the CLI's history does not fall at every sweep: {mp_hist}")
+    log(f"# CLI ML-25M, {MP_P} processes: history {mp_hist}, max rel diff "
+        f"vs one process on Mesh((cuda:0,) * {MP_P}) {rel:.2e}; sweep "
+        f"{sweeps} RMSE {mp_hist[-1]:.6f} (sharded init) beside the "
+        f"single-device CLI's {cli_hist[sweeps - 1]:.6f} (phase 8, default "
+        f"init)")
+
+    # ML-25M through the probe: the launch counts, set-up, sweeps, memory
+    lines = run_probe(os.path.join(root, "ml25m"), "probe ML-25M allgather",
+                      "--scale", "ml25m")
+    launches = {n: 0 for n in MAIN_KERNELS}
+    for ln in lines:
+        run = ln["runs"][0]
+        log(f"# multi-process ML-25M allgather, process {ln['process']} of "
+            f"{ln['processes']} on {ln['device']}: data "
+            f"{run['data_s']:.2f}s, set-up (layouts, shard, placement) "
+            f"{run['setup_s']:.2f}s, {run['sweep_s']:.4f} s a sweep (phase "
+            f"9's one-process S={SHARDED_S}: {sharded_sweep_s}), peak "
+            f"{ln['peak_bytes']} bytes, launches={run['launches']} "
+            f"routed={run['routed']}")
+        same_history(run["history"], ref25["history"], "probe ML-25M")
+        check(all(run["launches"][n] > 0 for n in MAIN_KERNELS),
+              f"process {ln['process']} did not launch B1 and B2: "
+              f"{run['launches']}")
+        check(not any(run["routed"].values()),
+              f"process {ln['process']} routed calls: {run['routed']}")
+        for n in MAIN_KERNELS:
+            launches[n] += run["launches"][n]
+    del R25, ref25
+    torch.cuda.empty_cache()
+
+    # ML-1M, untimed, the launches at once: each exchange explicit, the
+    # implicit allgather, the 2-D program, sharded IMC, a crash after sweep
+    # 2 with checkpoints and then its resume
+    crash = os.path.join(root, "crash")
+
+    def crash_and_resume():
+        run_probe(crash, "probe ML-1M crash after sweep 2", "--scale",
+                  "ml1m", "--crash-after-sweep", "2", expect=mp.CRASH_EXIT)
+        check(sorted(os.listdir(os.path.join(crash, "ckpt")))
+              == ["step_00000001", "step_00000002"],
+              "the crashed run left no checkpoints of sweeps 1 and 2")
+        return run_probe(crash, "probe ML-1M --resume", "--scale", "ml1m",
+                         "--resume")
+
+    runs = {(None, "1d"): ("--exchange", "allgather,all_to_all,hybrid"),
+            (1.0, "1d"): ("--exchange", "allgather", "--alpha", "1.0"),
+            (None, "hybrid2d"): ("--model", "hybrid2d"),
+            (None, "imc"): ("--model", "imc")}
+    with concurrent.futures.ThreadPoolExecutor(len(runs) + 1) as pool:
+        futs = {key: pool.submit(
+            run_probe, os.path.join(root, f"ml1m_{key[1]}_{key[0]}"),
+            f"probe ML-1M {key[1]} alpha={key[0]}", "--scale", "ml1m", *extra)
+            for key, extra in runs.items()}
+        futs["resume"] = pool.submit(crash_and_resume)
+        out = {key: f.result() for key, f in futs.items()}
+    R1 = mp.ratings("ml1m")
+    for alpha, modes in ((None, ("allgather", "all_to_all", "hybrid")),
+                         (1.0, ("allgather",))):
+        lines = out[alpha, "1d"]
+        for i, ex in enumerate(modes):
+            want = one_process("als", "ml1m", R1, ex, alpha)["history"]
+            for ln in lines:
+                run = ln["runs"][i]
+                rel = same_history(run["history"], want, f"ML-1M {ex}")
+                check(run["bytes_per_sweep"] == REF_MP_BYTES_ML1M[ex, alpha],
+                      f"ML-1M {ex} bytes differ from the JAX package's: "
+                      f"{run['bytes_per_sweep']}")
+            log(f"# multi-process ML-1M {ex} alpha={alpha}: history max rel "
+                f"diff vs one process {rel:.2e}; bytes/shard/sweep "
+                f"{run['bytes_per_sweep']['per_sweep_total']} (JAX package "
+                f"S={MP_P}: "
+                f"{REF_MP_BYTES_ML1M[ex, alpha]['per_sweep_total']}); "
+                f"launches={[ln['runs'][i]['launches'] for ln in lines]}")
+            if ex == "allgather" and alpha is None:
+                uninterrupted = want
+    want = one_process("hybrid2d", "ml1m", R1)["history"]
+    for ln in out[None, "hybrid2d"]:
+        run = ln["runs"][0]
+        rel = same_history(run["history"], want, "ML-1M 2-D")
+        check(run["bytes_per_sweep"] == REF_MP_BYTES_ML1M["obs_parallel"],
+              f"ML-1M 2-D bytes differ from the JAX package's: "
+              f"{run['bytes_per_sweep']}")
+        check(run["launches"]["cholesky_solve_batched"] > 0,
+              f"the 2-D process {ln['process']} did not launch B1")
+    log(f"# multi-process ML-1M 2-D ({MP_P} slices of 1): history max rel "
+        f"diff vs one process {rel:.2e}; bytes/position/sweep "
+        f"{run['bytes_per_sweep']}; launches="
+        f"{[ln['runs'][0]['launches'] for ln in out[None, 'hybrid2d']]}")
+    rel = same_history(out["resume"][0]["runs"][0]["history"], uninterrupted,
+                       "ML-1M resume")
+    log(f"# multi-process ML-1M crash and resume: history max rel diff vs "
+        f"the uninterrupted fit {rel:.2e}")
+
+    # phase 7's IMC config sharded over the processes
+    got = np.load(os.path.join(root, "ml1m_imc_None", "result.npz"))
+    ihist = [float(h) for h in got["history"]]
+    irel = max(abs(a - b) / b for a, b in zip(ihist, imc["history"]))
+    X, Y, users, items, ratings, cold = imc["data"]
+    tr = ~cold
+    obj = f64_objective(types.SimpleNamespace(W_=got["W"], H_=got["H"]),
+                        X, Y, users[tr], items[tr], ratings[tr], pi.REG)
+    obj_rel = abs(obj - imc["objective"]) / imc["objective"]
+    log(f"# multi-process IMC ml1m, {MP_P} shards: history rel diff vs "
+        f"phase 7 {irel:.2e} (tolerance {IMC_HISTORY_RTOL}); f64 objective "
+        f"{obj:.6f} against phase 7's {imc['objective']:.6f} (rel "
+        f"{obj_rel:.2e})")
+    check(len(ihist) == pi.SWEEPS and irel <= IMC_HISTORY_RTOL,
+          f"the multi-process IMC history differs from phase 7's: {ihist}")
+    check(obj_rel <= HISTORY_RTOL,
+          f"the multi-process IMC f64 objective {obj} differs from phase 7's")
+    log(f"# multi-process phase: {time.perf_counter() - t_phase:.1f}s")
     return launches
 
 
@@ -2286,7 +2574,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     phase_cli(torch, coo, card)
     torch.cuda.empty_cache()
-    sharded_launches = phase_sharded(torch, dev, coo, ul, il, hist, epoch_s)
+    sharded_launches, sharded_sweep_s = phase_sharded(torch, dev, coo, ul, il,
+                                                      hist, epoch_s)
     del ul, il
     for n in MAIN_KERNELS:
         by_path[n]["sharded"] = sharded_launches[n]
@@ -2297,6 +2586,15 @@ def main(argv) -> int:
         "cholesky_solve_batched"]
     launches["cholesky_solve_batched"] += hybrid_launches[
         "cholesky_solve_batched"]
+    torch.cuda.empty_cache()
+    cli_hist = [x["train_rmse"] for x in read_jsonl(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+        "ml25m.jsonl"))[:-1]]
+    mp_launches = phase_multiprocess(torch, dev, coo, cli_hist,
+                                     sharded_sweep_s, imc)
+    for n in MAIN_KERNELS:
+        by_path[n]["multiprocess"] = mp_launches[n]
+        launches[n] += mp_launches[n]
     kernels = []
     for name in TPU_KERNEL:
         r = results[name]

@@ -7,26 +7,31 @@ and the row gather-and-sum) are hand-written CUDA C++ (``csrc/``). It imports ne
 package. Entry points run on the CUDA card unless the caller passes
 ``platform='cpu'``.
 
-Ported so far: the single-device explicit/implicit ALS fit (layout, grams,
-solves, sweeps, estimator), serving (``ops.topk``, ``ALS.recommend`` and
-``top_n``, ``evaluate`` and ``probes.serving``), the single-device IMC
-estimator (fit, cold start, serving; ``probes.imc``), checkpoint and resume
-of both estimators (``utils.checkpoint``), the solve variants
-(``ops.cholesky`` entries and ``probes.solve_variants``) and the
-gather-rate probes (``ops.gather`` and ``probes.dma_gather``,
-``gather_rates``, ``ablate_epoch``, ``gather_budget``), the training CLI
-(``python -m recommendation_models_tpu_torch.train``), the MovieLens loader
-with its native parser (``data.movielens``, ``data.native``), metrics and
-profiler traces (``utils.logging``, ``utils.profiling``) and the NumPy
-oracles (``oracle``), and the 1-D sharded ALS with its sharded serving
-(``parallel``, ``ALS(n_shards=S)``, ``ops.topk.sharded_topk``). Sharded
-IMC, the 2-D topology and multi-process runs are still to come
-(ROADMAP.md).
+Every module of the JAX package has its counterpart here: the ALS fit,
+explicit and implicit, on one device, sharded over a 1-D mesh (every
+exchange) or over the 2-D observation-parallel mesh; IMC on one device or
+sharded; serving (``ops.topk``, ``ALS.recommend``, ``evaluate``);
+checkpoints (``utils.checkpoint``); the training CLI (``python -m
+recommendation_models_tpu_torch.train``) with the MovieLens loader and its
+native parser; metrics, traces and the NumPy oracles; the multi-process
+runtime (``parallel.mesh.initialize_distributed``, a gloo process group
+for the mesh's collectives); and the probes (``probes``).
+
+``ALS`` and ``IMC`` load at first use, so a process that needs neither
+(a probe, a worker of a multi-process run) does not pay for scikit-learn's
+import.
 """
 
 __version__ = "0.1.0"
 
-from recommendation_models_tpu_torch.models.als import ALS
-from recommendation_models_tpu_torch.models.imc import IMC
-
 __all__ = ["ALS", "IMC", "__version__"]
+
+
+def __getattr__(name):
+    if name == "ALS":
+        from recommendation_models_tpu_torch.models.als import ALS
+        return ALS
+    if name == "IMC":
+        from recommendation_models_tpu_torch.models.imc import IMC
+        return IMC
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

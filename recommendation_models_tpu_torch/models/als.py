@@ -25,6 +25,9 @@ raise ``ValueError``), with ``exchange`` 'allgather', 'all_to_all' or
 'hybrid'. The fitted tables stay on the mesh, padded and row-sharded;
 ``U_`` and ``V_`` are host copies made at first access, and ``recommend``
 serves through ``ops.topk.sharded_topk`` without a whole-table host copy.
+Across processes (``parallel.mesh.initialize_distributed``) the first
+access of ``U_`` or ``V_``, ``recommend``, pickling and the checkpoints
+are collectives: every process must make them, in the same order.
 Assigning ``U_`` or ``V_`` drops the device tables and the serving caches.
 ``topology='obs_parallel'`` with ``num_slices=D`` runs
 ``parallel.hybrid_als`` on ``get_hybrid_mesh(n_shards, num_slices=D)``'s
@@ -742,18 +745,24 @@ class ALS(BaseEstimator):
     def _sharded_topk_backend(self, prog, method: str, recall_target: float):
         mesh, n_items = prog.mesh, self.n_items_
         U_dev, V_dev = self._U_dev, self._V_dev
-        home = mesh.devices[0]
+        home = mesh.devices[mesh.local[0]]
         if home.type == "cuda":
             full_f32()
         perm_back, perm_fwd = serving_permutation(n_items)
         cache = getattr(self, "_vserve_cache", None)
         if cache is None or cache[0] is not V_dev:
-            per = V_dev[0].shape[0]
+            per = V_dev[mesh.local[0]].shape[0]
             ids = np.concatenate([perm_back,
                                   np.arange(n_items, per * len(V_dev))])
-            self._vserve_cache = (V_dev, tuple(
-                take_rows(V_dev, ids[s * per:(s + 1) * per], d)
-                for s, d in enumerate(mesh.devices)))
+            blocks = []
+            for s, d in enumerate(mesh.devices):
+                # across processes take_rows is collective: every process
+                # takes every block's rows, in turn, and keeps its own
+                mine = s in mesh.local
+                rows = take_rows(V_dev, ids[s * per:(s + 1) * per],
+                                 d if mine else home)
+                blocks.append(rows if mine else None)
+            self._vserve_cache = (V_dev, tuple(blocks))
         V_serve = self._vserve_cache[1]
 
         def query_rows(ids):

@@ -48,12 +48,4 @@ def resolve_alias(primary, alias, default, primary_name, alias_name):
     return alias
 
 
-def not_ported(what: str, item: str, estimator: str) -> NotImplementedError:
-    """The error of a path the port does not have yet, naming its ROADMAP
-    item and the JAX package's estimator that has it."""
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md, {item}); use "
-        f"recommendation_models_tpu.{estimator} for it")
-
-
-__all__ = ["BaseEstimator", "not_ported", "resolve_alias"]
+__all__ = ["BaseEstimator", "resolve_alias"]

@@ -26,7 +26,9 @@ Serving (``recommend``, ``top_n``) scores the projected catalog ``Y H`` with
 Sharded fits: ``n_shards > 1`` row-shards the users (W step) and items (H
 step) over ``get_mesh(n_shards, platform=...)`` (``sharded_sweep_fn``):
 each shard accumulates its own rows' grams, and the (d, k) reductions of
-the CG are summed over the shards; W and H stay replicated. ``tol > 0``
+the CG are summed over the shards; W and H stay replicated. Across
+processes (``parallel.mesh.initialize_distributed``) each process holds
+its own shards and runs the CG on the same sums. ``tol > 0``
 then takes the host loop, as in the reference. After a sharded fit
 ``recommend`` serves the projected catalog row-sharded over the fit's mesh
 through ``ops.topk.sharded_topk``; an estimator unpickled on a host with
@@ -60,7 +62,9 @@ from recommendation_models_tpu_torch.ops.topk import (
     grouped_exclusion_topk, permuted_topk, serving_permutation, sharded_topk,
     topk_scores,
 )
-from recommendation_models_tpu_torch.parallel.mesh import get_mesh, shard_put
+from recommendation_models_tpu_torch.parallel.mesh import (
+    cuda_device_counts, get_mesh, shard_put,
+)
 from recommendation_models_tpu_torch.solver.als_sweep import (
     device_buckets, resolve_gather_budget,
 )
@@ -120,26 +124,37 @@ def _factor_grams(Z, buckets, n_rows: int, chunk: int = 512,
 
 
 def _solve_factor(F, Z, buckets, n_rows: int, M0, reg: float,
-                  cg_iters: int, sharded: bool = False):
+                  cg_iters: int, sharded: bool = False, mesh=None):
     """``min_M ½ Σ_Ω (f_rowᵀ M z_col − r)² + reg/2 ‖M‖²`` by restarted CG
     whose Hessian-apply is ``Fᵀ[(F M) ⊙_rows G] + reg M``: dense products,
     no gather inside the loop. Returns (M, sse(M)); the residual at the new
     M comes exactly from the same grams (the objective is quadratic).
 
-    ``sharded``: F, Z and buckets are per-shard sequences (each shard's row
-    block of F, the gathered opposite projection and its buckets, on the
-    shard's device; ``n_rows`` the rows a shard). Then b, r2, every
-    matvec's ``Fᵀ T`` and quad are summed over the shards onto M0's device
-    (the reference's psum), where the CG runs once on the summed values
-    every shard of the reference holds alike."""
-    shards = tuple(zip(F, Z, buckets)) if sharded else ((F, Z, buckets),)
-    home = M0.device
+    ``sharded``: F, Z and buckets are per-shard sequences over the 1-D
+    ``mesh`` (each shard's row block of F, the gathered opposite
+    projection and its buckets, on the shard's device, ``None`` for a
+    shard of another process; ``n_rows`` the rows a shard; default mesh:
+    one process over F's devices). Then b, r2, every matvec's ``Fᵀ T`` and
+    quad are summed over the shards in shard order through the mesh's
+    ``psum`` (the reference's) onto M0's device (the first local shard's),
+    and the CG runs there in every process over the same summed values, as
+    every shard of the reference holds them."""
+    if not sharded:
+        shards = ((F, Z, buckets),)
 
-    def psum(parts):
-        acc = parts[0].to(home)
-        for part in parts[1:]:
-            acc = acc + part.to(home)
-        return acc
+        def psum(parts):
+            return parts[0]
+    else:
+        from recommendation_models_tpu_torch.parallel import mesh as pmesh
+        if mesh is None:
+            mesh = pmesh.Mesh([f.device for f in F])
+        shards = tuple((F[s], Z[s], buckets[s]) for s in mesh.local)
+
+        def psum(parts):
+            full = [None] * mesh.size
+            for s, part in zip(mesh.local, parts):
+                full[s] = part
+            return pmesh.psum(mesh, full)[mesh.local[0]].to(M0.device)
 
     grams = []
     for f, z, bk in shards:
@@ -213,13 +228,15 @@ def sharded_sweep_fn(mesh, X, Y, user_layout, item_layout, reg: float,
 
     Users (the W step) and items (the H step) are row-sharded: X and Y are
     padded to ``rows_per_shard · S`` rows, and each shard takes its rows'
-    buckets of ``shard_layout(layout, S)``. W and H stay replicated (one
-    copy on the first shard's device). A half-step gathers the projections
-    of every shard's own feature rows (``Y_loc H``, rank wide, not the
-    features) and solves ``_solve_factor(sharded=True)``. The bytes are the
-    reference's analytic count: a half-step's tiled gather of the local
-    projection, then the (d, k) sums of b and of each CG matvec, and two
-    scalars, as a ring all-reduce, 2(S-1)/S of their bytes."""
+    buckets of ``shard_layout(layout, S)``; each process holds its own
+    shards. W and H stay replicated (one copy on the first local shard's
+    device, in every process). A half-step gathers the projections of
+    every shard's own feature rows (``Y_loc H``, rank wide, not the
+    features) and solves ``_solve_factor(sharded=True)`` on the mesh. The
+    bytes are the reference's analytic count: a half-step's tiled gather
+    of the local projection, then the (d, k) sums of b and of each CG
+    matvec, and two scalars, as a ring all-reduce, 2(S-1)/S of their
+    bytes."""
     from recommendation_models_tpu_torch.data.layout import shard_layout
     from recommendation_models_tpu_torch.parallel.mesh import (
         all_gather, shard_put,
@@ -244,15 +261,15 @@ def sharded_sweep_fn(mesh, X, Y, user_layout, item_layout, reg: float,
     def tower(F, M, n):
         # the global projection F M on each shard: every shard projects
         # its own rows, then the (rows, k) results are gathered
-        return tuple(t[:n] for t in all_gather(
-            mesh, [f @ M.to(f.device) for f in F]))
+        return tuple(None if t is None else t[:n] for t in all_gather(
+            mesh, [None if f is None else f @ M.to(f.device) for f in F]))
 
     def sweep(W, H):
         W, _ = _solve_factor(Xs, tower(Ys, H, n_items), ub, ul.rows_per_shard,
-                             W, reg, cg_iters, sharded=True)
+                             W, reg, cg_iters, sharded=True, mesh=mesh)
         H, sse = _solve_factor(Ys, tower(Xs, W, n_users), ib,
                                il.rows_per_shard, H, reg, cg_iters,
-                               sharded=True)
+                               sharded=True, mesh=mesh)
         obj = 0.5 * sse + 0.5 * reg * ((W ** 2).sum() + (H ** 2).sum())
         return W, H, obj
 
@@ -441,7 +458,7 @@ class IMC(BaseEstimator):
             if mesh.size != self.n_shards:
                 raise ValueError(f"a mesh of {mesh.size} devices for "
                                  f"n_shards={self.n_shards}")
-            device = mesh.devices[0]
+            device = mesh.devices[mesh.local[0]]
         else:
             device = resolve_device(self.platform)
         users, items, ratings = _as_triplets(R)
@@ -661,13 +678,14 @@ class IMC(BaseEstimator):
         mesh = getattr(self, "_serve_mesh", None)
         if mesh is not None:
             return mesh
-        if (resolve_device(self.platform).type == "cuda"
-                and torch.cuda.device_count() < self.n_shards):
-            warnings.warn(
-                f"this IMC was fitted on {self.n_shards} shards, and this "
-                f"host has {torch.cuda.device_count()} CUDA device(s): "
-                "serving on one device", stacklevel=3)
-            return None
+        if resolve_device(self.platform).type == "cuda":
+            cards = sum(cuda_device_counts())
+            if cards < self.n_shards:
+                warnings.warn(
+                    f"this IMC was fitted on {self.n_shards} shards, and "
+                    f"this run has {cards} CUDA device(s): serving on one "
+                    "device", stacklevel=3)
+                return None
         return get_mesh(self.n_shards, platform=self.platform,
                         num_slices=self.num_slices)
 
@@ -726,7 +744,7 @@ class IMC(BaseEstimator):
             sharded = self._veff_dev_cached()
         if sharded is not None:
             Veff_sh, mesh, axis, perm_back, perm_fwd = sharded
-            device = mesh.devices[0]
+            device = mesh.devices[mesh.local[0]]
             n_cat = Y.shape[0]
             n = min(n, n_cat)
 

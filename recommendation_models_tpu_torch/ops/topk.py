@@ -299,26 +299,31 @@ def sharded_topk(
     ``V``: the whole (n, k) catalog (a tensor or array, padded with zero
     rows to a multiple of the shard count and placed one block a shard),
     or the per-shard blocks of a table that is already sharded (a sharded
-    fit's). Each shard selects its top ``fetch_shard`` candidates; the
-    candidates of every shard are gathered on the first shard's device and
-    merged into the top ``fetch`` there, so the traffic is O(B k S), not
-    O(B n). ``n_valid``: the true item count of a padded table; rows at or
-    past it never become candidates. Returns (scores (B, k), items (B, k))
-    on the first shard's device; with ``exclude`` (B, E, -1 = none) the
-    seen items are filtered from ``k + E`` candidates (``_filter_seen``).
+    fit's). Each local shard selects its top ``fetch_shard`` candidates;
+    the candidates of every shard (across processes, gathered through the
+    host) are merged on the first local shard's device into the top
+    ``fetch``, so the traffic is O(B k S), not O(B n). Across processes
+    every process must call it with the same queries, and each gets the
+    whole result. ``n_valid``: the true item count of a padded table; rows
+    at or past it never become candidates. Returns (scores (B, k), items
+    (B, k)) on the first local shard's device; with ``exclude`` (B, E, -1 =
+    none) the seen items are filtered from ``k + E`` candidates
+    (``_filter_seen``).
     """
+    from recommendation_models_tpu_torch.parallel.mesh import gather_parts
     S = mesh.shape[axis]
+    local = mesh.local
     if isinstance(V, (torch.Tensor, np.ndarray)):
         V = torch.as_tensor(V, dtype=torch.float32)
         n_rows = V.shape[0]
         per = -(-n_rows // S)
         if per * S != n_rows:
             V = torch.nn.functional.pad(V, (0, 0, 0, per * S - n_rows))
-        blocks = tuple(V[s * per:(s + 1) * per].to(d)
+        blocks = tuple(V[s * per:(s + 1) * per].to(d) if s in local else None
                        for s, d in enumerate(mesh.devices))
     else:
         blocks = tuple(V)
-        per = blocks[0].shape[0]
+        per = blocks[local[0]].shape[0]
         n_rows = per * S
     n_items = n_valid if n_valid is not None else n_rows
     if k < 1 or k > n_items:
@@ -331,9 +336,10 @@ def sharded_topk(
     fetch_shard = min(want, per)
     fetch = min(want, S * fetch_shard)
     _resolve_method(method, per, fetch_shard)
-    home = mesh.devices[0]
-    sc_parts, ix_parts = [], []
-    for s, v in enumerate(blocks):
+    home = mesh.devices[local[0]]
+    sc_parts, ix_parts = [None] * S, [None] * S
+    for s in local:
+        v = blocks[s]
         u = torch.as_tensor(U_rows, dtype=torch.float32, device=v.device)
         base = s * per
         if per <= _SMALL_N:
@@ -344,10 +350,13 @@ def sharded_topk(
         else:
             sc, ix = _topk_exact_chunked(u, v, fetch_shard,
                                          n_valid=n_items - base)
-        sc_parts.append(sc.to(home))
-        ix_parts.append((ix + base).to(home))
-    sc_all = torch.cat(sc_parts, dim=1)
-    ix_all = torch.cat(ix_parts, dim=1)
+        sc_parts[s] = sc.to(home)
+        ix_parts[s] = (ix + base).to(home)
+    # every shard's candidates (across processes, through the host)
+    sc_parts = gather_parts(mesh, sc_parts)
+    ix_parts = gather_parts(mesh, ix_parts)
+    sc_all = torch.cat([p.to(home) for p in sc_parts], dim=1)
+    ix_all = torch.cat([p.to(home) for p in ix_parts], dim=1)
     top_sc, pos = _top_k(sc_all, fetch)
     top_ix = torch.gather(ix_all, 1, pos)
     if exclude is None:

@@ -1,6 +1,6 @@
 """Observation-parallel ALS on the 2-D (dcn x data) mesh: the JAX package's
-``parallel/hybrid_als.py`` on the port's single-process ``HybridMesh``
-(``parallel/mesh.py``).
+``parallel/hybrid_als.py`` on the port's ``HybridMesh``
+(``parallel/mesh.py``), in one process or across several.
 
 The layout of the program on a ``(D, S)`` mesh:
 
@@ -22,9 +22,11 @@ analytic count). Neither the dense-whale block nor the hot columns run
 here: their values span every global column of a row, so the layouts are
 built with ``DataConfig(dense_whales=False, hot_cols=0)``.
 
-The positions run one after another in this process, each solving its own
-replicated systems, as the reference's does; on one card a
-``HybridMesh([[cuda:0] * S] * D)`` runs them there.
+Each process runs its own positions (``mesh.local``) one after another,
+each solving its own replicated systems, as the reference's does; on one
+card a ``HybridMesh([[cuda:0] * S] * D)`` runs them there. Across
+processes each process is one slice (``get_hybrid_mesh``), so the gathers
+along 'data' stay in the process and the sum along 'dcn' crosses them.
 """
 
 from __future__ import annotations
@@ -87,12 +89,13 @@ def split_layout_slices(layout: ShardedLayout, n_slices: int):
 
 def _put_positions(mesh: HybridMesh, split) -> tuple:
     """The split buckets as device buckets (``device_buckets``' format) of
-    each position: ``out[d][s]`` is a tuple of bucket dicts on
-    ``mesh.grid[d][s]``."""
+    each local position: ``out[d][s]`` is a tuple of bucket dicts on
+    ``mesh.grid[d][s]`` (``None`` at another process's positions)."""
+    local = set(mesh.local)
     out = []
     for d, row in enumerate(mesh.grid):
         out.append(tuple(
-            tuple(dict(
+            None if (d, s) not in local else tuple(dict(
                 row_ids=torch.from_numpy(
                     b["row_ids"][d, s].astype(np.int64)).to(dev),
                 indices=torch.from_numpy(
@@ -167,21 +170,28 @@ class HybridALSProgram:
         return G, rhs, deg
 
     def _half(self, V: Grid, buckets, rows_local: int):
-        """One orientation's half-sweep at every position: (the new row
-        blocks ``x[d][s]``, the opposite table gathered along 'data')."""
+        """One orientation's half-sweep at every local position: (the new
+        row blocks ``x[d][s]``, the opposite table gathered along
+        'data')."""
         cfg, mesh = self.cfg, self.mesh
         dcn, data = self.dcn_axis, self.axis
-        k = V[0][0].shape[-1]
+        first = mesh.local[0]
+        k = V[first[0]][first[1]].shape[-1]
         V_full = all_gather_along(mesh, V, data)
-        D, S = self.n_slices, self.n_shards
-        local = [[self._local_normal_equations(V_full[d][s], buckets[d][s],
-                                               rows_local)
-                  for s in range(S)] for d in range(D)]
+
+        def grid(fn):
+            """``fn(d, s)`` at each local position, ``None`` elsewhere."""
+            local = set(mesh.local)
+            return tuple(tuple(fn(d, s) if (d, s) in local else None
+                               for s in range(self.n_shards))
+                         for d in range(self.n_slices))
+        eqs = grid(lambda d, s: self._local_normal_equations(
+            V_full[d][s], buckets[d][s], rows_local))
         # the one cross-slice collective: per-row normal equations
-        G = psum_along(mesh, [[x[0] for x in row] for row in local], dcn)
-        rhs = psum_along(mesh, [[x[1] for x in row] for row in local], dcn)
-        deg_local = [[x[2] for x in row] for row in local]
-        del local
+        G = psum_along(mesh, grid(lambda d, s: eqs[d][s][0]), dcn)
+        rhs = psum_along(mesh, grid(lambda d, s: eqs[d][s][1]), dcn)
+        deg_local = grid(lambda d, s: eqs[d][s][2])
+        del eqs
         deg = None
         if cfg.reg_by_degree or (cfg.reg == 0 and cfg.alpha is None):
             deg = psum_along(mesh, deg_local, dcn)
@@ -189,56 +199,56 @@ class HybridALSProgram:
         if cfg.alpha is not None:
             # the global gramian: V is replicated across 'dcn', so the sum
             # along 'data' alone completes VᵀV
-            g0 = psum_along(mesh, [[b.t() @ b for b in row] for row in V],
+            g0 = psum_along(mesh, grid(lambda d, s: V[d][s].t() @ V[d][s]),
                             data)
-        out = []
-        for d in range(D):
-            row = []
-            for s in range(S):
-                dev = mesh.grid[d][s]
-                if cfg.reg_by_degree:
-                    reg_vec = cfg.reg * torch.clamp_min(deg[d][s], 1.0)
-                else:
-                    reg_vec = torch.full((rows_local + 1,), cfg.reg,
-                                         dtype=torch.float32, device=dev)
-                if cfg.reg == 0 and cfg.alpha is None:
-                    # reg=0: zero-degree (padded or empty) rows have G=0,
-                    # rhs=0; any positive ridge solves them to exactly 0
-                    reg_vec = torch.where(deg[d][s] > 0, reg_vec,
-                                          torch.ones_like(reg_vec))
-                Gp = G[d][s]
-                if g0 is not None:
-                    Gp = Gp + g0[d][s].reshape(1, -1)
-                row.append(solve_spd_flat(Gp[:rows_local],
-                                          rhs[d][s][:rows_local], k,
-                                          cfg.solver,
-                                          reg_vec=reg_vec[:rows_local]))
-            out.append(tuple(row))
-        return tuple(out), V_full
+
+        def solve(d, s):
+            dev = mesh.grid[d][s]
+            if cfg.reg_by_degree:
+                reg_vec = cfg.reg * torch.clamp_min(deg[d][s], 1.0)
+            else:
+                reg_vec = torch.full((rows_local + 1,), cfg.reg,
+                                     dtype=torch.float32, device=dev)
+            if cfg.reg == 0 and cfg.alpha is None:
+                # reg=0: zero-degree (padded or empty) rows have G=0,
+                # rhs=0; any positive ridge solves them to exactly 0
+                reg_vec = torch.where(deg[d][s] > 0, reg_vec,
+                                      torch.ones_like(reg_vec))
+            Gp = G[d][s]
+            if g0 is not None:
+                Gp = Gp + g0[d][s].reshape(1, -1)
+            return solve_spd_flat(Gp[:rows_local], rhs[d][s][:rows_local],
+                                  k, cfg.solver,
+                                  reg_vec=reg_vec[:rows_local])
+        return grid(solve), V_full
 
     def _sse(self, U: Grid, V_full: Grid, buckets) -> torch.Tensor:
         """The SSE of each position's observations, summed along 'data'
         then 'dcn' (the observations partition over the positions); the
-        scalar on the first position's device."""
-        cfg = self.cfg
-        parts = [[masked_sse(U[d][s], V_full[d][s], buckets[d][s],
-                             chunk=cfg.chunk,
-                             gather_budget_mb=cfg.gather_budget_mb)
-                  for s in range(self.n_shards)]
-                 for d in range(self.n_slices)]
-        total = psum_along(self.mesh,
-                           psum_along(self.mesh, parts, self.axis),
+        scalar on the first local position's device."""
+        cfg, mesh = self.cfg, self.mesh
+        local = set(mesh.local)
+        parts = tuple(tuple(
+            masked_sse(U[d][s], V_full[d][s], buckets[d][s],
+                       chunk=cfg.chunk, gather_budget_mb=cfg.gather_budget_mb)
+            if (d, s) in local else None
+            for s in range(self.n_shards)) for d in range(self.n_slices))
+        total = psum_along(mesh, psum_along(mesh, parts, self.axis),
                            self.dcn_axis)
-        return total[0][0]
+        d, s = mesh.local[0]
+        return total[d][s]
 
     # ------------------------------------------------------------------
     def _place(self, U: np.ndarray, V: np.ndarray):
+        local = set(self.mesh.local)
+
         def put(x, per):
             blocks = [np.ascontiguousarray(x[s * per:(s + 1) * per])
                       for s in range(self.n_shards)]
             return tuple(tuple(torch.from_numpy(blocks[s]).to(dev)
+                               if (d, s) in local else None
                                for s, dev in enumerate(row))
-                         for row in self.mesh.grid)
+                         for d, row in enumerate(self.mesh.grid))
         return put(U, self.upr), put(V, self.ipr)
 
     def init_factors(self, seed: int, init_scale: float):

@@ -1,6 +1,6 @@
 """Sharded ALS sweeps over a 1-D mesh: the JAX package's
-``parallel/sharded_als.py`` on the port's single-process mesh
-(``parallel/mesh.py``).
+``parallel/sharded_als.py`` on the port's mesh (``parallel/mesh.py``), in
+one process or across several.
 
 The user and item tables are row-sharded: a table is a tuple of per-shard
 blocks of ``rows_per_shard`` rows, block ``s`` on ``mesh.devices[s]``, with
@@ -23,8 +23,9 @@ the per-shard grams, in full f32. The per-sweep SSE rides the item half
 (the riding identity or a separate pass over the same exchanged table, as
 ``sse_separate_for`` picks), summed over shards.
 
-The shards run one after the other in this process; on one card
-``Mesh((cuda:0,) * S)`` runs S shards there.
+Each process runs its own shards (``mesh.local``) one after the other; on
+one card ``Mesh((cuda:0,) * S)`` runs S shards there, and two processes
+on ``get_mesh(2)`` one shard each.
 """
 
 from __future__ import annotations
@@ -78,48 +79,53 @@ def _with_zero_row(V: torch.Tensor) -> torch.Tensor:
 
 
 def _exchange_source(mesh: Mesh, V: Blocks, plan) -> Blocks:
-    """Each shard's view of the opposite table: the whole table (no plan),
-    or ``E = concat(head, local block, rotation blocks)`` of the plan."""
+    """Each local shard's view of the opposite table: the whole table (no
+    plan), or ``E = concat(head, local block, rotation blocks)`` of the
+    plan."""
     if plan is None:
         return all_gather(mesh, V)
     S = mesh.size
-    Vz = [_with_zero_row(b) for b in V]
-    parts = [[] for _ in range(S)]
+    Vz = {s: _with_zero_row(V[s]) for s in mesh.local}
+    parts = {s: [] for s in mesh.local}
     H = plan["head_size"]
     if H:
         # each owner scatters its head rows into a zero (H, k) table (the
         # sentinel slot H is dropped); the sum over shards replicates it
-        heads = []
-        for s in range(S):
-            head = Vz[s].new_zeros((H + 1, Vz[s].shape[1]))
-            head[plan["head_pos"][s]] = Vz[s].index_select(
+        heads = [None] * S
+        for s, v in Vz.items():
+            head = v.new_zeros((H + 1, v.shape[1]))
+            head[plan["head_pos"][s]] = v.index_select(
                 0, plan["head_local"][s])
-            heads.append(head[:H])
-        for s, head in enumerate(psum(mesh, heads)):
-            parts[s].append(head)
+            heads[s] = head[:H]
+        summed = psum(mesh, heads)
+        for s in parts:
+            parts[s].append(summed[s])
     # rotation 0: the rows this shard owns, no exchange
-    for s in range(S):
+    for s in parts:
         parts[s].append(Vz[s].index_select(0, plan["req_rot"][0][s]))
     for d in range(1, S):
         # requester s sends its ids to owner (s + d) % S, which answers
         recv = ppermute(mesh, plan["req_rot"][d], d)
-        resp = [Vz[o].index_select(0, recv[o]) for o in range(S)]
-        for s, block in enumerate(ppermute(mesh, resp, -d)):
-            parts[s].append(block)
-    return tuple(torch.cat(p) for p in parts)
+        resp = [Vz[o].index_select(0, recv[o]) if o in Vz else None
+                for o in range(S)]
+        back = ppermute(mesh, resp, -d)
+        for s in parts:
+            parts[s].append(back[s])
+    return tuple(torch.cat(parts[s]) if s in parts else None
+                 for s in range(S))
 
 
 def _half_sweep(mesh: Mesh, V: Blocks, buckets, plan, n_local_rows: int,
                 cfg: SolveConfig, with_sse: bool = False,
                 sse_separate: bool = True):
-    """Solve every shard's rows given the opposite table V: the new row
-    blocks, and with ``with_sse`` the SSE summed over shards."""
+    """Solve every local shard's rows given the opposite table V: the new
+    row blocks, and with ``with_sse`` the SSE summed over shards."""
     V_src = _exchange_source(mesh, V, plan)
     g0 = None
     if cfg.alpha is not None:
-        g0 = psum(mesh, [b.t() @ b for b in V])
-    new, sse = [], []
-    for s in range(mesh.size):
+        g0 = psum(mesh, [None if b is None else b.t() @ b for b in V])
+    new, sse = [None] * mesh.size, [None] * mesh.size
+    for s in mesh.local:
         U_s, e = solve_all_buckets(
             V_src[s], buckets[s], n_local_rows, cfg,
             None if g0 is None else g0[s],
@@ -128,22 +134,22 @@ def _half_sweep(mesh: Mesh, V: Blocks, buckets, plan, n_local_rows: int,
             # the direct residual against the same exchanged table
             e = masked_sse(U_s, V_src[s], buckets[s], chunk=cfg.chunk,
                            gather_budget_mb=cfg.gather_budget_mb)
-        new.append(U_s)
-        sse.append(e)
+        new[s] = U_s
+        sse[s] = e
     if not with_sse:
         return tuple(new)
-    return tuple(new), psum(mesh, sse)[0]
+    return tuple(new), psum(mesh, sse)[mesh.local[0]]
 
 
 def put_buckets(mesh: Mesh, axis: str, layout: ShardedLayout,
                 plan: Optional[ExchangePlan] = None):
     """Per-shard device buckets in ``solver.als_sweep.device_buckets``'s
-    format: for each shard, a tuple of bucket dicts (then the dense block
-    and the hot ids, if any) on that shard's device. Under a plan the
-    indices are the remapped slots of the exchanged table, and the hot ids
-    the head slots of the hot columns."""
-    S = mesh.size
-    out = [[] for _ in range(S)]
+    format: for each local shard, a tuple of bucket dicts (then the dense
+    block and the hot ids, if any) on that shard's device (``None`` for a
+    shard of another process). Under a plan the indices are the remapped
+    slots of the exchanged table, and the hot ids the head slots of the
+    hot columns."""
+    out = {s: [] for s in mesh.local}
 
     def put(a):
         return shard_put(mesh, axis, a)
@@ -156,7 +162,7 @@ def put_buckets(mesh: Mesh, axis: str, layout: ShardedLayout,
         if layout.hot_vals is not None:
             # (B, C) batch-major, bf16 on the device like device_buckets
             fields["hot_vals"] = put(layout.hot_vals[i])
-        for s in range(S):
+        for s in out:
             d = {key: blocks[s][0] for key, blocks in fields.items()}
             if "hot_vals" in d:
                 d["hot_vals"] = d["hot_vals"].to(torch.bfloat16)
@@ -164,23 +170,26 @@ def put_buckets(mesh: Mesh, axis: str, layout: ShardedLayout,
     if layout.dense_ids is not None:
         ids = put(layout.dense_ids.astype(np.int64))
         vals = put(layout.dense_vals)
-        for s in range(S):
+        for s in out:
             out[s].append(dict(dense_ids=ids[s][0], dense_vals=vals[s][0]))
     if layout.hot_ids is not None:
         hot = plan.remapped_hot if plan is not None else layout.hot_ids
         ids = replicate_put(mesh, np.asarray(hot, np.int64))
-        for s in range(S):
+        for s in out:
             out[s].append(dict(hot_ids=ids[s]))
-    return tuple(tuple(b) for b in out)
+    return tuple(tuple(out[s]) if s in out else None
+                 for s in range(mesh.size))
 
 
 def _put_plan(mesh: Mesh, axis: str, plan: Optional[ExchangePlan]):
-    """A plan's request ids and head maps as per-shard device tensors."""
+    """A plan's request ids and head maps as per-shard device tensors
+    (``None`` for a shard of another process)."""
     if plan is None:
         return None
 
     def rows(a):
-        return tuple(b[0] for b in shard_put(mesh, axis, a.astype(np.int64)))
+        return tuple(None if b is None else b[0]
+                     for b in shard_put(mesh, axis, a.astype(np.int64)))
 
     d = dict(req_rot=tuple(rows(r) for r in plan.req_rot),
              head_size=plan.head_size)
@@ -290,8 +299,9 @@ class ShardedALSProgram:
         V_src = _exchange_source(self.mesh, V, self._uplan)
         parts = [masked_sse(U[s], V_src[s], self._ub[s], chunk=self.cfg.chunk,
                             gather_budget_mb=self.cfg.gather_budget_mb)
+                 if s in self.mesh.local else None
                  for s in range(self.n_shards)]
-        return psum(self.mesh, parts)[0]
+        return psum(self.mesh, parts)[self.mesh.local[0]]
 
     def make_fit(self, n_sweeps: int, tol: float = 0.0, nnz: int = 1):
         """The whole fit, as ``solver.als_sweep.make_scanned_fit``:

@@ -11,9 +11,17 @@ It runs on the CUDA card unless ``--platform cpu``; with no card and no
 ALS, or with ``--model imc`` the sharded IMC, over S cards (S entries of
 the host with ``--platform cpu``); ``--topology obs_parallel --num-slices
 D`` fits the 2-D observation-parallel ALS over ``D x S/D`` of them. Each
-logs its per-sweep collective bytes. Not ported yet (ROADMAP.md, Queue 1
-item 13f): the multi-process bootstrap (``--coordinator``,
-``--num-processes``), which raises ``NotImplementedError``.
+logs its per-sweep collective bytes.
+
+Several processes: ``--coordinator host:port --num-processes P
+--process-id i`` in each of P processes starts a gloo process group
+(``parallel.mesh.initialize_distributed``), and ``--n-shards S`` then
+spans every process, ``S / P`` shards each (``--topology obs_parallel``:
+one slice a process). Each process runs the same code, and so the same
+collectives in the same order; only process 0 writes the metrics and
+prints the summary and ``--top-n``. On a host with several cards give each
+process its own card (``CUDA_VISIBLE_DEVICES``); on one card two
+processes share it.
 
 Examples:
   python -m recommendation_models_tpu_torch.train --synthetic ml1m --rank 64
@@ -21,6 +29,10 @@ Examples:
       --rank 64 --alpha 40 --checkpoint-dir ckpt --metrics-jsonl run.jsonl
   python -m recommendation_models_tpu_torch.train --synthetic tiny --rank 8 \\
       --n-sweeps 2 --platform cpu
+  # two processes, one shard each (run both; i = 0 and 1)
+  python -m recommendation_models_tpu_torch.train --synthetic ml1m \\
+      --n-shards 2 --coordinator 127.0.0.1:29500 --num-processes 2 \\
+      --process-id i
 """
 
 from __future__ import annotations
@@ -107,7 +119,7 @@ def build_parser() -> argparse.ArgumentParser:
     dist = p.add_argument_group("distributed")
     dist.add_argument("--coordinator", default=None,
                       help="multi-host coordinator address host:port "
-                           "(not ported yet, ROADMAP.md item 13f)")
+                           "(a gloo process group)")
     dist.add_argument("--num-processes", type=int, default=None)
     dist.add_argument("--process-id", type=int, default=None)
     out = p.add_argument_group("output")
@@ -148,9 +160,12 @@ def _load_data(args):
 def main(argv: Optional[list] = None) -> int:
     args = build_parser().parse_args(argv)
     from recommendation_models_tpu_torch.parallel.mesh import (
-        initialize_distributed)
+        barrier, initialize_distributed, process_index)
     initialize_distributed(args.coordinator, args.num_processes,
                            args.process_id)
+    # every process fits; process 0 alone writes the metrics and prints
+    lead = process_index() == 0
+    verbose = args.verbose if lead else 0
 
     import scipy.sparse as sp
     from recommendation_models_tpu_torch.evaluate import leave_n_out
@@ -160,7 +175,7 @@ def main(argv: Optional[list] = None) -> int:
 
     users, items, ratings, n_users, n_items = _load_data(args)
     nnz = ratings.shape[0]
-    if args.verbose:
+    if verbose:
         print(f"[train] {nnz} interactions, {n_users} users x {n_items} items")
 
     test = None
@@ -172,7 +187,8 @@ def main(argv: Optional[list] = None) -> int:
         users, items, ratings = users[tr], items[tr], ratings[tr]
     R = sp.csr_matrix((ratings, (users, items)), shape=(n_users, n_items))
 
-    metrics = MetricsLogger(args.metrics_jsonl, args.tensorboard_dir)
+    metrics = MetricsLogger(args.metrics_jsonl if lead else None,
+                            args.tensorboard_dir if lead else None)
     if args.model == "als":
         from recommendation_models_tpu_torch.models.als import ALS
         model = ALS(rank=args.rank, reg=args.reg, alpha=args.alpha,
@@ -191,7 +207,7 @@ def main(argv: Optional[list] = None) -> int:
         with trace_sweeps(args.trace_dir), Timer() as t:
             if args.resume and args.checkpoint_dir:
                 step = model.resume()
-                if args.verbose:
+                if verbose:
                     print(f"[train] resumed from sweep {step}")
                 model.fit(R, U0=model.U_, V0=model.V_)
             else:
@@ -217,7 +233,7 @@ def main(argv: Optional[list] = None) -> int:
         with trace_sweeps(args.trace_dir), Timer() as t:
             if args.resume and args.checkpoint_dir:
                 step = model.resume()
-                if args.verbose:
+                if verbose:
                     print(f"[train] resumed from sweep {step}")
                 model.fit(R, X, Y, W0=model.W_, H0=model.H_)
             else:
@@ -250,7 +266,7 @@ def main(argv: Optional[list] = None) -> int:
         rel_indptr, rel_items = grouped_by_user(tu, ti, n_users)
         holdout_users = np.flatnonzero(np.diff(rel_indptr) > 0)
         eval_users = holdout_users[:50_000]
-        if eval_users.shape[0] < holdout_users.shape[0] and args.verbose:
+        if eval_users.shape[0] < holdout_users.shape[0] and verbose:
             # no silent caps: say when ranking metrics cover a user SAMPLE
             print(f"[train] recall/ndcg evaluated on the first "
                   f"{eval_users.shape[0]} of {holdout_users.shape[0]} "
@@ -263,11 +279,13 @@ def main(argv: Optional[list] = None) -> int:
         summary["holdout_users"] = int(holdout_users.shape[0])
     metrics.log(len(model.history_), **summary)
     metrics.close()
-    if args.verbose:
+    if verbose:
         print("[train] " + " ".join(f"{k}={v}" for k, v in summary.items()))
     if args.top_n and hasattr(model, "recommend"):
         scores, top = model.recommend([0], n=args.top_n)
-        print(f"[train] top-{args.top_n} for user 0: {top[0].tolist()}")
+        if lead:
+            print(f"[train] top-{args.top_n} for user 0: {top[0].tolist()}")
+    barrier()       # every process ends its collectives before any exits
     return 0
 
 

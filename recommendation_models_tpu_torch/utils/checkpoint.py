@@ -16,6 +16,14 @@ it returns (the caller may then overwrite its tensors) and writes the file
 on one background thread; :func:`wait_pending` joins those writes, and
 :func:`load_latest` calls it first. The format is this package's own: the
 JAX package's orbax checkpoints do not load here.
+
+Across processes (``parallel.mesh.initialize_distributed``) every process
+calls :func:`save_checkpoint` with the same (replicated, or gathered by
+the collective ``to_host``) state, and process 0 alone writes the state
+and the sidecar, as the JAX package gates its sidecar; a save with
+``wait=True`` and :func:`wait_pending` end at a barrier of every process,
+so a process that reads next finds the files committed.
+:func:`load_latest` reads in every process.
 """
 
 from __future__ import annotations
@@ -30,6 +38,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from recommendation_models_tpu_torch.parallel.mesh import (
+    barrier, process_index,
+)
 
 _STATE_FILE = "state.pt"
 
@@ -80,8 +92,12 @@ def save_checkpoint(directory: str, step: int, state: Dict[str, Any],
 
     ``wait=False`` returns once the arrays are on the host and commits the
     file on the background thread (:func:`wait_pending` joins it). Returns
-    the checkpoint's directory."""
+    the checkpoint's directory. Across processes only process 0 writes."""
     path = _ckpt_path(directory, step)
+    if process_index() != 0:
+        if wait:
+            barrier()
+        return path
     host = {name: _to_host(v) for name, v in state.items()}
     os.makedirs(path, exist_ok=True)
     meta_path = path + ".meta.json"
@@ -92,6 +108,7 @@ def save_checkpoint(directory: str, step: int, state: Dict[str, Any],
         os.remove(meta_path)
     if wait:
         _write_state(path, host)
+        barrier()
         return path
     global _EXECUTOR
     with _LOCK:
@@ -104,12 +121,14 @@ def save_checkpoint(directory: str, step: int, state: Dict[str, Any],
 
 def wait_pending() -> None:
     """Block until every async :func:`save_checkpoint` has committed; raise
-    the first failed write's exception."""
+    the first failed write's exception. Across processes, then wait for
+    every process."""
     with _LOCK:
         pending = list(_PENDING)
         _PENDING.clear()
     for fut in pending:
         fut.result()
+    barrier()
 
 
 def load_checkpoint(directory: str, step: int,

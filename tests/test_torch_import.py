@@ -55,6 +55,7 @@ _PROBE = textwrap.dedent("""
     import recommendation_models_tpu_torch.probes.gather_latency
     import recommendation_models_tpu_torch.probes.gather_rates
     import recommendation_models_tpu_torch.probes.imc
+    import recommendation_models_tpu_torch.probes.multiprocess
     import recommendation_models_tpu_torch.probes.exchange
     import recommendation_models_tpu_torch.probes.parser
     import recommendation_models_tpu_torch.probes.plan_build

@@ -9,8 +9,8 @@ inputs, JAX on its 8 forced CPU devices and the port on a CPU mesh:
 - the per-sweep exchange bytes exactly;
 - shard-count invariance of the port against its own single-device fit
   (the cases of tests/test_sharded.py), sharded checkpoints, pickling, the
-  mesh's collectives, the callers' errors and the error of what is not
-  ported (the multi-process bootstrap).
+  mesh's collectives, the callers' errors and the multi-process
+  bootstrap's in one process.
 
 The card's case (``gpu``) runs two shards on one card through B1 and B2:
 ``python -m pytest --noconftest -m gpu tests/test_torch_sharded.py``."""
@@ -351,8 +351,12 @@ def test_errors_of_what_is_not_ported_and_of_the_caller(monkeypatch):
         pmesh.get_hybrid_mesh(8, num_slices=3, platform="cpu")
     assert str(got.value) == str(want.value)
     pmesh.initialize_distributed()              # one process: nothing
-    with pytest.raises(NotImplementedError, match="item 13f"):
-        pmesh.initialize_distributed("localhost:1234", 2, 0)
+    pmesh.initialize_distributed("localhost:1234", 1, 0)
+    assert pmesh.process_count() == 1 and pmesh.process_index() == 0
+    # a multi-process run needs this process's id (the 2-process runs:
+    # tests/test_torch_multiprocess.py)
+    with pytest.raises(ValueError, match="--process-id"):
+        pmesh.initialize_distributed("localhost:1234", 2)
     # too few cards: the reference's error, never a CPU fallback
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)

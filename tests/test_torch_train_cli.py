@@ -5,9 +5,10 @@ cpu`` and ``--sse-mode separate``, on the same real-format ratings file
 summaries have the same keys, and ``train_rmse`` and ``test_rmse`` agree
 within rtol 1e-3, as do the per-sweep records; a sharded fit logs the same
 collective bytes, as do the sharded IMC (``--model imc --n-shards``) and
-the 2-D ALS (``--topology obs_parallel``). The multi-process bootstrap
-raises the ``NotImplementedError`` that names ROADMAP item 13f; with no
-``--platform`` and no card the CLI raises the port's ``RuntimeError``;
+the 2-D ALS (``--topology obs_parallel``), and a 2-process CLI
+(``--coordinator``, ``--num-processes``, ``--process-id``), whose bootstrap
+refuses a run without its process id; with no ``--platform`` and no card
+the CLI raises the port's ``RuntimeError``;
 ``build_parser()`` has the JAX one's options, defaults and choices."""
 
 import argparse
@@ -27,7 +28,6 @@ from recommendation_models_tpu_torch import train
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-3
-ITEM_13 = r"ROADMAP.md, Queue 1 item 13"
 
 
 def _write_ratings_csv(path, n_users=60, n_items=45, n_obs=1500, seed=3):
@@ -166,21 +166,40 @@ def test_cli_obs_parallel_matches_reference(tmp_path, csv_pair):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--coordinator", "localhost:1234"],
+    ["--coordinator", "localhost:1234", "--num-processes", "2"],
     ["--num-processes", "2", "--process-id", "0"],
     ["--model", "imc", "--n-shards", "2"],
     ["--topology", "obs_parallel", "--n-shards", "2", "--num-slices", "2"],
 ])
 def test_cli_unported_paths_raise_naming_item_13(argv, tmp_path):
-    """The multi-process bootstrap (item 13f) still raises. The sharded IMC
-    and the 2-D ALS (items 13d and 13e), which raised here until they were
-    ported, now run, and their summaries agree with the JAX CLI's."""
+    """The paths that raised the ``NotImplementedError`` naming ROADMAP
+    item 13 until they were ported. The multi-process bootstrap (item 13f)
+    refuses a run without ``--process-id``, and a 2-process CLI at
+    ``--n-shards 2`` (one shard a process) agrees with the JAX CLI's
+    2-shard run in one process. The sharded IMC and the 2-D ALS (items 13d
+    and 13e) agree with the JAX CLI's."""
     base = ["--synthetic", "tiny", "--rank", "2", "--n-sweeps", "1"]
-    if "--coordinator" in argv or "--num-processes" in argv:
-        with pytest.raises(NotImplementedError, match=ITEM_13 + "f"):
+    if "--coordinator" in argv:
+        with pytest.raises(ValueError, match="--process-id"):
             train.main(base + ["--platform", "cpu"] + argv)
         return
-    got, want = _run_both(lambda side: base + argv, tmp_path)
+    if "--num-processes" in argv:
+        from recommendation_models_tpu_torch.probes.multiprocess import (
+            launch)
+        two = tmp_path / "two.jsonl"
+        res = launch(lambda rank, coord: [
+            sys.executable, "-m", "recommendation_models_tpu_torch.train",
+            *base, "--n-shards", "2", "--platform", "cpu", "--sse-mode",
+            "separate", "--metrics-jsonl", str(two), "--coordinator", coord,
+            "--num-processes", "2", "--process-id", str(rank)], 2, 240,
+            env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
+        for rc, out, err in res:
+            assert rc == 0, f"rc={rc}\n{out}\n{err[-3000:]}"
+        got = [json.loads(line) for line in open(two)]
+        _, want = _run_both(lambda side: base + ["--n-shards", "2"],
+                            tmp_path)
+    else:
+        got, want = _run_both(lambda side: base + argv, tmp_path)
     assert len(got) == len(want) == 2
     assert sorted(got[-1]) == sorted(want[-1])
     assert got[-1]["train_rmse"] == pytest.approx(want[-1]["train_rmse"],
