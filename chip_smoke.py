@@ -198,7 +198,28 @@ non-zero before the result lines are printed:
    finished history equals the uninterrupted run's); and phase 7's IMC
    config sharded over the processes (history within 2e-2 of phase 7's,
    f64 objective within 1e-3);
-12. one JSON line describing every kernel, then the result line. Each
+12. the port's bench (``recommendation_models_tpu_torch.bench``, the
+   counterpart of ``bench.py``) in the process, one JSON line in
+   ``bench.py``'s schema per run, each train line with the launch counts
+   set to 0 just before and read just after: the default (ML-25M, rank 64,
+   explicit) on phase 5's layouts, rank 128 on phase 5's ratings (its own
+   layouts: no hot columns, dense threshold 2,048, growth 1.25, a 4,096 MB
+   gather budget, the riding SSE), rank 64 implicit (alpha 1.0) on phase
+   5's layouts; then, phase 5's data freed, synth-100M made once and laid
+   out at rank 64 (a 2 MB budget, riding SSE), then at rank 128 (1,536 MB),
+   each run for the bench's 10 sweeps. Each train line: ``nnz`` and
+   ``gathered_rows_per_epoch`` equal to the JAX package's (``BENCH_LINES``,
+   with the command that counted them), train RMSE within
+   ``BENCH_RMSE_BAND`` x the JAX bench's TPU record (the implicit line:
+   within 1e-3 of the JAX package's float32 value, recorded on a CPU by
+   the command beside ``REF_IMPLICIT_ML25M``), the history's last value within 1e-3
+   of a direct RMSE of the final factors, B1 launched (B2 too at rank 64),
+   nothing routed, TF32 off, ``max_memory_allocated`` reported. Then the
+   serving mode (ML-25M, rank 64: recall@10 and NDCG@10 within 0.005 of the
+   anchors, 'auto' ids equal to 'exact') and the IMC mode (ML-1M, rank 64
+   capped to 32: history within 2e-2 of ``REF_IMC_ML1M``, cold-start RMSE
+   within 1e-3);
+13. one JSON line describing every kernel, then the result line. Each
    entry's numbers are at its ``k`` and ``batch``; B4, B5a, B5b and B5c
    have ``resident`` (their kernel's resident blocks at k=64; B4 and B5b
    per instantiation in ``resident_by_instantiation``); B1, B2 and B3 also have
@@ -209,8 +230,9 @@ non-zero before the result lines are printed:
    ``device_ms``, ``host_us``, ``l2_bound_ms`` and ``l2_tb_s`` at the
    probe's shape, ``at_main_path`` (both halves' gathers) and
    ``at_row_block`` (a row block of each half). B1's and B2's ``launches``
-   are the main path's, the sharded phase's and the multi-process
-   phase's (B1's also the 2-D phase's), each in ``launches_by_path``.
+   are the main path's, the sharded phase's, the multi-process phase's and
+   the bench phase's five train lines (B1's also the 2-D phase's), each in
+   ``launches_by_path``.
 
 ``--profile`` adds one profiled main-path sweep and prints its device time
 by kernel and the device's idle share (not run by default).
@@ -475,6 +497,88 @@ REF_MP_BYTES_ML1M = {
         "sse_extra": 0, "per_sweep_with_sse": 162173440},
 }
 
+MAIN_KERNELS = ("cholesky_solve_batched", "cholesky_solve_hot")
+
+# The bench phase (12): the port's bench (recommendation_models_tpu_torch.bench)
+# in-process at the JAX package's recorded ALS configurations. Per line: its
+# name, the BenchConfig, the train RMSE anchor and its band (a factor range),
+# the gathered rows per epoch and the kernels it must launch. The explicit
+# lines' anchors are the JAX bench's records on a TPU v5 lite (bf16 inputs;
+# quality anchors, never speed targets): docs/measurements/r5/bench_r64.out,
+# bench_r128.out, bench_100m.out and tune100m/final_auto.out, within
+# BENCH_RMSE_BAND (f32 here may fit a little better). The implicit line's TPU
+# record (bench_r64_imp.out, 2.47706) is no anchor for an f32 fit: the JAX
+# package's own implicit RMSE on the TPU is 0.84x its float32 CPU value at
+# ML-1M (bench_ml1m_imp.out 2.22046 against 2.63401, BENCH_SCALE=ml1m
+# BENCH_ALPHA=1.0 BENCH_DTYPE=float32 python bench.py on a CPU). It is held
+# within HISTORY_RTOL of the JAX package's float32 value at ML-25M, recorded
+# on a CPU with bench.py's train path (its layouts, warm start and fit):
+#   JAX_PLATFORMS=cpu python -c '
+#   import numpy as np, jax.numpy as jnp
+#   from recommendation_models_tpu.config import (
+#       DataConfig, SolveConfig, bucket_growth_for_rank,
+#       dense_min_degree_for_rank)
+#   from recommendation_models_tpu.data.layout import layout_from_coo
+#   from recommendation_models_tpu.data.synthetic import synthetic_ratings
+#   from recommendation_models_tpu.ops.pallas.cholesky import (
+#       block_batch, hot_cols_auto)
+#   from recommendation_models_tpu.solver.als_sweep import (
+#       device_buckets, make_scanned_fit)
+#   n_u, n_i = 162_541, 62_423
+#   u, i, r = synthetic_ratings(n_u, n_i, 25_000_000, rank=16, seed=0)
+#   c = DataConfig(hot_cols=hot_cols_auto(64),
+#                  dense_min_degree=dense_min_degree_for_rank(64),
+#                  bucket_growth=bucket_growth_for_rank(64))
+#   ub, ib = (device_buckets(layout_from_coo(u, i, r, n_u, n_i, config=c,
+#                                            transpose=t), block_batch(64))
+#             for t in (False, True))
+#   fit = make_scanned_fit(ub, ib, n_u, n_i, SolveConfig(
+#       rank=64, reg=0.1, solver="xla", alpha=1.0,
+#       compute_dtype="float32"), 10, nnz=r.shape[0])
+#   g = np.random.default_rng(0)
+#   U0 = 0.01 * g.standard_normal((n_u, 64)).astype(np.float32)
+#   V0 = 0.01 * g.standard_normal((n_i, 64)).astype(np.float32)
+#   print(np.sqrt(np.asarray(fit(jnp.asarray(U0), jnp.asarray(V0))[2])
+#                 / r.shape[0]))'
+# (about 6 minutes and 13 GB of host memory). The nnz and
+# gathered rows equal those records and the JAX package's own layouts,
+# counted on a CPU (scale ml25m or synth100m, RANK 64 or 128):
+#   JAX_PLATFORMS=cpu python -c '
+#   from recommendation_models_tpu.config import (
+#       DataConfig, bucket_growth_for_rank, dense_min_degree_for_rank)
+#   from recommendation_models_tpu.data.layout import layout_from_coo
+#   from recommendation_models_tpu.data.synthetic import synthetic_ratings
+#   from recommendation_models_tpu.ops.pallas.cholesky import hot_cols_auto
+#   n_u, n_i, n_o = 162_541, 62_423, 25_000_000  # synth100m: 500_000,
+#   RANK = 64                                    #   200_000, 100_000_000
+#   u, i, r = synthetic_ratings(n_u, n_i, n_o, rank=16, seed=0)
+#   c = DataConfig(hot_cols=hot_cols_auto(RANK),
+#                  dense_min_degree=dense_min_degree_for_rank(RANK),
+#                  bucket_growth=bucket_growth_for_rank(RANK))
+#   print(r.shape[0], sum(layout_from_coo(u, i, r, n_u, n_i, transpose=t,
+#                                         config=c).padded_slots
+#                         for t in (False, True)))'
+# (ml25m: 19,027,200 obs, 20,625,664 at rank 64 and 31,246,464 at 128;
+# synth100m: 77,037,080 obs, 98,788,736 and 126,940,352.) The dense block of
+# synth100m is the 2,147 rows of DataConfig's 2,048 MB f16 budget at 500,000
+# columns, at either rank.
+BENCH_NNZ = {"ml25m": 19_027_200, "synth100m": 77_037_080}
+BENCH_RMSE_BAND = (0.90, 1.03)     # x a TPU anchor: f32 may fit a little better
+REF_IMPLICIT_ML25M = 2.819981813430786
+B1_ONLY = ("cholesky_solve_batched",)
+BENCH_LINES = (
+    ("bench_default", dict(), 0.3171, BENCH_RMSE_BAND, 20_625_664,
+     MAIN_KERNELS),
+    ("bench_r128", dict(rank=128), 0.07945, BENCH_RMSE_BAND, 31_246_464,
+     B1_ONLY),
+    ("bench_implicit", dict(alpha=1.0), REF_IMPLICIT_ML25M,
+     (1 - HISTORY_RTOL, 1 + HISTORY_RTOL), 20_625_664, MAIN_KERNELS),
+    ("bench_100m_r64", dict(scale="synth100m"), 0.39427, BENCH_RMSE_BAND,
+     98_788_736, MAIN_KERNELS),
+    ("bench_100m_r128", dict(scale="synth100m", rank=128), 0.16008,
+     BENCH_RMSE_BAND, 126_940_352, B1_ONLY),
+)
+
 _PALLAS = "recommendation_models_tpu/ops/pallas/cholesky.py"
 TPU_KERNEL = {
     "cholesky_solve_batched": f"{_PALLAS}:226",
@@ -504,10 +608,14 @@ HYBRID_PATH = (f"HybridALSProgram(D={HYBRID_D}, S={HYBRID_S}).make_fit on "
                f"one card, ML-25M shape")
 MP_PATH = (f"ShardedALSProgram(S={MP_P}, allgather) across {MP_P} processes "
            f"on one card (probes.multiprocess), ML-25M shape")
+BENCH_PATH = ("recommendation_models_tpu_torch.bench train mode: ML-25M rank "
+              "64 explicit and implicit, synth-100M rank 64")
+BENCH_PATH_R128 = "and ML-25M and synth-100M rank 128"
 PATH = {
     "cholesky_solve_batched": (f"{MAIN_PATH}; {SHARDED_PATH}; {HYBRID_PATH}; "
-                               f"{MP_PATH}"),
-    "cholesky_solve_hot": f"{MAIN_PATH}; {SHARDED_PATH}; {MP_PATH}",
+                               f"{MP_PATH}; {BENCH_PATH} {BENCH_PATH_R128}"),
+    "cholesky_solve_hot": (f"{MAIN_PATH}; {SHARDED_PATH}; {MP_PATH}; "
+                           f"{BENCH_PATH}"),
     "cholesky_solve_2g": "ops.solve.solve_spd_t(Gt2=), k=64, B=65,536",
     "cholesky_solve_rank1": "probes.solve_variants, k=128, B=65,536",
     "cholesky_solve_panel": "probes.solve_variants, k=128, B=65,536",
@@ -515,7 +623,6 @@ PATH = {
     "cholesky_solve_dual": "probes.solve_variants, k=128, B=65,536",
     "gather_rows_sum": "probes.dma_gather / probes.ablate_epoch gather only",
 }
-MAIN_KERNELS = ("cholesky_solve_batched", "cholesky_solve_hot")
 PROBE_VARIANTS = "pair,rank1,pair_s1,panel,schur,schur_s1,dual"
 PROBE_K, PROBE_B, PROBE_REG = 128, 65_536, 0.05   # the probe's defaults
 N_CHECK = 4_096       # systems of the k=128 check held against plain
@@ -1458,8 +1565,8 @@ def phase_epoch(torch, dev, nnz, ul, il, main_hist, profile=False):
     import numpy as np
     from recommendation_models_tpu_torch.probes.epoch_profile import (
         profile_sweep, scanned_fits, time_fit)
-    fit, one, U0, V0 = scanned_fits(ul, il, nnz, dev, RANK)
-    epoch_s, U, V, sse_h, n_done = time_fit(fit, U0, V0)
+    fits = scanned_fits(ul, il, nnz, dev, RANK, sweeps=SWEEPS)
+    epoch_s, U, V, sse_h, n_done = time_fit(fits.fit, fits.U0, fits.V0)
     hist = [float(h) for h in np.sqrt(np.maximum(sse_h[:n_done], 0) / nnz)]
     rel = max(abs(a - b) / b for a, b in zip(hist, main_hist))
     log(f"# main path epoch_seconds={epoch_s:.4f} ({SWEEPS} sweeps in "
@@ -1468,7 +1575,8 @@ def phase_epoch(torch, dev, nnz, ul, il, main_hist, profile=False):
     check(n_done == SWEEPS and rel <= HISTORY_RTOL,
           "the timed fit does not reproduce ALS.fit's history")
     if profile:
-        log(json.dumps({"profile": profile_sweep(one, U, V, epoch_s)}))
+        log(json.dumps({"profile": profile_sweep(fits.one, U, V,
+                                                 epoch_s)}))
     return epoch_s
 
 
@@ -2523,6 +2631,138 @@ def phase_cli(torch, coo, card):
     return launches
 
 
+def bench_train_line(torch, dev, name, cfg, anchor, band, gathered, kernels,
+                     coo, ul, il):
+    """One train line of the bench phase: ``bench.train_record`` on the
+    built layouts with the launch counts set to 0 just before and read just
+    after; the record printed and gated. Returns the launches."""
+    import numpy as np
+    from recommendation_models_tpu_torch import bench
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    ch.reset_counts()
+    t0 = time.perf_counter()
+    record = bench.train_record(cfg, coo, ul, il, dev)
+    secs = time.perf_counter() - t0
+    launches, routed = dict(ch.LAUNCHES), dict(ch.ROUTED)
+    print(json.dumps(record), flush=True)
+    ex = record["extra"]
+    rmse, direct = ex["train_rmse"], ex["direct_rmse"]
+    lo, hi = (f * anchor for f in band)
+    log(f"# {name}: {record['metric']} epoch_seconds="
+        f"{ex['epoch_seconds']:.4f} rows/s={record['value']:.0f} "
+        f"vs_baseline={record['vs_baseline']:.2f} train_rmse={rmse:.5f} "
+        f"(anchor {anchor}, band [{lo:.5f}, {hi:.5f}]) direct_rmse="
+        f"{direct:.5f} ({ex['sse_mode']}) gathered="
+        f"{ex['gathered_rows_per_epoch']} roof_fraction="
+        f"{ex['roof_fraction']:.5f} dense rows {ex['dense_rows']} "
+        f"{ex['dense_tflop_per_sweep']:.3f} TFLOP a sweep "
+        f"max_memory_allocated={ex['max_memory_allocated']} "
+        f"launches={launches} routed={routed}; {secs:.1f}s (upload, "
+        f"warm-up, timed fit, direct RMSE, oracle)")
+    check(record["metric"] == cfg.metric() and record["value"] > 0,
+          f"{name}: no rows/s measured")
+    check(ex["nnz"] == BENCH_NNZ[cfg.scale],
+          f"{name}: nnz {ex['nnz']} != {BENCH_NNZ[cfg.scale]}")
+    check(ex["gathered_rows_per_epoch"] == gathered,
+          f"{name}: gathered rows {ex['gathered_rows_per_epoch']} != "
+          f"{gathered}")
+    check(ex["sweeps"] == cfg.sweeps
+          and all(np.isfinite(h) for h in ex["history"]),
+          f"{name}: the fit ran short or is not finite: {ex['history']}")
+    check(lo <= rmse <= hi, f"{name}: train RMSE {rmse} is outside "
+          f"[{lo}, {hi}]")
+    check(abs(rmse - direct) <= HISTORY_RTOL * direct,
+          f"{name}: the history's last RMSE {rmse} differs from a direct "
+          f"RMSE of the final factors {direct}")
+    check(all(launches[n] > 0 for n in kernels),
+          f"{name}: a kernel was not launched: {launches}")
+    check(not any(routed.values()), f"{name}: calls were routed: {routed}")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, f"{name}: TF32 is on")
+    check(ex["max_memory_allocated"] > 0, f"{name}: no peak memory")
+    return launches
+
+
+def phase_bench(torch, dev, main_data):
+    """The port's bench (``recommendation_models_tpu_torch.bench``) in the
+    process, one JSON line per run: ML-25M rank 64 explicit on phase 5's
+    layouts, rank 128 on phase 5's ratings, rank 64 implicit on phase 5's
+    layouts; synth-100M (made once) at rank 64, then 128; the serving mode
+    (ML-25M, rank 64) and the IMC mode (ML-1M, rank 64 capped to 32).
+    ``main_data`` is a list [coo, ul, il] of phase 5's ratings and layouts,
+    emptied here so that they are freed before synth-100M is made. Returns
+    the launches of each train line."""
+    import gc
+    from recommendation_models_tpu_torch import bench
+    from recommendation_models_tpu_torch.data.synthetic import (
+        synthetic_ratings)
+    from recommendation_models_tpu_torch.probes import SCALES
+    t_phase = time.perf_counter()
+    coo, ul, il = main_data
+    main_data.clear()
+    by_line = {}
+    lines = {n: rest for n, *rest in BENCH_LINES}
+    for name in ("bench_default", "bench_r128", "bench_implicit"):
+        over, anchor, band, gathered, kernels = lines[name]
+        cfg = bench.BenchConfig(**over)
+        if cfg.rank == RANK:
+            layouts = (ul, il)
+        else:
+            t0 = time.perf_counter()
+            layouts = bench.train_layouts(cfg, coo)[1:]
+            log(f"# {name}: layouts in {time.perf_counter() - t0:.1f}s")
+        by_line[name] = bench_train_line(torch, dev, name, cfg, anchor,
+                                         band, gathered, kernels, coo,
+                                         *layouts)
+        del layouts
+        torch.cuda.empty_cache()
+    del coo, ul, il
+    gc.collect()
+    t0 = time.perf_counter()
+    coo = synthetic_ratings(*SCALES["synth100m"], rank=16, seed=0)
+    log(f"# synth-100M data: {coo[2].shape[0]} obs in "
+        f"{time.perf_counter() - t0:.1f}s")
+    for name in ("bench_100m_r64", "bench_100m_r128"):
+        over, anchor, band, gathered, kernels = lines[name]
+        cfg = bench.BenchConfig(**over)
+        t0 = time.perf_counter()
+        _, bul, bil = bench.train_layouts(cfg, coo)
+        log(f"# {name}: layouts in {time.perf_counter() - t0:.1f}s")
+        by_line[name] = bench_train_line(torch, dev, name, cfg, anchor,
+                                         band, gathered, kernels, coo, bul,
+                                         bil)
+        del bul, bil
+        gc.collect()
+        torch.cuda.empty_cache()
+    del coo
+    gc.collect()
+    record = bench.serving_record(bench.BenchConfig(mode="serving"), dev)
+    print(json.dumps(record), flush=True)
+    ex = record["extra"]
+    check(record["metric"] == "topk_retrieval_users_per_sec_rank64_ml25m_"
+          "synth" and record["value"] > 0 and ex["auto_ids_equal_exact"],
+          f"the bench's serving line failed: {record}")
+    for key, want in (("recall_at_10", SERVING_RECALL_ANCHOR),
+                      ("ndcg_at_10", SERVING_NDCG_ANCHOR)):
+        check(abs(ex[key] - want) <= SERVING_BAND,
+              f"the bench's serving {key} {ex[key]} is not within "
+              f"{SERVING_BAND} of {want}")
+    torch.cuda.empty_cache()
+    record = bench.imc_record(bench.BenchConfig(mode="imc", scale="ml1m"),
+                              dev)
+    print(json.dumps(record), flush=True)
+    ex = record["extra"]
+    rel = max(abs(a - b) / b for a, b in zip(ex["history"], REF_IMC_ML1M))
+    check(record["metric"] == "imc_obs_per_sec_per_chip_rank32_ml1m_synth"
+          and record["value"] > 0 and rel <= IMC_HISTORY_RTOL
+          and abs(ex["cold_start_rmse"] - REF_IMC_ML1M_COLD_RMSE)
+          <= HISTORY_RTOL * REF_IMC_ML1M_COLD_RMSE,
+          f"the bench's IMC line failed (history rel diff {rel:.2e}): "
+          f"{record}")
+    log(f"# bench phase: {time.perf_counter() - t_phase:.1f}s")
+    return by_line
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2576,7 +2816,6 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     sharded_launches, sharded_sweep_s = phase_sharded(torch, dev, coo, ul, il,
                                                       hist, epoch_s)
-    del ul, il
     for n in MAIN_KERNELS:
         by_path[n]["sharded"] = sharded_launches[n]
         launches[n] += sharded_launches[n]
@@ -2595,6 +2834,13 @@ def main(argv) -> int:
     for n in MAIN_KERNELS:
         by_path[n]["multiprocess"] = mp_launches[n]
         launches[n] += mp_launches[n]
+    torch.cuda.empty_cache()
+    main_data = [coo, ul, il]
+    del coo, ul, il
+    for line, counts in phase_bench(torch, dev, main_data).items():
+        for n in MAIN_KERNELS:
+            by_path[n][line] = counts[n]
+            launches[n] += counts[n]
     kernels = []
     for name in TPU_KERNEL:
         r = results[name]

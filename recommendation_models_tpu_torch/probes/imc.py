@@ -62,27 +62,28 @@ TRAIN_SHARE = 0.9    # users below 0.9 x n_users train; the rest are cold
 ORACLE_OBS = 100_000  # imc_bench's oracle subsample
 
 
-def imc_data(scale: str):
+def imc_data(scale: str, rank: int = RANK):
     """(X, Y, users, items, ratings, cold): the features, the observations
-    and the mask of observations of held-out (cold-start) users."""
+    (a rank-``rank`` bilinear truth) and the mask of observations of
+    held-out (cold-start) users."""
     from recommendation_models_tpu_torch.data.synthetic import (
         synthetic_imc_ratings, synthetic_side_features)
     n_users, n_items, n_obs = SCALES[scale]
     X, Y = synthetic_side_features(n_users, n_items, D_USER, D_ITEM, seed=0)
     users, items, ratings, _, _ = synthetic_imc_ratings(
-        X, Y, min(n_obs, MAX_OBS), rank=RANK, noise=0.05, seed=0)
+        X, Y, min(n_obs, MAX_OBS), rank=rank, noise=0.05, seed=0)
     cold = users >= int(TRAIN_SHARE * n_users)
     return X, Y, users, items, ratings, cold
 
 
-def quality_fit(data, platform=None):
+def quality_fit(data, platform=None, rank: int = RANK):
     """``imc_bench``'s estimator fit on the training users: (model, seconds
     on the host clock, layouts and upload included, cold-start RMSE)."""
     from recommendation_models_tpu_torch import IMC
     X, Y, users, items, ratings, cold = data
     tr = ~cold
     t0 = time.perf_counter()
-    model = IMC(rank=RANK, reg=REG, n_sweeps=SWEEPS, cg_iters=CG_ITERS,
+    model = IMC(rank=rank, reg=REG, n_sweeps=SWEEPS, cg_iters=CG_ITERS,
                 seed=0, platform=platform).fit(
         (users[tr], items[tr], ratings[tr]), X, Y)
     secs = time.perf_counter() - t0
@@ -106,7 +107,7 @@ def sharded_fit(data, mesh):
     return model, time.perf_counter() - t0
 
 
-def uploaded(data, device):
+def uploaded(data, device, rank: int = RANK):
     """The sweep loop's inputs on ``device``, as ``IMC.fit`` builds them
     (its layouts and its default init, seed 0): (user buckets, item
     buckets, X, Y, W0, H0, n_users, n_items)."""
@@ -117,7 +118,7 @@ def uploaded(data, device):
     X, Y, users, items, ratings, cold = data
     tr = ~cold
     n_users, n_items = X.shape[0], Y.shape[0]
-    model = IMC(rank=RANK, seed=0)
+    model = IMC(rank=rank, seed=0)
     ul, il = model._build_layouts(users[tr], items[tr], ratings[tr],
                                   n_users, n_items, model._data_config())
     W0, H0 = model._init_factors_host(D_USER, D_ITEM)
@@ -149,7 +150,7 @@ def timed_fit(inputs, reps: int = REPS):
     return (time.perf_counter() - t0) / reps, hist
 
 
-def gram_gathers(buckets, k: int = RANK, chunk: int = 512) -> int:
+def gram_gathers(buckets, k: int, chunk: int = 512) -> int:
     """Gathers (``index_select`` calls) of one half's grams: one per row
     block and degree chunk of each bucket."""
     from recommendation_models_tpu_torch.models.imc import gram_block_rows
@@ -172,11 +173,12 @@ def sweep_split(inputs, fit_s: float):
     timed fit's ms per sweep)."""
     from recommendation_models_tpu_torch.models.imc import _imc_sweep
     ub, ib, X, Y, W0, H0, n_users, n_items = inputs
+    rank = W0.shape[1]
 
     def sweep():
         return _imc_sweep(W0, H0, X, Y, ub, ib, REG, CG_ITERS, n_users,
                           n_items)
-    want = gram_gathers(ub) + gram_gathers(ib)
+    want = gram_gathers(ub, rank) + gram_gathers(ib, rank)
     for _ in range(PROFILE_TRIES):
         rows = step_rows(sweep)
         traced = sum(n for _, n, name in rows if "gather" in name)
@@ -204,7 +206,7 @@ def sweep_split(inputs, fit_s: float):
     }
 
 
-def oracle_obs_per_sec(data) -> float:
+def oracle_obs_per_sec(data, rank: int = RANK) -> float:
     """The CPU baseline of ``imc_bench`` (``bench.py:319-326``): obs/s of
     one sweep of the NumPy oracle on the first ``ORACLE_OBS`` training
     observations (the bench scales the time to the whole set and back,
@@ -213,20 +215,21 @@ def oracle_obs_per_sec(data) -> float:
     X, Y, users, items, ratings, cold = data
     tr = ~cold
     sub = min(ORACLE_OBS, int(tr.sum()))
-    o = OracleIMC(rank=RANK, reg=REG, n_sweeps=1, cg_iters=CG_ITERS, seed=0)
+    o = OracleIMC(rank=rank, reg=REG, n_sweeps=1, cg_iters=CG_ITERS, seed=0)
     t0 = time.perf_counter()
     o.fit(users[tr][:sub], items[tr][:sub], ratings[tr][:sub], X, Y)
     return sub / (time.perf_counter() - t0)
 
 
-def measure(data, device, scale: str, reps: int = REPS):
-    """Every number of the probe: (the JSON record, the quality model)."""
+def measure(data, device, scale: str, reps: int = REPS, rank: int = RANK):
+    """Every number of the probe at ``rank`` (``data`` from ``imc_data`` at
+    the same rank): (the JSON record, the quality model)."""
     from recommendation_models_tpu_torch.probes.gather_latency import card
     X, Y, users, items, ratings, cold = data
     train_obs = int((~cold).sum())
     on_card = device.type == "cuda"
-    model, fit_quality_s, cold_rmse = quality_fit(data, device.type)
-    print(f"# quality fit IMC(rank={RANK}, reg={REG}, n_sweeps={SWEEPS}, "
+    model, fit_quality_s, cold_rmse = quality_fit(data, device.type, rank)
+    print(f"# quality fit IMC(rank={rank}, reg={REG}, n_sweeps={SWEEPS}, "
           f"cg_iters={CG_ITERS}): {fit_quality_s:.2f}s on the host clock "
           f"(layouts and upload included) history="
           f"{[float(h) for h in model.history_]} cold_start_rmse="
@@ -234,7 +237,7 @@ def measure(data, device, scale: str, reps: int = REPS):
           flush=True)
     fit_s = split = peak = None
     if on_card:
-        inputs = uploaded(data, device)
+        inputs = uploaded(data, device, rank)
         torch.cuda.reset_peak_memory_stats()
         fit_s, long_hist = timed_fit(inputs, reps)
         peak = torch.cuda.max_memory_allocated()
@@ -249,12 +252,12 @@ def measure(data, device, scale: str, reps: int = REPS):
     value = baseline = None
     if on_card:
         value = train_obs * SWEEPS / fit_s
-        baseline = oracle_obs_per_sec(data)
+        baseline = oracle_obs_per_sec(data, rank)
         print(f"# CPU oracle (oracle.OracleIMC, one sweep on "
               f"{min(ORACLE_OBS, train_obs)} obs): {baseline:.0f} obs/s; "
               f"vs_baseline {value / baseline:.2f}", flush=True)
     return {
-        "metric": f"imc_obs_per_sec_per_chip_rank{RANK}_{scale}_synth",
+        "metric": f"imc_obs_per_sec_per_chip_rank{rank}_{scale}_synth",
         "value": value,
         "unit": "obs/s/chip",
         "vs_baseline": None if value is None else value / baseline,

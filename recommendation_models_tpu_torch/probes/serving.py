@@ -76,10 +76,11 @@ def serving_split(coo, n_users: int, n_items: int):
             take_groups(rel_indptr, rel_items, eval_users))
 
 
-def fit_serving_model(train, platform=None):
-    """``serving_bench``'s model: implicit ALS at rank 64, 8 sweeps."""
+def fit_serving_model(train, platform=None, rank: int = RANK):
+    """``serving_bench``'s model: implicit ALS at ``rank`` (64 in the
+    serving config), 8 sweeps."""
     from recommendation_models_tpu_torch import ALS
-    return ALS(rank=RANK, alpha=1.0, reg=0.1, n_sweeps=SWEEPS, seed=0,
+    return ALS(rank=rank, alpha=1.0, reg=0.1, n_sweeps=SWEEPS, seed=0,
                platform=platform).fit(train)
 
 
@@ -191,19 +192,20 @@ def host_oracle(model, rows: int = ORACLE_ROWS) -> float:
 def measure(model, train_obs, eval_users, rel_eval, device, scale: str):
     """Every number of the probe on a fitted model: the JSON record."""
     n_users, n_items = model.n_users_, model.n_items_
+    rank = model.U_.shape[1]
     q = serve_quality(model, eval_users, rel_eval, device)
     Uq, V = query_batch(model, device)
     batch = Uq.shape[0]
     ms = peak = split = None
     bound = (None, None)
     if device.type == "cuda":
-        bound = bound_ms(batch, n_items)
+        bound = bound_ms(batch, n_items, rank)
         ms, peak = throughput(Uq, V)
         split = device_split(Uq, V)
     qps = None if ms is None else batch / ms * 1e3
     oracle = host_oracle(model)
     return {
-        "metric": f"topk_retrieval_users_per_sec_rank{RANK}_{scale}_synth",
+        "metric": f"topk_retrieval_users_per_sec_rank{rank}_{scale}_synth",
         "value": qps,
         "unit": "users/s/chip",
         "vs_baseline": None if qps is None else qps / oracle,

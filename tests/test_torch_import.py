@@ -1,6 +1,7 @@
 """The PyTorch port imports without JAX, the JAX package or triton, and its
 entry points run on the CUDA card unless asked for the CPU."""
 
+import json
 import os
 import subprocess
 import sys
@@ -30,6 +31,7 @@ _PROBE = textwrap.dedent("""
     sys.meta_path.insert(0, _NoTriton())
     before = set(sys.modules)
     import recommendation_models_tpu_torch
+    import recommendation_models_tpu_torch.bench
     import recommendation_models_tpu_torch.data.layout_cache
     import recommendation_models_tpu_torch.data.movielens
     import recommendation_models_tpu_torch.data.native
@@ -166,6 +168,42 @@ def test_topology_without_shards_raises_like_the_reference(topology):
                  topology=topology).fit(R)
     assert str(got.value) == str(ref.value)
     assert "needs a sharded fit" in str(got.value)
+
+
+_BENCH_RUN = textwrap.dedent("""
+    import importlib.abc, runpy, sys
+
+    class _Block(importlib.abc.MetaPathFinder):
+        # JAX, the JAX package and its bench.py
+        def find_spec(self, name, path, target=None):
+            if (name in ("jax", "jaxlib", "recommendation_models_tpu",
+                         "bench")
+                    or name.startswith(("jax.", "jaxlib.",
+                                        "recommendation_models_tpu."))):
+                raise ImportError(name + " is blocked for this check")
+            return None
+
+    sys.meta_path.insert(0, _Block())
+    sys.argv = ["bench", "--platform", "cpu"]
+    runpy.run_module("recommendation_models_tpu_torch.bench",
+                     run_name="__main__")
+""")
+
+
+def test_bench_runs_without_jax_or_the_reference():
+    """``python -m recommendation_models_tpu_torch.bench --platform cpu``
+    runs to its record with JAX, the JAX package and ``bench.py`` blocked
+    from import."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(PYTHONPATH=REPO, BENCH_SCALE="tiny", BENCH_SWEEPS="1",
+               BENCH_ORACLE_ROWS="200")
+    res = subprocess.run([sys.executable, "-c", _BENCH_RUN], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    rec = json.loads(res.stdout.strip())
+    assert rec["metric"] == "als_rows_solved_per_sec_per_chip_rank64_tiny_synth"
+    assert np.isfinite(rec["extra"]["train_rmse"])
 
 
 _BY_PATH = textwrap.dedent("""

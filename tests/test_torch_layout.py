@@ -201,6 +201,32 @@ def test_config_policies_identical():
         pc.sse_separate_for(pc.SolveConfig(sse_mode="bogus"), 1)
 
 
+@pytest.mark.parametrize("rank,nnz,budget,separate,dmd,growth", [
+    (128, 19_027_200, 4096, False, 2048, 1.25),   # ML-25M rank 128
+    (64, 77_037_080, 2, False, 512, 1.12),        # synth-100M rank 64
+    (128, 77_037_080, 1536, False, 2048, 1.25),   # synth-100M rank 128
+    (64, 19_027_200, 2, True, 512, 1.12),         # ML-25M rank 64
+])
+def test_policies_at_the_bench_configurations(rank, nnz, budget, separate,
+                                              dmd, growth):
+    """The auto policies at the JAX package's recorded bench
+    configurations: the gather budget, the SSE mode (riding at rank 128 and
+    at synth-100M), the dense threshold and the bucket growth, each equal
+    to the JAX package's and pinned."""
+    assert pc.gather_budget_for_rank(rank, nnz) == budget
+    assert rc.gather_budget_for_rank(rank, nnz) == budget
+    for mod in (pc, rc):
+        assert mod.sse_separate_for(mod.SolveConfig(rank=rank), nnz) \
+            is separate
+        # the implicit objective always takes the separate pass
+        assert mod.sse_separate_for(mod.SolveConfig(rank=rank, alpha=1.0),
+                                    nnz)
+        assert mod.dense_min_degree_for_rank(rank) == dmd
+        assert mod.bucket_growth_for_rank(rank) == growth
+    assert pchol.hot_cols_auto(rank) == rchol.hot_cols_auto(rank) == (
+        0 if rank == 128 else 128)
+
+
 def test_layout_cache_interchangeable(tmp_path):
     rows, cols, vals, nr, nc = _skewed()
     cfg = dict(hot_cols=16, hot_min_count=5, dense_min_degree=30)
