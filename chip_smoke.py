@@ -219,7 +219,48 @@ non-zero before the result lines are printed:
    anchors, 'auto' ids equal to 'exact') and the IMC mode (ML-1M, rank 64
    capped to 32: history within 2e-2 of ``REF_IMC_ML1M``, cold-start RMSE
    within 1e-3);
-13. one JSON line describing every kernel, then the result line. Each
+13. the solve kernels past k = 128, the rank-160 fit, the shape fuzz and
+   the quality probes. (a) B1, B2 (C = the reference's hot cap, 24 and
+   16) and B3 (both grams summed) at k = 136 and 160, at 256 and 65,536
+   rows: each launched (nothing routed), against its plain version,
+   repeated bitwise; device ms (``torch.profiler``), event ms, host µs at
+   256 rows, the bound and ``torch.linalg.cholesky`` + ``cholesky_solve``
+   as the library's device ms. (b) The one-block kernel
+   ``cholesky_solve_large`` (``csrc/cholesky_large.cu``) at k = 168, 256,
+   512 and 656, B = 1 and ``block_batch(k)`` (with two grams: 1 and the
+   halved block), through the batch wrappers: against the plain versions,
+   bitwise, zero and identity systems exactly 0, event and device ms,
+   host µs, plain ms, the bound and the library; then its paths with the
+   launch counts set to 0 just before and read just after:
+   ``ops.solve.solve_spd_t`` (and ``Gt2=``) at each order and one block,
+   and ``ALS(rank=256).fit`` on ML-100K-shaped ratings (reg 1.0, exact
+   SSE, 5 sweeps), whose blocks of at most 48 rows take the kernel and the
+   larger ones are routed (the JAX package sends them to XLA), its history
+   within 1e-3 of ``solver='xla'``. (c) The kernel shape fuzz
+   (``probes/fuzz_kernel_shapes.py``), 25 trials of seed 0: all within 5e-3
+   of the anchor, ``ROUTED`` counting exactly the trials that
+   ``pallas_supported`` refuses. (d) ``ALS(rank=160).fit`` on phase 5's
+   ratings (the auto policy: no hot columns, dense threshold 3,200, a
+   4,096 MB gather budget, the riding SSE), 10 sweeps from the bench's warm
+   start, the launch counts set to 0 just before and read just after: B1
+   launched in both regimes (``LATENCY_LAUNCHES``), nothing routed; peak
+   memory; the same fit with ``solver='xla'`` (history within 1e-3); on the
+   fit's layouts (its layout cache) the bench's timed fit (one warm-up
+   sweep, 10 timed: the epoch, history equal to the fit's), a direct RMSE
+   of its factors within 1e-3 of the riding history's last, one profiled
+   sweep (device ms, idle share), the dense rows and their TFLOP a sweep;
+   and ML-1M at rank 160 (exact SSE) within 1e-3 a sweep of the JAX
+   package's f32 CPU history (``REF_ML1M_R160``). (e) The ALS quality probe
+   (``probes/quality_parity.py``) at its 3 seeds: the oracle on the host,
+   ``ALS`` on the card, test RMSE within max(1e-3, 0.1 x the oracle's
+   band) and recall@10 / NDCG@10 within 0.01 per seed; then the IMC
+   probe (``probes/quality_parity_imc.py``) at its 3 seeds, its oracle
+   fitted by three child processes (one core each, started before phase
+   12, so they share the host with phases 12 and 13) and ``IMC`` on the
+   card: the history within 2e-2 of the oracle's from the second sweep
+   (the first within 2e-2 of the JAX package's f32 history) and the test
+   predictions within rtol 2e-2, atol 2e-2;
+14. one JSON line describing every kernel, then the result line. Each
    entry's numbers are at its ``k`` and ``batch``; B4, B5a, B5b and B5c
    have ``resident`` (their kernel's resident blocks at k=64; B4 and B5b
    per instantiation in ``resident_by_instantiation``); B1, B2 and B3 also have
@@ -231,8 +272,11 @@ non-zero before the result lines are printed:
    probe's shape, ``at_main_path`` (both halves' gathers) and
    ``at_row_block`` (a row block of each half). B1's and B2's ``launches``
    are the main path's, the sharded phase's, the multi-process phase's and
-   the bench phase's five train lines (B1's also the 2-D phase's), each in
-   ``launches_by_path``.
+   the bench phase's five train lines (B1's also the 2-D phase's and the
+   rank-160 fit's), each in ``launches_by_path``; B1, B2 and B3 have
+   ``wide_orders`` (phase 13a's numbers by k and batch), and
+   ``cholesky_solve_large`` is at k = 656, B = 8 with ``by_order`` (phase
+   13b's numbers) and its launches from phase 13b's paths.
 
 ``--profile`` adds one profiled main-path sweep and prints its device time
 by kernel and the device's idle share (not run by default).
@@ -589,6 +633,8 @@ TPU_KERNEL = {
     "cholesky_solve_schur": f"{_PALLAS}:697",
     "cholesky_solve_dual": f"{_PALLAS}:675",
     "gather_rows_sum": "scripts/probe_dma_gather.py:49",
+    # the same TPU kernels at their one-block grid past kp = 160
+    "cholesky_solve_large": f"{_PALLAS}:226",
 }
 _CSRC = "recommendation_models_tpu_torch/csrc/"
 SOURCE = {
@@ -600,6 +646,7 @@ SOURCE = {
     "cholesky_solve_schur": _CSRC + "cholesky_rank_panel.cu",
     "cholesky_solve_dual": _CSRC + "cholesky_rank_panel.cu",
     "gather_rows_sum": _CSRC + "gather.cu",
+    "cholesky_solve_large": _CSRC + "cholesky_large.cu",
 }
 MAIN_PATH = "ALS(rank=64).fit, ML-25M shape"
 SHARDED_PATH = (f"ShardedALSProgram(S={SHARDED_S}, allgather).make_fit on "
@@ -613,7 +660,8 @@ BENCH_PATH = ("recommendation_models_tpu_torch.bench train mode: ML-25M rank "
 BENCH_PATH_R128 = "and ML-25M and synth-100M rank 128"
 PATH = {
     "cholesky_solve_batched": (f"{MAIN_PATH}; {SHARDED_PATH}; {HYBRID_PATH}; "
-                               f"{MP_PATH}; {BENCH_PATH} {BENCH_PATH_R128}"),
+                               f"{MP_PATH}; {BENCH_PATH} {BENCH_PATH_R128}; "
+                               f"ALS(rank=160).fit, ML-25M shape"),
     "cholesky_solve_hot": (f"{MAIN_PATH}; {SHARDED_PATH}; {MP_PATH}; "
                            f"{BENCH_PATH}"),
     "cholesky_solve_2g": "ops.solve.solve_spd_t(Gt2=), k=64, B=65,536",
@@ -622,6 +670,9 @@ PATH = {
     "cholesky_solve_schur": "probes.solve_variants, k=128, B=65,536",
     "cholesky_solve_dual": "probes.solve_variants, k=128, B=65,536",
     "gather_rows_sum": "probes.dma_gather / probes.ablate_epoch gather only",
+    "cholesky_solve_large": ("ops.solve.solve_spd_t (and Gt2=) at k = 168, "
+                             "256, 512, 656, one block; ALS(rank=256).fit, "
+                             "ML-100K shape"),
 }
 PROBE_VARIANTS = "pair,rank1,pair_s1,panel,schur,schur_s1,dual"
 PROBE_K, PROBE_B, PROBE_REG = 128, 65_536, 0.05   # the probe's defaults
@@ -2763,6 +2814,528 @@ def phase_bench(torch, dev, main_data):
     return by_line
 
 
+# ------------------------------------------------- phase 13: past k = 128
+
+WIDE_KS = (136, 160)            # B1-B3 past the old k = 128 cap
+WIDE_BATCHES = (256, 65_536)
+LARGE_KS = (168, 256, 512, 656)  # the one-block kernel's orders
+FUZZ_TRIALS, FUZZ_SEED = 25, 0
+R160 = 160
+LARGE_FIT_RANK = 256            # the estimator path of the one-block kernel
+QP_IMC_SEEDS = (0, 1, 2)
+QP_TIMEOUT = 900                # seconds a child oracle may take
+
+# ML-1M-shaped rank-160 train-RMSE history (the exact masked SSE) of the JAX
+# package, recorded on a CPU (gather_budget_mb=256 bounds the host memory;
+# it splits rows into blocks and changes no row's arithmetic):
+#   JAX_PLATFORMS=cpu python -c '
+#   import numpy as np, scipy.sparse as sp
+#   from recommendation_models_tpu.data.synthetic import synthetic_ratings
+#   from recommendation_models_tpu import ALS
+#   u, i, r = synthetic_ratings(6040, 3706, 1_000_209, rank=16, seed=0)
+#   R = sp.csr_matrix((r, (u, i)), shape=(6040, 3706))
+#   g = np.random.default_rng(0)
+#   U0 = 0.01 * g.standard_normal((6040, 160)).astype(np.float32)
+#   V0 = 0.01 * g.standard_normal((3706, 160)).astype(np.float32)
+#   m = ALS(rank=160, reg=0.1, n_sweeps=10, solver="xla",
+#           compute_dtype="float32", sse_mode="separate",
+#           gather_budget_mb=256, platform="cpu").fit(R, U0=U0, V0=V0)
+#   print([float(x) for x in m.history_])'
+REF_ML1M_R160 = [
+    0.6028932332992554, 0.2509901225566864, 0.10480209439992905,
+    0.0677432119846344, 0.052201442420482635, 0.04362676665186882,
+    0.03809554874897003, 0.03416580706834793, 0.031185265630483627,
+    0.028813518583774567]
+
+
+def start_imc_oracles(seeds=QP_IMC_SEEDS):
+    """One child process a seed fitting the IMC quality probe's oracle on the
+    host (``--oracle-only``, one thread, no card): [(seed, process, file)]."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(out, exist_ok=True)
+    env = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1",
+               MKL_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    children = []
+    for s in seeds:
+        path = os.path.join(out, f"qp_imc_oracle_{s}.npz")
+        if os.path.exists(path):
+            os.remove(path)
+        with open(path + ".err", "w") as err:
+            children.append((s, subprocess.Popen(
+                [sys.executable, "-m",
+                 "recommendation_models_tpu_torch.probes.quality_parity_imc",
+                 "--oracle-only", "--seeds", str(s), "--out", path],
+                cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=err),
+                path))
+    return children
+
+
+def stop_children(children):
+    for _, proc, _ in children:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def profiled_or_none(fn, reps):
+    """Device ms per call from ``torch.profiler``, or None when the profiler
+    records no device time (it drops some ms-long calls on the card); the
+    CUDA-event ms beside it is always measured."""
+    from recommendation_models_tpu_torch.probes import profiled_ms
+    try:
+        return profiled_ms(fn, reps)
+    except RuntimeError as exc:
+        log(f"# {exc}: device ms not measured")
+        return None
+
+
+def wide_numbers(torch, fn, library, b, timed_host):
+    """Device ms (profiler, or None), CUDA-event ms, library device ms and,
+    at the 256-row batch, host µs per call of ``fn`` at batch b."""
+    from recommendation_models_tpu_torch.probes import host_us
+    from recommendation_models_tpu_torch.probes.solve_latency import reps_for
+    reps = reps_for(b)
+    return dict(device_ms=profiled_or_none(fn, reps),
+                ms=time_ms(torch, fn, max(3, reps // 4), warm=1),
+                host_us=host_us(fn) if timed_host else None,
+                library_device_ms=profiled_or_none(library,
+                                                   max(2, reps // 8)))
+
+
+def phase_wide_kernels(torch, dev):
+    """13a: B1, B2 (C = the reference's cap, 24 and 16) and B3 (both grams
+    summed) at k = 136 and 160, at 256 rows and 65,536: each against its
+    plain version and repeated bitwise; device ms, event ms, host µs (256
+    rows: the enqueue does not depend on the batch), the bound and the
+    library solve's device ms. Returns {kernel: {k: {batch: numbers}}}."""
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.probes.solve_latency import (
+        hot_slab, random_systems)
+    out = {n: {} for n in ch.REGIME_KINDS}
+    t0 = time.perf_counter()
+    for k in WIDE_KS:
+        gen = torch.Generator(device=dev).manual_seed(k)
+        n = max(WIDE_BATCHES)
+        G, rhs, reg = random_systems(n, k, 3 * k // 4, gen, dev)
+        G2 = random_systems(n, k, 16, gen, dev)[0]
+        c = ch.hot_cols_cap(k)
+        hv = hot_slab(n, c, gen, dev)
+        vh = 0.3 * torch.randn(c, k, generator=gen, device=dev)
+        eye = torch.eye(k, device=dev)
+
+        def library(A, rs, gs):
+            return torch.cholesky_solve(rs[:, :, None], torch.linalg.cholesky(
+                A + gs[:, None, None] * eye))
+
+        def library_hot(Gs, rs, gs, hs, v):
+            Gf, rf = ch.fold_hot(Gs, rs, hs, v, None)
+            return library(Gf, rf, gs)
+
+        cases = {
+            "cholesky_solve_batched": (
+                ch.cholesky_solve_batched, ch.cholesky_solve_plain,
+                lambda b: (G[:b], rhs[:b], reg[:b]), library),
+            "cholesky_solve_2g": (
+                ch.cholesky_solve_2g, ch.cholesky_solve_2g_plain,
+                lambda b: (G[:b], G2[:b], rhs[:b], reg[:b]),
+                lambda Gs, G2s, rs, gs: library(Gs + G2s, rs, gs)),
+            "cholesky_solve_hot": (
+                ch.cholesky_solve_hot, ch.cholesky_solve_hot_plain,
+                lambda b: (G[:b], rhs[:b], reg[:b], hv[:b], vh),
+                library_hot),
+        }
+        for name, (fn, plain, args_of, lib) in cases.items():
+            out[name][str(k)] = {}
+            for b in WIDE_BATCHES:
+                args = tuple(a.contiguous() for a in args_of(b))
+                ch.reset_counts()
+                x = fn(*args)
+                check(ch.LAUNCHES[name] == 1 and not any(ch.ROUTED.values()),
+                      f"{name} at k={k} B={b} did not take its kernel: "
+                      f"{ch.LAUNCHES} {ch.ROUTED}")
+                err, ok = compare(torch, x, plain(*args))
+                check(ok, f"{name} disagrees with its plain version at k={k}"
+                          f" B={b} (max abs err {err:.3e})")
+                check(torch.equal(x, fn(*args)),
+                      f"{name} is not bitwise repeatable at k={k} B={b}")
+                lat, resident = ch.solve_regime(
+                    name, b, k, c if name == "cholesky_solve_hot" else 0)
+                nums = wide_numbers(torch, lambda: fn(*args),
+                                    lambda: lib(*args), b,
+                                    timed_host=b == min(WIDE_BATCHES))
+                n_bytes, n_flops = solve_bytes(b, k), solve_flops(b, k)
+                if name == "cholesky_solve_2g":
+                    n_bytes += 4.0 * b * k * (k + 1) / 2
+                    n_flops += b * k * (k + 1) / 2
+                elif name == "cholesky_solve_hot":
+                    nnz = int((hv[:b] != 0).sum())
+                    n_bytes += 2.0 * b * c + 4.0 * c * k
+                    n_flops += (k * (k + 1) + 2.0 * k) * nnz
+                bound_ms, bound_by = bound(n_bytes, n_flops)
+                nums.update(max_abs_err=err, bound_ms=bound_ms,
+                            bound_by=bound_by, resident=resident,
+                            regime="latency" if lat else "throughput")
+                out[name][str(k)][str(b)] = nums
+                log(f"# 13a {name} k={k} B={b} ({nums['regime']}, resident "
+                    f"{resident}{f', C={c}' if 'hot' in name else ''}): "
+                    f"max_abs_err={err:.3e} device_ms={nums['device_ms']} "
+                    f"ms={nums['ms']:.5f} host_us={nums['host_us']} "
+                    f"library_device_ms={nums['library_device_ms']} "
+                    f"bound_ms={bound_ms:.5f} ({bound_by})")
+        del G, G2, rhs, reg, hv
+        torch.cuda.empty_cache()
+    log(f"# 13a: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def phase_large_kernel(torch, dev):
+    """13b: the one-block kernel (``cholesky_solve_large``) at k = 168, 256,
+    512 and 656, B = 1 and ``block_batch(k)`` (two grams: 1 and the halved
+    block), through the batch wrappers: against the plain versions,
+    repeated bitwise, zero and identity systems exactly 0; event ms, device
+    ms, host µs, the bound and the library solve. Returns {k: {case:
+    numbers}}."""
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.probes import host_us
+    from recommendation_models_tpu_torch.probes.solve_latency import (
+        random_systems)
+    out = {}
+    t0 = time.perf_counter()
+    for k in LARGE_KS:
+        gen = torch.Generator(device=dev).manual_seed(k)
+        bb, b2 = ch.block_batch(k), ch.two_operand_block(k)
+        G, rhs, reg = random_systems(bb, k, 3 * k // 4, gen, dev)
+        G2 = random_systems(bb, k, 16, gen, dev)[0]
+        eye = torch.eye(k, device=dev)
+        out[str(k)] = {}
+        for two, batches in ((False, (1, bb)), (True, (1, b2))):
+            for b in batches:
+                args = (G[:b], G2[:b], rhs[:b], reg[:b]) if two else (
+                    G[:b], rhs[:b], reg[:b])
+                fn = ch.cholesky_solve_2g if two else ch.cholesky_solve_batched
+                plain = (ch.cholesky_solve_2g_plain if two
+                         else ch.cholesky_solve_plain)
+                ch.reset_counts()
+                x = fn(*args)
+                check(ch.LAUNCHES["cholesky_solve_large"] == 1
+                      and not any(ch.ROUTED.values()),
+                      f"k={k} B={b} did not take the one-block kernel: "
+                      f"{ch.LAUNCHES} {ch.ROUTED}")
+                t1 = time.perf_counter()
+                ref = plain(*args)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t1) * 1e3
+                err, ok = compare(torch, x, ref)
+                check(ok, f"cholesky_solve_large k={k} B={b} two={two} "
+                          f"disagrees with its plain version ({err:.3e})")
+                check(torch.equal(x, fn(*args)),
+                      f"cholesky_solve_large k={k} B={b} is not bitwise "
+                      f"repeatable")
+                A = (args[0] + args[1]) if two else args[0]
+                gs = args[-1]
+
+                def library(A=A, rs=args[-2], gs=gs):
+                    return torch.cholesky_solve(rs[:, :, None],
+                                                torch.linalg.cholesky(
+                                                    A + gs[:, None, None]
+                                                    * eye))
+
+                n_bytes = solve_bytes(b, k) + (4.0 * b * k * (k + 1) / 2
+                                               if two else 0.0)
+                n_flops = solve_flops(b, k) + (b * k * (k + 1) / 2
+                                               if two else 0.0)
+                bound_ms, bound_by = bound(n_bytes, n_flops)
+                nums = dict(
+                    ms=time_ms(torch, lambda: fn(*args), 10),
+                    device_ms=profiled_or_none(lambda: fn(*args), 10),
+                    host_us=host_us(lambda: fn(*args)),
+                    library_ms=time_ms(torch, library, 5),
+                    plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms,
+                    bound_by=bound_by)
+                out[str(k)][f"{'2g' if two else 'g'}_{b}"] = nums
+                log(f"# 13b cholesky_solve_large k={k} B={b} "
+                    f"{'G+G2' if two else 'G'}: max_abs_err={err:.3e} ms="
+                    f"{nums['ms']:.4f} device_ms={nums['device_ms']} "
+                    f"host_us={nums['host_us']:.1f} plain_ms={plain_ms:.1f} "
+                    f"library_ms={nums['library_ms']:.4f} bound_ms="
+                    f"{bound_ms:.5f} ({bound_by})")
+        Gz = torch.zeros(bb, k, k, device=dev)
+        Gz[1::2] = eye
+        z, zr = torch.zeros(bb, k, device=dev), torch.zeros(bb, device=dev)
+        for x in (ch.cholesky_solve_batched(Gz, z, zr),
+                  ch.cholesky_solve_2g(Gz[:b2], Gz[:b2], z[:b2], zr[:b2])):
+            check(bool((x == 0).all()),
+                  f"zero / identity systems did not solve to 0 at k={k}")
+        del G, G2, rhs, reg
+        torch.cuda.empty_cache()
+    log(f"# 13b: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def phase_large_path(torch, dev):
+    """13b, the one-block kernel on paths a user runs, with the launch counts
+    set to 0 just before and read just after: ``ops.solve.solve_spd_t``
+    (and with ``Gt2``) at each of its orders and one block, then
+    ``ALS(rank=256).fit`` on ML-100K-shaped ratings (buckets padded to 48
+    rows: the blocks of at most 48 take the kernel, the larger ones are
+    routed, as the JAX package sends them to XLA), 5 sweeps, its history
+    within 1e-3 of the same fit with ``solver='xla'``. Returns the
+    launches."""
+    import numpy as np
+    import scipy.sparse as sp
+    from recommendation_models_tpu_torch import ALS
+    from recommendation_models_tpu_torch.data.synthetic import (
+        synthetic_ratings)
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.ops.solve import solve_spd_t
+    from recommendation_models_tpu_torch.probes import SCALES
+    from recommendation_models_tpu_torch.probes.epoch_profile import (
+        warm_start)
+    from recommendation_models_tpu_torch.probes.solve_latency import (
+        random_systems)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    inputs = []
+    for k in LARGE_KS:
+        for b, two in ((ch.block_batch(k), False),
+                       (ch.two_operand_block(k), True)):
+            G, rhs, reg = random_systems(b, k, 3 * k // 4, gen, dev)
+            G2 = random_systems(b, k, 16, gen, dev)[0] if two else None
+            inputs.append((G.permute(1, 2, 0), rhs.t(), reg,
+                           None if G2 is None else G2.permute(1, 2, 0)))
+    n_users, n_items, n_obs = SCALES["ml100k"]
+    u, i, r = synthetic_ratings(n_users, n_items, n_obs, rank=16, seed=0)
+    R = sp.csr_matrix((r, (u, i)), shape=(n_users, n_items))
+    U0, V0 = warm_start(n_users, n_items, LARGE_FIT_RANK)
+    kw = dict(rank=LARGE_FIT_RANK, reg=1.0, n_sweeps=5, sse_mode="separate")
+    ch.reset_counts()
+    xs = [solve_spd_t(Gt, rt, "pallas", reg_vec=rv, Gt2=Gt2)
+          for Gt, rt, rv, Gt2 in inputs]
+    m = ALS(**kw).fit(R, U0=U0, V0=V0)
+    launches, routed = dict(ch.LAUNCHES), dict(ch.ROUTED)
+    for (Gt, rt, rv, Gt2), x in zip(inputs, xs):
+        ref = solve_spd_t(Gt, rt, "xla", reg_vec=rv, Gt2=Gt2)
+        err = float((x - ref).abs().max()) / max(float(ref.abs().max()), 1)
+        check(err < 5e-3, f"solve_spd_t at k={Gt.shape[0]} B={Gt.shape[2]} "
+                          f"differs from the anchor ({err:.2e})")
+    ref = ALS(solver="xla", **kw).fit(R, U0=U0, V0=V0)
+    hist, want = ([float(h) for h in f.history_] for f in (m, ref))
+    rel = max(abs(a - b) / b for a, b in zip(hist, want))
+    log(f"# 13b path: solve_spd_t at k={list(LARGE_KS)} and "
+        f"ALS(rank={LARGE_FIT_RANK}).fit ML-100K: launches={launches} "
+        f"routed={routed}; history={hist} rel diff vs solver='xla' "
+        f"{rel:.2e}")
+    check(np.isfinite(m.U_).all() and rel <= HISTORY_RTOL,
+          f"ALS(rank={LARGE_FIT_RANK}) differs from the anchor fit: {rel}")
+    check(launches["cholesky_solve_large"] > 2 * len(LARGE_KS),
+          f"the rank-{LARGE_FIT_RANK} fit did not launch the one-block "
+          f"kernel: {launches}")
+    check(routed["cholesky_solve_batched"] > 0,
+          f"the rank-{LARGE_FIT_RANK} fit routed no block past 48 rows: "
+          f"{routed}")
+    return launches
+
+
+def phase_fuzz(torch, dev):
+    """13c: the kernel shape fuzz (``probes/fuzz_kernel_shapes.py``), 25
+    trials of seed 0: every trial within 5e-3 of the anchor, and ``ROUTED``
+    counting exactly the trials that ``pallas_supported`` refuses."""
+    from recommendation_models_tpu_torch.probes import fuzz_kernel_shapes as fz
+    t0 = time.perf_counter()
+    try:
+        out = fz.run(FUZZ_TRIALS, FUZZ_SEED, dev, log=log)
+    except AssertionError as exc:
+        raise Failed(f"kernel shape fuzz: {exc}") from exc
+    refused = [r for r in out if not r["supported"]]
+    check(len(out) == FUZZ_TRIALS
+          and all(r["routed"] == ({} if r["supported"] else
+                                  {("cholesky_solve_2g" if r["two_op"] else
+                                    "cholesky_solve_batched"): 1})
+                  for r in out),
+          "the fuzz's routed calls do not match pallas_supported")
+    log(f"# 13c fuzz: {len(out)}/{FUZZ_TRIALS} trials passed, "
+        f"{len(refused)} routed (pallas_supported refuses "
+        f"{len(refused)}), max err {max(r['err'] for r in out):.2e}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def phase_rank160(torch, dev, coo):
+    """13d: ``ALS(rank=160).fit`` on phase 5's ML-25M-shaped ratings (auto
+    policy: no hot columns, dense threshold 3,200, growth 1.25, a 4,096 MB
+    gather budget, the riding SSE), 10 sweeps from the bench's warm start,
+    the launch counts set to 0 just before and read just after: B1 launched
+    in both regimes, nothing routed. The same fit with ``solver='xla'``
+    (history within 1e-3); on the fit's layouts (its layout cache) the
+    bench's timed fit, one warm-up sweep and 10 timed (epoch, history
+    equal to the fit's), a direct RMSE of its factors against the riding
+    history's last (1e-3), one profiled sweep; then ML-1M at rank 160
+    (exact SSE) against the JAX package's CPU history (1e-3 a sweep).
+    Returns (launches, record)."""
+    import shutil as _shutil
+    import numpy as np
+    import scipy.sparse as sp
+    from recommendation_models_tpu_torch import ALS
+    from recommendation_models_tpu_torch.bench import dense_tflop_per_sweep
+    from recommendation_models_tpu_torch.data.layout import csr_arrays
+    from recommendation_models_tpu_torch.data.synthetic import (
+        synthetic_ratings)
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.probes import SCALES
+    from recommendation_models_tpu_torch.probes.epoch_profile import (
+        profile_sweep, scanned_fits, time_fit, warm_start)
+    from recommendation_models_tpu_torch.solver.als_sweep import masked_sse
+    t_phase = time.perf_counter()
+    u, i, r = coo
+    n_users, n_items = SCALES["ml25m"][:2]
+    nnz = r.shape[0]
+    R = sp.csr_matrix((r, (u, i)), shape=(n_users, n_items))
+    U0, V0 = warm_start(n_users, n_items, R160)
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke", "r160_layouts")
+    _shutil.rmtree(cache, ignore_errors=True)
+    os.makedirs(cache)
+    prefix = os.path.join(cache, "ml25m")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ch.reset_counts()
+    t0 = time.perf_counter()
+    m = ALS(rank=R160, reg=0.1, n_sweeps=SWEEPS,
+            layout_cache=prefix).fit(R, U0=U0, V0=V0)
+    fit_s = time.perf_counter() - t0
+    launches, routed = dict(ch.LAUNCHES), dict(ch.ROUTED)
+    latency = dict(ch.LATENCY_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    hist = [float(h) for h in m.history_]
+    check(len(hist) == SWEEPS and np.isfinite(m.U_).all()
+          and np.isfinite(m.V_).all() and m.U_.shape == (n_users, R160),
+          "the rank-160 fit ran short or is not finite")
+    check(launches["cholesky_solve_batched"] > 0
+          and 0 < latency["cholesky_solve_batched"]
+          < launches["cholesky_solve_batched"],
+          f"the rank-160 fit did not launch B1 in both regimes: {launches}, "
+          f"latency {latency}")
+    check(not any(routed.values()), f"the rank-160 fit routed: {routed}")
+    t0 = time.perf_counter()
+    x = ALS(rank=R160, reg=0.1, n_sweeps=SWEEPS, solver="xla",
+            layout_cache=prefix).fit(R, U0=U0, V0=V0)
+    xla_s = time.perf_counter() - t0
+    xhist = [float(h) for h in x.history_]
+    rel_xla = max(abs(a - b) / b for a, b in zip(hist, xhist))
+    check(rel_xla <= HISTORY_RTOL,
+          f"the rank-160 history differs from solver='xla': {rel_xla}")
+    del x
+    indptr, indices, data, nu, ni = csr_arrays(R)
+    ul, il = m._build_layouts(indptr, indices, data, nu, ni,
+                              m._data_config())
+    fits = scanned_fits(ul, il, nnz, dev, R160, sweeps=SWEEPS)
+    epoch_s, U, V, sse_h, n_done = time_fit(fits.fit, fits.U0, fits.V0)
+    thist = [float(h) for h in np.sqrt(np.maximum(sse_h[:n_done], 0) / nnz)]
+    rel_fit = max(abs(a - b) / b for a, b in zip(thist, hist))
+    direct = float(np.sqrt(max(float(masked_sse(
+        U, V, fits.user_buckets, chunk=fits.cfg.chunk,
+        gather_budget_mb=fits.cfg.gather_budget_mb)), 0.0) / nnz))
+    try:
+        prof = profile_sweep(fits.one, U, V, epoch_s)
+    except RuntimeError as exc:   # the profiler recorded no device time
+        log(f"# {exc}: the rank-160 sweep's device time not measured")
+        prof = {"device_ms_per_sweep": None, "idle_share": None, "top": []}
+    check(n_done == SWEEPS and rel_fit <= HISTORY_RTOL,
+          f"the timed rank-160 fit does not reproduce ALS.fit: {rel_fit}")
+    check(abs(thist[-1] - direct) <= HISTORY_RTOL * direct,
+          f"the rank-160 riding RMSE {thist[-1]} differs from a direct RMSE "
+          f"{direct}")
+    dense = {"user": 0 if ul.dense_ids is None else ul.dense_ids.shape[0],
+             "item": 0 if il.dense_ids is None else il.dense_ids.shape[0]}
+    record = dict(fit_seconds=fit_s, xla_fit_seconds=xla_s,
+                  epoch_seconds=epoch_s,
+                  device_ms_per_sweep=prof["device_ms_per_sweep"],
+                  idle_share=prof["idle_share"], top=prof["top"][:8],
+                  max_memory_allocated=peak, history=hist,
+                  xla_history=xhist, rel_diff_xla=rel_xla,
+                  direct_rmse=direct, dense_rows=dense,
+                  dense_tflop_per_sweep=dense_tflop_per_sweep(ul, il, R160),
+                  gathered_rows_per_epoch=int(ul.padded_slots
+                                              + il.padded_slots),
+                  launches=launches, latency_launches=latency, routed=routed)
+    del fits, U, V, ul, il, m
+    _shutil.rmtree(cache, ignore_errors=True)
+    torch.cuda.empty_cache()
+    # ML-1M at rank 160 against the JAX package's f32 CPU history
+    n1u, n1i, n1o = SCALES["ml1m"]
+    u1, i1, r1 = synthetic_ratings(n1u, n1i, n1o, rank=16, seed=0)
+    R1 = sp.csr_matrix((r1, (u1, i1)), shape=(n1u, n1i))
+    U1, V1 = warm_start(n1u, n1i, R160)
+    h1 = [float(h) for h in ALS(rank=R160, reg=0.1, n_sweeps=SWEEPS,
+                                sse_mode="separate").fit(
+        R1, U0=U1, V0=V1).history_]
+    rel1 = [abs(a - b) / b for a, b in zip(h1, REF_ML1M_R160)]
+    record.update(ml1m_history=h1, ml1m_rel_diff=rel1)
+    log(json.dumps({"rank160": record}))
+    log(f"# 13d ALS(rank={R160}).fit ML-25M: fit {fit_s:.1f}s (layouts, "
+        f"cache write, upload), epoch_seconds={epoch_s:.4f} device_ms/sweep="
+        f"{prof['device_ms_per_sweep']} idle={prof['idle_share']} "
+        f"peak={peak} dense={dense} "
+        f"({record['dense_tflop_per_sweep']:.3f} TFLOP a sweep) B1 "
+        f"launches={launches['cholesky_solve_batched']} (latency "
+        f"{latency['cholesky_solve_batched']}) routed={routed}; history "
+        f"{hist}; rel diff vs xla {rel_xla:.2e}, timed fit {rel_fit:.2e}, "
+        f"direct {direct:.6f}; ML-1M rel diff vs JAX CPU max "
+        f"{max(rel1):.2e}; {time.perf_counter() - t_phase:.1f}s")
+    check(max(rel1) <= HISTORY_RTOL,
+          f"the ML-1M rank-160 history differs from the JAX package's: "
+          f"{rel1}")
+    return launches, record
+
+
+def phase_quality(torch, dev, children):
+    """13e: the ALS quality probe at its three seeds (the oracle on the
+    host, ``ALS`` on the card), then the IMC probe at the seeds whose oracle
+    the child processes fitted (the estimator on the card), each held to its
+    gate. Returns (ALS line, IMC line)."""
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.probes import quality_parity as qp
+    from recommendation_models_tpu_torch.probes import quality_parity_imc as qi
+    t0 = time.perf_counter()
+    ch.reset_counts()
+    out = qp.run(qp.SEEDS)
+    launches = dict(ch.LAUNCHES)
+    bad = qp.check(out)
+    line = dict(qp.rounded(out), unrounded=out, launches=launches)
+    log(f"# 13e ALS quality parity ({len(qp.SEEDS)} seeds, "
+        f"{time.perf_counter() - t0:.1f}s): {json.dumps(qp.rounded(out))} "
+        f"launches={launches}")
+    check(not bad, f"ALS quality parity failed: {bad}")
+    check(launches["cholesky_solve_batched"] > 0,
+          "the quality fits launched no solve kernel")
+    t1 = time.perf_counter()
+    oracles = {}
+    for seed, proc, path in children:
+        try:
+            proc.wait(timeout=max(1, QP_TIMEOUT - (time.perf_counter() - t1)))
+        except subprocess.TimeoutExpired:
+            stop_children(children)
+            raise Failed(f"the IMC oracle of seed {seed} ran past "
+                         f"{QP_TIMEOUT}s")
+        if proc.returncode != 0:
+            with open(path + ".err") as err:
+                raise Failed(f"the IMC oracle of seed {seed} failed: "
+                             f"{err.read()[-2000:]}")
+        oracles.update(qi.load_oracles(path))
+    log(f"# 13e IMC oracles: waited {time.perf_counter() - t1:.1f}s")
+    imc = qi.run(sorted(oracles), oracles=oracles)
+    # the first sweep against the JAX package's f32 history (at ML-1M both
+    # packages' f32 first sweeps are 4.8% off the f64 oracle's; see the
+    # probe), every later one against the oracle's
+    bad = qi.check(imc, qi.JAX_HISTORY)
+    imc_line = qi.rounded(imc)
+    log(f"# 13e IMC quality parity ({len(oracles)} seeds): "
+        f"{json.dumps(imc_line)}; {time.perf_counter() - t0:.1f}s")
+    check(not bad, f"IMC quality parity failed: {bad}")
+    return line, imc_line
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2836,11 +3409,45 @@ def main(argv) -> int:
         launches[n] += mp_launches[n]
     torch.cuda.empty_cache()
     main_data = [coo, ul, il]
-    del coo, ul, il
-    for line, counts in phase_bench(torch, dev, main_data).items():
-        for n in MAIN_KERNELS:
-            by_path[n][line] = counts[n]
-            launches[n] += counts[n]
+    del ul, il          # phase 13 keeps the ratings (about 400 MB)
+    # phase 13's IMC quality probe: its oracle fits (host only, one core
+    # each, about 150 s) run in child processes beside phases 12 and 13
+    children = start_imc_oracles()
+    try:
+        for line, counts in phase_bench(torch, dev, main_data).items():
+            for n in MAIN_KERNELS:
+                by_path[n][line] = counts[n]
+                launches[n] += counts[n]
+        torch.cuda.empty_cache()
+        t13 = time.perf_counter()
+        wide = phase_wide_kernels(torch, dev)
+        results["cholesky_solve_large"] = large = dict(
+            by_order=phase_large_kernel(torch, dev))
+        launches["cholesky_solve_large"] = phase_large_path(
+            torch, dev)["cholesky_solve_large"]
+        torch.cuda.empty_cache()
+        phase_fuzz(torch, dev)
+        torch.cuda.empty_cache()
+        r160_launches, _ = phase_rank160(torch, dev, coo)
+        del coo
+        by_path["cholesky_solve_batched"]["rank160"] = r160_launches[
+            "cholesky_solve_batched"]
+        launches["cholesky_solve_batched"] += r160_launches[
+            "cholesky_solve_batched"]
+        torch.cuda.empty_cache()
+        phase_quality(torch, dev, children)
+    finally:
+        stop_children(children)
+    log(f"# phase 13: {time.perf_counter() - t13:.1f}s")
+    head = large["by_order"][str(max(LARGE_KS))][
+        f"g_{ch.block_batch(max(LARGE_KS))}"]
+    large.update({f: head[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")},
+                 k=max(LARGE_KS), batch=ch.block_batch(max(LARGE_KS)),
+                 max_abs_err_all=max(v["max_abs_err"] for o in
+                                     large["by_order"].values()
+                                     for v in o.values()))
     kernels = []
     for name in TPU_KERNEL:
         r = results[name]
@@ -2861,8 +3468,10 @@ def main(argv) -> int:
             **({"at_probe_shape": at_probe[name]} if name in at_probe
                else {}),
             **{f: r[f] for f in ("device_ms", "host_us", "l2_bound_ms",
-                                 "l2_tb_s", "at_main_path", "at_row_block")
-               if f in r}})
+                                 "l2_tb_s", "at_main_path", "at_row_block",
+                                 "by_order", "max_abs_err_all")
+               if f in r},
+            **({"wide_orders": wide[name]} if name in wide else {})})
     check(all(k["launches"] > 0 for k in kernels), "a kernel never ran")
     log(f"# total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
-// Shared by csrc/cholesky_solve.cu and csrc/cholesky_rank_panel.cu: the
-// solves' limits and pivot floor, the thread configuration per order of
-// cholesky_solve.cu (cholesky_rank_panel.cu has its own), the cached
-// residency query, the persistent-grid launch, and the two C exports every
-// library of the solves has. Each source builds into its own library and
-// includes this header once.
+// Shared by csrc/cholesky_solve.cu, csrc/cholesky_rank_panel.cu and
+// csrc/cholesky_large.cu: the solves' limits and pivot floor, the thread
+// configuration per order of cholesky_solve.cu (cholesky_rank_panel.cu has
+// its own), the cached residency query, the persistent-grid launch, and the
+// two C exports every library of the solves has. Each source builds into
+// its own library, defines CHOL_KMAX (its largest order) and includes this
+// header once.
 
 #pragma once
 
@@ -14,9 +15,13 @@
 #include <mutex>
 #include <tuple>
 
+#ifndef CHOL_KMAX
+#error "define CHOL_KMAX, the source's largest system order"
+#endif
+
 namespace chol {
 
-constexpr int KMAX = 128;   // largest system order
+constexpr int KMAX = CHOL_KMAX;   // largest system order of this library
 constexpr float PIVOT_FLOOR = 1e-30f;
 
 __device__ __forceinline__ float pick4(const float (&v)[4], int s) {
@@ -26,12 +31,13 @@ __device__ __forceinline__ float pick4(const float (&v)[4], int s) {
 
 // Thread configuration for order k: 160 threads with one tile each cover
 // every tile up to k = 68 (136 tiles at k = 64); larger systems take 256
-// threads with up to three tiles each. 0: <160, 1>, 1: <256, 1>,
-// 2: <256, 2>, 3: <256, 3>.
+// threads with up to four tiles each (820 tiles at k = 160). 0: <160, 1>,
+// 1: <256, 1>, 2: <256, 2>, 3: <256, 3>, 4: <256, 4>.
 inline int tile_config(int k) {
     const int T = ((k + 3) & ~3) / 4;
     const int tiles = T * (T + 1) / 2;
-    return tiles <= 160 ? 0 : tiles <= 256 ? 1 : tiles <= 512 ? 2 : 3;
+    return tiles <= 160 ? 0 : tiles <= 256 ? 1 : tiles <= 512 ? 2
+           : tiles <= 768 ? 3 : 4;
 }
 
 inline int config_threads(int config) { return config == 0 ? 160 : 256; }

@@ -115,6 +115,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#define CHOL_KMAX 128   // largest system order of these kernels
 #include "cholesky_common.cuh"
 
 namespace {

@@ -34,18 +34,19 @@
 //
 // Design: one block per system (160 threads at k <= 68, else 256); each
 // thread owns 4x4 tiles of the lower triangle of A in registers (one tile at
-// k <= 64, up to three at k = 128), loaded with 16-byte loads. Tiles are
-// numbered by column from the right, so the tiles that still have trailing
-// columns are a prefix of the threads and whole warps drop out of the
-// updates as the factor advances (numbered by row, every warp kept a few
-// live lanes to the end: this order cut the throughput kernel's time by a
-// fifth on an H100). The forward substitution rides along the factor as one
-// more column; one warp back-substitutes four rows per shuffle round, with
-// the round's shared-memory loads issued ahead of its chain. Two regimes,
-// each a kernel with its own export (cholesky_solve_batched / _hot / _2g:
-// throughput; the same names with _lat: latency), both taking any B. The
-// caller picks one by the batch against the latency kernel's resident
-// blocks, which cholesky_solve_resident reports
+// k <= 64, three at k = 128, four at k = 160), loaded with 16-byte loads.
+// Tiles are numbered by column from the right, so the tiles that still have
+// trailing columns are a prefix of the threads and whole warps drop out of
+// the updates as the factor advances (numbered by row, every warp kept a
+// few live lanes to the end: this order cut the throughput kernel's time by
+// a fifth on an H100). The forward substitution rides along the factor as
+// one more column; one warp back-substitutes four rows per shuffle round,
+// with the round's shared-memory loads issued ahead of its chain (each lane
+// keeps NQ rows of x in registers: four up to k = 128, five to k = 160).
+// Two regimes, each a kernel with its own export (cholesky_solve_batched /
+// _hot / _2g: throughput; the same names with _lat: latency), both taking
+// any B. The caller picks one by the batch against the latency kernel's
+// resident blocks, which cholesky_solve_resident reports
 // (ops/cholesky.py::latency_regime is the rule):
 //
 // - Throughput (B above one wave: the 4,201-row dense block, B = 65,536):
@@ -91,6 +92,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#define CHOL_KMAX 160   // largest system order of these kernels
 #include "cholesky_common.cuh"
 
 namespace {
@@ -208,22 +210,33 @@ __device__ __forceinline__ int compact_hot(
     return total;
 }
 
+// y[q] of a lane's NQ rows, selected without dynamic register indexing.
+template <int NQ>
+__device__ __forceinline__ float pickq(const float (&y)[NQ], int q) {
+    float v = y[0];
+#pragma unroll
+    for (int s = 1; s < NQ; ++s) v = q == s ? y[s] : v;
+    return v;
+}
+
 // Back substitution L^T x = y in one warp (x in registers: lane l holds
-// rows l, l+32, l+64, l+96), four rows per round: the diagonal block's four
-// y are broadcast together and solved against the block, then every row
-// above takes the block's four terms, x_j0+3 first, so each y_i sees the
-// same operations in the same order as one row per round would give it.
+// rows l, l+32, .., l+32 (NQ-1)), four rows per round: the diagonal
+// block's four y are broadcast together and solved against the block, then
+// every row above takes the block's four terms, x_j0+3 first, so each y_i
+// sees the same operations in the same order as one row per round would
+// give it.
 // The loads of a round do not wait on the chain. L (As, row j = column j
 // of L^T), 1/L_jj (rinv) and y (ys) must be set on all kp rows: padding
 // rows hold y = 0, 1/L_jj = 1 and L = 0 and solve to exactly 0.
+template <int NQ>
 __device__ __forceinline__ void back_substitute(const float* As,
                                                 const float* rinv,
                                                 const float* ys, float* ob,
                                                 int k, int kp, int ld,
                                                 int lane) {
-    float y[4];
+    float y[NQ];
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
+    for (int q = 0; q < NQ; ++q)
         y[q] = lane + 32 * q < kp ? ys[lane + 32 * q] : 0.f;
 #pragma unroll 1
     for (int j0 = kp - 4; j0 >= 0; j0 -= 4) {
@@ -234,9 +247,9 @@ __device__ __forceinline__ void back_substitute(const float* As,
         // this lane's entries of the block's four rows, for the lane slots
         // that hold a row above or in the block (warp-uniform; rows at or
         // below the block read values that the select below drops)
-        float l[4][4];
+        float l[NQ][4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
+        for (int q = 0; q < NQ; ++q) {
             if (32 * q >= j0 + 4) break;
             const int i = min(lane + 32 * q, kp - 1);
             l[q][0] = L0[i]; l[q][1] = L1[i]; l[q][2] = L2[i];
@@ -246,7 +259,7 @@ __device__ __forceinline__ void back_substitute(const float* As,
         const float d21 = L2[j0 + 1], d20 = L2[j0], d10 = L1[j0];
         const float r0 = rinv[j0], r1 = rinv[j0 + 1], r2 = rinv[j0 + 2],
                     r3 = rinv[j0 + 3];
-        const float cur = pick4(y, j0 >> 5);
+        const float cur = pickq<NQ>(y, j0 >> 5);
         const int jl = j0 & 31;
         const float t0 = __shfl_sync(0xffffffffu, cur, jl);
         const float t1 = __shfl_sync(0xffffffffu, cur, jl + 1);
@@ -258,7 +271,7 @@ __device__ __forceinline__ void back_substitute(const float* As,
         const float x0 = fmaf(-d10, x1, fmaf(-d20, x2, fmaf(-d30, x3, t0)))
                          * r0;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
+        for (int q = 0; q < NQ; ++q) {
             if (32 * q >= j0 + 4) break;
             const int i = lane + 32 * q;
             const float u = fmaf(-l[q][0], x0,
@@ -273,7 +286,7 @@ __device__ __forceinline__ void back_substitute(const float* As,
         }
     }
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
+    for (int q = 0; q < NQ; ++q)
         if (lane + 32 * q < k) ob[lane + 32 * q] = y[q];
 }
 
@@ -393,8 +406,9 @@ constexpr int min_blocks(int nth, bool hot, bool lat) {
 }
 
 // NTH threads per block, NT lower-triangle tiles per thread; LAT selects
-// the latency regime's schedule (one system per block).
-template <int NTH, int NT, bool HOT, bool TWO_G, bool LAT>
+// the latency regime's schedule (one system per block); NQ rows of x per
+// lane in the back substitution (kp <= 32 NQ).
+template <int NTH, int NT, bool HOT, bool TWO_G, bool LAT, int NQ>
 __global__ void __launch_bounds__(NTH, min_blocks(NTH, HOT, LAT))
 chol_solve_kernel(const Args p) {
     constexpr int WARPS = NTH / 32;
@@ -715,8 +729,8 @@ chol_solve_kernel(const Args p) {
         if (tid < kp) ys[tid] = tid < k ? bi : 0.f;
         __syncthreads();
         if (warp == 0)
-            back_substitute(As, rinv, ys, p.out + (size_t)b * k, k, kp, ld,
-                            lane);
+            back_substitute<NQ>(As, rinv, ys, p.out + (size_t)b * k, k, kp,
+                                ld, lane);
     }
 }
 
@@ -733,16 +747,16 @@ size_t smem_bytes(int kp, int hc, int warps, bool lat) {
 // only report the latency kernel's resident blocks.
 enum Mode { THROUGHPUT, LATENCY, RESIDENT };
 
-template <int NTH, int NT, bool HOT, bool TWO_G>
+template <int NTH, int NT, bool HOT, bool TWO_G, int NQ>
 cudaError_t run(const Args& p, cudaStream_t stream, Mode mode,
                 long long* resident) {
     const int hc = HOT ? p.C : 0;
     if (mode == THROUGHPUT)
         return chol::launch_persistent(
-            chol_solve_kernel<NTH, NT, HOT, TWO_G, false>, NTH,
+            chol_solve_kernel<NTH, NT, HOT, TWO_G, false, NQ>, NTH,
             smem_bytes(p.kp, hc, NTH / 32, false), p.B, stream, p);
     const size_t smem = smem_bytes(p.kp, hc, NTH / 32, true);
-    const auto kern = chol_solve_kernel<NTH, NT, HOT, TWO_G, true>;
+    const auto kern = chol_solve_kernel<NTH, NT, HOT, TWO_G, true, NQ>;
     if (mode == LATENCY)
         return smem > SMEM_MAX ? cudaErrorInvalidValue
                                : chol::launch_persistent(kern, NTH, smem, p.B,
@@ -787,11 +801,15 @@ cudaError_t dispatch(const void* G, const void* G2, const void* rhs,
     p.has_alpha = has_alpha;
     p.alpha = alpha;
     auto s = static_cast<cudaStream_t>(stream);
+    // x's rows per substitution lane: four up to kp = 128, then five
     switch (config) {
-    case 0: return run<160, 1, HOT, TWO_G>(p, s, mode, resident);
-    case 1: return run<256, 1, HOT, TWO_G>(p, s, mode, resident);
-    case 2: return run<256, 2, HOT, TWO_G>(p, s, mode, resident);
-    default: return run<256, 3, HOT, TWO_G>(p, s, mode, resident);
+    case 0: return run<160, 1, HOT, TWO_G, 4>(p, s, mode, resident);
+    case 1: return run<256, 1, HOT, TWO_G, 4>(p, s, mode, resident);
+    case 2: return run<256, 2, HOT, TWO_G, 4>(p, s, mode, resident);
+    case 3:
+        return kp <= 128 ? run<256, 3, HOT, TWO_G, 4>(p, s, mode, resident)
+                         : run<256, 3, HOT, TWO_G, 5>(p, s, mode, resident);
+    default: return run<256, 4, HOT, TWO_G, 5>(p, s, mode, resident);
     }
 }
 
@@ -800,7 +818,7 @@ cudaError_t dispatch(const void* G, const void* G2, const void* rhs,
 extern "C" {
 
 // x (B, k) = (G + diag(reg))^-1 rhs for G (B, k, k), rhs (B, k), reg (B,),
-// all f32, contiguous, batch-major. 1 <= k <= 128. The throughput kernel;
+// all f32, contiguous, batch-major. 1 <= k <= 160. The throughput kernel;
 // cholesky_solve_batched_lat, of the same arguments, the latency kernel.
 int cholesky_solve_batched(const void* G, const void* rhs, const void* reg,
                            void* out, int B, int k, void* stream) {

@@ -1,15 +1,25 @@
 """Batched ridge-Cholesky solves: CUDA kernels, their wrappers and their
 plain PyTorch versions.
 
-Six kernels replace the TPU kernels of
+Eight kernels replace the TPU kernels of
 ``recommendation_models_tpu/ops/pallas/cholesky.py``. Two carry the ALS
-sweep (``csrc/cholesky_solve.cu``):
+sweep (``csrc/cholesky_solve.cu``, orders k <= 160):
 
 - ``cholesky_solve_batched``: ``x = (G + diag(reg))⁻¹ rhs`` for a batch of
   SPD systems (TPU ``_cholesky_solve_kernel_pair``);
 - ``cholesky_solve_hot``: the same solve after adding the hot-column gram
   and rhs terms ``Σ_c wg[b,c] v_c v_cᵀ`` and ``Σ_c wr[b,c] v_c`` inside the
   kernel (TPU ``_cholesky_solve_kernel_hot``).
+
+One takes the reference's single-block regime past k = 160
+(``csrc/cholesky_large.cu``):
+
+- ``cholesky_solve_large``: the ``cholesky_solve_batched`` solve (and, with
+  a second gram, the ``cholesky_solve_2g`` one) at 160 < kp <= 656 for a
+  batch of at most ``block_batch(k)`` systems (halved with two grams), one
+  block a system, the factor in a global scratch (the same TPU kernels at
+  their one-block grid). It computes B1's and B3's functions, so their
+  plain versions are its own.
 
 Five run the solve-variant path, the public solve API with its variant
 options (``cholesky_solve_t``, ``cholesky_solve``, ``cholesky_solve_flat``,
@@ -43,10 +53,13 @@ larger one by the persistent throughput kernel. ``forced_regime`` takes
 one kernel at every batch, to measure each on the other's ground.
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
-version for CPU tensors, and raises for anything else. Shapes beyond the
-kernel's own limits (``kernel_supported`` / ``hot_kernel_supported``) are
-routed, before any launch, to the torch anchor (``torch.linalg.cholesky``)
-or to the torch fold of the hot terms, and counted in ``ROUTED``.
+version for CPU tensors, and raises for anything else. The routing is the
+reference's: a (k, B) batch that the JAX package sends to XLA
+(``kernel_supported``, its ``pallas_supported``; ``hot_kernel_supported``,
+its hot gate) is routed, before any launch, to the torch anchor
+(``torch.linalg.cholesky``) or to the torch fold of the hot terms, and
+counted in ``ROUTED``. The variant kernels of ``csrc/cholesky_rank_panel.cu``
+stop at k = 128 (``VARIANT_KMAX``) and route the larger orders too.
 ``LAUNCHES`` counts kernel launches.
 """
 
@@ -61,32 +74,79 @@ import torch
 from recommendation_models_tpu_torch.ops.gram import objective_weights
 
 PIVOT_FLOOR = 1e-30
-KMAX = 128              # csrc/cholesky_common.cuh KMAX
+KMAX = 160              # csrc/cholesky_solve.cu KMAX (B1-B3)
+VARIANT_KMAX = 128      # csrc/cholesky_rank_panel.cu KMAX (B4-B5c)
+LARGE_KMAX = 656        # csrc/cholesky_large.cu KMAX (the one-block regime)
+LARGE_PANEL = 32        # csrc/cholesky_large.cu NB: the scratch's granule
 HOT_CMAX = 1024         # csrc/cholesky_solve.cu CMAX
 SMEM_MAX = 227 * 1024   # csrc/cholesky_solve.cu SMEM_MAX
+# each source's largest order (its cholesky_kernel_kmax export)
+SOURCE_KMAX = {"cholesky_solve": KMAX, "cholesky_rank_panel": VARIANT_KMAX,
+               "cholesky_large": LARGE_KMAX}
+# the reference's VMEM budget of a batch block past kp = 160
+# (ops/pallas/cholesky.py block_batch / pallas_supported)
+_VMEM_BUDGET = 40 * 1024 * 1024
 
 KERNELS = ("cholesky_solve_batched", "cholesky_solve_hot", "cholesky_solve_2g",
            "cholesky_solve_rank1", "cholesky_solve_panel",
-           "cholesky_solve_schur", "cholesky_solve_dual")
+           "cholesky_solve_schur", "cholesky_solve_dual",
+           "cholesky_solve_large")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 ROUTED = dict.fromkeys(KERNELS, 0)
+# the launches of LAUNCHES that took a regime kernel's latency kernel
+LATENCY_LAUNCHES = dict.fromkeys(("cholesky_solve_batched",
+                                  "cholesky_solve_hot", "cholesky_solve_2g"),
+                                 0)
 PANEL_WIDTH = 8         # the panel width and the Schur phase's group
                         # (csrc/cholesky_rank_panel.cu PW)
 RANK1_SCHEDULES = ((1, 1), (1, 2), (2, 1))   # (fcols, srows) of the kernel
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, ROUTED):
+    for d in (LAUNCHES, ROUTED, LATENCY_LAUNCHES):
         for key in d:
             d[key] = 0
 
 
+def _pad8(k: int) -> int:
+    return -(-k // 8) * 8
+
+
 def block_batch(k: int) -> int:
-    """Row granule of the sweep: buckets are padded, and big buckets split
-    into row blocks, in multiples of this. The CUDA kernels take any batch
-    size; 256 is the reference's value at k <= 160, kept so row blocks
-    match."""
-    return 256
+    """Row granule of the sweep (copied verbatim from the reference, whose
+    TPU kernel blocks its batch by it): buckets are padded, and big buckets
+    split into row blocks, in multiples of this. 512 at padded order
+    kp <= 32, 256 up to 160, then the most systems of order kp whose three
+    (kp, kp) f32 blocks fit in 40 MiB, in multiples of 8, at least 8."""
+    kp = _pad8(k)
+    if kp <= 32:
+        return 512
+    if kp <= 160:
+        return 256
+    return max(8, (_VMEM_BUDGET // (3 * kp * kp * 4)) // 8 * 8)
+
+
+def two_operand_block(k: int) -> int:
+    """The reference's batch block with a second gram (``Gt2``): half of
+    ``block_batch``, in multiples of 8, at least 8."""
+    return max(block_batch(k) // 2 // 8 * 8, 8)
+
+
+def kernel_supported(k: int, b: int, two_operand: bool = False) -> bool:
+    """Whether a batch of b systems of order k takes a kernel: the
+    reference's ``pallas_supported`` (its Pallas kernels, else XLA). Any
+    batch at padded order kp <= 160; past it a batch of at most one block
+    (``block_batch``, or ``two_operand_block`` with a second gram), while
+    three such blocks fit in the 40 MiB budget (kp <= 656). Unlike the
+    reference's entries, every order is taken, not only multiples of 8: the
+    kernels pad k themselves."""
+    if k < 1:
+        return False
+    kp = _pad8(k)
+    bt = two_operand_block(kp) if two_operand else block_batch(kp)
+    if kp > 160 and 3 * kp * kp * bt * 4 > _VMEM_BUDGET:
+        return False
+    return bt >= 128 or b <= bt
 
 
 def latency_regime(batch: int, resident: int) -> bool:
@@ -96,12 +156,6 @@ def latency_regime(batch: int, resident: int) -> bool:
     per block by the latency kernel; a larger batch goes to the persistent
     throughput kernel."""
     return batch <= resident
-
-
-def kernel_supported(k: int) -> bool:
-    """Whether the CUDA kernels take systems of order k (the shared-memory
-    and register tiling cap)."""
-    return 1 <= k <= KMAX
 
 
 def hot_smem_bytes(k: int, c: int, latency: bool = False) -> int:
@@ -123,11 +177,13 @@ def hot_smem_bytes(k: int, c: int, latency: bool = False) -> int:
 
 @functools.lru_cache(maxsize=None)
 def hot_kernel_supported(k: int, c: int) -> bool:
-    """Whether the fused hot kernel takes order k with a C-wide hot block:
-    C up to the layout policy's widest (1024), with vh in shared memory (the
+    """Whether the fused hot kernel takes order k with a C-wide hot block,
+    at any batch: the reference's hot gate (a 128-multiple batch block, so
+    kp <= 160, and C <= ``hot_cols_cap(k)``), with vh in shared memory (the
     throughput kernel's block; the latency kernel's is never larger where
     it matters, and the launch takes the throughput kernel when it is)."""
-    return (kernel_supported(k) and 1 <= c <= HOT_CMAX
+    return (1 <= k and block_batch(k) % 128 == 0
+            and 1 <= c <= min(hot_cols_cap(k), HOT_CMAX)
             and hot_smem_bytes(k, c) <= SMEM_MAX)
 
 
@@ -374,6 +430,9 @@ SOURCES = {
         "cholesky_solve_resident": [_I, _I, _I,
                                     ctypes.POINTER(ctypes.c_longlong)],
     },
+    "cholesky_large": {
+        "cholesky_solve_large": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    },
     "cholesky_rank_panel": {
         "cholesky_solve_rank1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "cholesky_solve_panel": [_P, _P, _P, _P, _I, _I, _P],
@@ -402,7 +461,7 @@ def _lib(source: str = "cholesky_solve"):
         lib.cholesky_error_string.argtypes = [_I]
         lib.cholesky_error_string.restype = ctypes.c_char_p
         lib.cholesky_kernel_kmax.restype = _I
-        ok = lib.cholesky_kernel_kmax() == KMAX
+        ok = lib.cholesky_kernel_kmax() == SOURCE_KMAX[source]
         if source == "cholesky_solve":
             lib.cholesky_kernel_cmax.restype = _I
             lib.cholesky_kernel_smem_max.restype = ctypes.c_longlong
@@ -536,6 +595,42 @@ def _device_kind(t: torch.Tensor) -> str:
     raise ValueError(f"unsupported device {t.device}")
 
 
+def _variant_supported(b: int, k: int) -> bool:
+    """The variant kernels' routing: the reference's rule, within their
+    own order cap (k <= 128)."""
+    return k <= VARIANT_KMAX and kernel_supported(k, b)
+
+
+def _launch_large(G, G2, rhs, reg):
+    """Checks and one launch of ``cholesky_solve_large`` (``csrc/
+    cholesky_large.cu``, the batch wrappers' kernel past kp = 160), with a
+    (B, kq, kq) f32 scratch for the factors, kq = k padded to the kernel's
+    32-column panels; a failed launch raises."""
+    b, k, _ = G.shape
+    dev = G.device
+    if not 1 <= k <= LARGE_KMAX:
+        raise ValueError(f"cholesky_solve_large takes 1 <= k <= "
+                         f"{LARGE_KMAX}, got {k}")
+    _check("G", G, (b, k, k), torch.float32, dev)
+    if G2 is not None:
+        _check("G2", G2, (b, k, k), torch.float32, dev)
+    _check("rhs", rhs, (b, k), torch.float32, dev)
+    _check("reg", reg, (b,), torch.float32, dev)
+    out = torch.empty((b, k), dtype=torch.float32, device=dev)
+    if b == 0:
+        return out
+    kq = -(-k // LARGE_PANEL) * LARGE_PANEL
+    scratch = torch.empty((b, kq, kq), dtype=torch.float32, device=dev)
+    lib = _lib("cholesky_large")
+    err = lib.cholesky_solve_large(
+        G.data_ptr(), 0 if G2 is None else G2.data_ptr(), rhs.data_ptr(),
+        reg.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, k, kq,
+        _stream(dev))
+    _raise_on(err, "cholesky_solve_large", lib)
+    LAUNCHES["cholesky_solve_large"] += 1
+    return out
+
+
 def _launch_solve(name, source, G, rhs, reg, G2=None, ints=()):
     """Checks and one launch of the batch-major solve kernel ``name`` of
     ``csrc/<source>.cu``, of the C signature ``name(G, [G2,] rhs, reg, out,
@@ -558,6 +653,8 @@ def _launch_solve(name, source, G, rhs, reg, G2=None, ints=()):
                            out.data_ptr(), b, k, *ints, stream)
     _raise_on(err, name, lib)
     LAUNCHES[name] += 1
+    if fn.endswith("_lat"):
+        LATENCY_LAUNCHES[name] += 1
     return out
 
 
@@ -567,9 +664,12 @@ def cholesky_solve_batched(G: torch.Tensor, rhs: torch.Tensor,
     reg (B,) f32, all contiguous on one device."""
     if _device_kind(G) == "cpu":
         return cholesky_solve_plain(G, rhs, reg)
-    if not kernel_supported(G.shape[1]):
+    b, k, _ = G.shape
+    if not kernel_supported(k, b):
         ROUTED["cholesky_solve_batched"] += 1
         return anchor_solve(G, rhs, reg)
+    if k > KMAX:
+        return _launch_large(G, None, rhs, reg)
     return _launch_solve("cholesky_solve_batched", "cholesky_solve", G, rhs,
                          reg)
 
@@ -599,13 +699,16 @@ def cholesky_solve_hot(G: torch.Tensor, rhs: torch.Tensor, reg: torch.Tensor,
         return out
     stream = _stream(dev)
     lib = _lib()
-    err = getattr(lib, _pick("cholesky_solve_hot", b, k, c, dev.index))(
+    fn = _pick("cholesky_solve_hot", b, k, c, dev.index)
+    err = getattr(lib, fn)(
         G.data_ptr(), rhs.data_ptr(), reg.data_ptr(), hv.data_ptr(),
         vh.data_ptr(), out.data_ptr(), b, k, c,
         0 if alpha is None else 1, 0.0 if alpha is None else float(alpha),
         stream)
     _raise_on(err, "cholesky_solve_hot", lib)
     LAUNCHES["cholesky_solve_hot"] += 1
+    if fn.endswith("_lat"):
+        LATENCY_LAUNCHES["cholesky_solve_hot"] += 1
     return out
 
 
@@ -615,11 +718,15 @@ def cholesky_solve_2g(G: torch.Tensor, G2: torch.Tensor, rhs: torch.Tensor,
     f32 summed inside the kernel on load."""
     if _device_kind(G) == "cpu":
         return cholesky_solve_2g_plain(G, G2, rhs, reg)
-    if not kernel_supported(G.shape[1]):
+    b, k, _ = G.shape
+    if not kernel_supported(k, b, two_operand=True):
         ROUTED["cholesky_solve_2g"] += 1
         return anchor_solve(G.float() + G2.float(), rhs, reg)
+    if k > KMAX:
+        return _launch_large(G, G2, rhs, reg)
     return _launch_solve("cholesky_solve_2g", "cholesky_solve", G, rhs, reg,
                          G2=G2)
+
 
 
 def cholesky_solve_rank1(G: torch.Tensor, rhs: torch.Tensor,
@@ -631,7 +738,7 @@ def cholesky_solve_rank1(G: torch.Tensor, rhs: torch.Tensor,
     _check_schedule(fcols, srows)
     if _device_kind(G) == "cpu":
         return cholesky_solve_rank1_plain(G, rhs, reg, fcols, srows)
-    if not kernel_supported(G.shape[1]):
+    if not _variant_supported(*G.shape[:2]):
         ROUTED["cholesky_solve_rank1"] += 1
         return anchor_solve(G, rhs, reg)
     return _launch_solve("cholesky_solve_rank1", "cholesky_rank_panel", G,
@@ -644,7 +751,7 @@ def cholesky_solve_panel(G: torch.Tensor, rhs: torch.Tensor,
     one-row substitutions."""
     if _device_kind(G) == "cpu":
         return cholesky_solve_panel_plain(G, rhs, reg)
-    if not kernel_supported(G.shape[1]):
+    if not _variant_supported(*G.shape[:2]):
         ROUTED["cholesky_solve_panel"] += 1
         return anchor_solve(G, rhs, reg)
     return _launch_solve("cholesky_solve_panel", "cholesky_rank_panel", G,
@@ -659,7 +766,7 @@ def cholesky_solve_schur(G: torch.Tensor, rhs: torch.Tensor,
     _check_schur(k, srows)
     if _device_kind(G) == "cpu":
         return cholesky_solve_schur_plain(G, rhs, reg, srows)
-    if not kernel_supported(k):
+    if not _variant_supported(G.shape[0], k):
         ROUTED["cholesky_solve_schur"] += 1
         return anchor_solve(G, rhs, reg)
     return _launch_solve("cholesky_solve_schur", "cholesky_rank_panel", G,
@@ -672,7 +779,7 @@ def cholesky_solve_dual(G: torch.Tensor, rhs: torch.Tensor,
     rank-2 factors interleaved, with two-row substitutions; any B."""
     if _device_kind(G) == "cpu":
         return cholesky_solve_dual_plain(G, rhs, reg)
-    if not kernel_supported(G.shape[1]):
+    if not _variant_supported(*G.shape[:2]):
         ROUTED["cholesky_solve_dual"] += 1
         return anchor_solve(G, rhs, reg)
     return _launch_solve("cholesky_solve_dual", "cholesky_rank_panel", G,
@@ -766,9 +873,10 @@ __all__ = ["cholesky_solve_batched", "cholesky_solve_hot",
            "cholesky_solve_dual_plain",
            "cholesky_solve_variant", "cholesky_solve_t", "cholesky_solve",
            "cholesky_solve_flat", "fold_hot",
-           "anchor_solve", "block_batch", "kernel_supported",
+           "anchor_solve", "block_batch", "two_operand_block",
+           "kernel_supported",
            "hot_kernel_supported", "hot_smem_bytes", "hot_cols_cap",
            "hot_cols_auto", "latency_regime", "solve_regime",
            "variant_resident",
            "forced_regime", "REGIME_KINDS", "KERNELS", "RANK1_SCHEDULES",
-           "LAUNCHES", "ROUTED", "reset_counts"]
+           "LAUNCHES", "ROUTED", "LATENCY_LAUNCHES", "reset_counts"]

@@ -11,6 +11,14 @@ The sweep calls the batch-major entries (``solve_spd_batched`` and
 ``solve_spd_batched_hot``), which feed the kernels their own layout. The
 public ``solve_spd_t`` / ``solve_spd_t_hot`` keep the reference's
 batch-minor ``(k, k, B)`` signatures and transpose around them.
+
+On 'pallas' a CUDA batch is routed where the reference's entries route
+it, by the kernel wrappers (ops/cholesky.py), which see the batch: the
+order and batch of ``solve_spd``, ``solve_spd_flat`` and ``solve_spd_t``
+go to ``kernel_supported(k, B)``, ``solve_spd_t(Gt2=)``'s to
+``kernel_supported(k, B, two_operand=True)``, and the hot solve's width to
+``hot_kernel_supported(k, C)`` (else the hot terms are folded in torch and
+the batch takes the plain entry's rule).
 """
 
 from __future__ import annotations

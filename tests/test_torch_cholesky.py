@@ -212,15 +212,26 @@ def test_ridge_helpers_match_reference(rng):
 
 
 def test_kernel_limits_and_routing_predicates():
-    assert pchol.kernel_supported(64) and pchol.kernel_supported(128)
-    assert pchol.kernel_supported(1) and not pchol.kernel_supported(129)
+    # any batch up to k = 160; past it one block of the reference's
+    assert pchol.kernel_supported(64, 65_536)
+    assert pchol.kernel_supported(128, 65_536)
+    assert pchol.kernel_supported(1, 1) and pchol.kernel_supported(160, 10**6)
+    assert pchol.kernel_supported(168, 120)
+    assert not pchol.kernel_supported(168, 121)
+    assert pchol.kernel_supported(168, 56, two_operand=True)
+    assert not pchol.kernel_supported(168, 57, two_operand=True)
+    assert pchol.kernel_supported(656, 8)
+    assert not pchol.kernel_supported(657, 1)
     assert pchol.hot_kernel_supported(64, pchol.hot_cols_auto(64))
     # the layout policy's hot width is taken at every rank the kernel takes
     assert all(pchol.hot_kernel_supported(k, pchol.hot_cols_cap(k))
                for k in range(1, pchol.KMAX + 1))
     assert pchol.hot_kernel_supported(32, 512)
     assert pchol.hot_kernel_supported(16, 1024)
-    assert pchol.hot_kernel_supported(128, 256)
+    assert pchol.hot_kernel_supported(128, 32)
+    assert pchol.hot_kernel_supported(160, 16)
+    # past the reference's hot cap (32 at k = 128) the hot terms are folded
+    assert not pchol.hot_kernel_supported(128, 256)
     assert not pchol.hot_kernel_supported(16, 1025)
     # smem_bytes of csrc/cholesky_solve.cu, both regimes: throughput
     # 4 (C kp + 2 (kp + 4) + kp (kp + 1) + 2 kp + 2 C) + 4 (C + warps),
@@ -242,8 +253,9 @@ def test_kernel_limits_and_routing_predicates():
     # vh (C, k) past the block's shared memory is routed
     assert pchol.hot_smem_bytes(64, 1024) > pchol.SMEM_MAX
     assert not pchol.hot_kernel_supported(64, 1024)
-    assert not pchol.hot_kernel_supported(136, 8)
-    assert pchol.block_batch(64) == 256
+    assert pchol.hot_kernel_supported(136, 8)
+    assert not pchol.hot_kernel_supported(168, 8)
+    assert pchol.block_batch(64) == 256 and pchol.block_batch(16) == 512
     # CPU tensors take the plain versions: no launch, no routing counted
     pchol.reset_counts()
     pchol.cholesky_solve_batched(torch.eye(4)[None].repeat(2, 1, 1),
@@ -338,9 +350,9 @@ def test_cuda_kernels_match_plain_versions():
     against its plain version on the card, in both regimes and at their
     boundary: B in {1, 255, 256, 257} and the latency kernel's resident
     count (as the card reports it) and that count +- 1; k in {1, 7, 63, 64,
-    65, 128}; the hot kernel at C in {1, 128, 1024} and at the layout
-    policy's hot widths of ranks 32 and 16 (C=512, 1024) and the widest
-    k=128 block (C=256), with hot rows all zero, all nonzero and 28%
+    65, 128, 136, 157, 160}; the hot kernel at C in {1, 128, 1024} and at
+    the layout policy's hot widths of ranks 32 and 16 (C=512, 1024) and the
+    reference's caps at k = 128 and 160 (C=32, 16), with hot rows all zero, all nonzero and 28%
     nonzero, explicit weights and alpha=2.0. At every batch the wrapper
     takes the kernel that ``latency_regime`` names (bitwise equal to it),
     and the other regime's kernel agrees with the plain version too. Zero
@@ -353,7 +365,7 @@ def test_cuda_kernels_match_plain_versions():
     gen = torch.Generator(device=dev).manual_seed(0)
     pchol.reset_counts()
     launches = dict.fromkeys(pchol.LAUNCHES, 0)
-    ks = (1, 7, 63, 64, 65, 128)
+    ks = (1, 7, 63, 64, 65, 128, 136, 157, 160)
 
     def regime(name, b, k, c=0):
         lat, resident = pchol.solve_regime(name, b, k, c)
@@ -394,7 +406,7 @@ def test_cuda_kernels_match_plain_versions():
     # the boundary and both weightings; the layout policy's widths of ranks
     # 32 and 16 and the k=128 block at fewer batches, both weightings; the
     # other widths at fewer batches, one weighting each
-    policy = ((32, 512), (16, 1024), (128, 256))
+    policy = ((32, 512), (16, 1024), (128, 32), (160, 16))
     n_routed = 0
     for k, c in [(k, c) for k in ks for c in (1, 128, 1024)] + list(policy):
         if not pchol.hot_kernel_supported(k, c):
@@ -444,8 +456,9 @@ def test_cuda_kernels_match_plain_versions():
     assert {n: pchol.LAUNCHES[n] for n in pchol.REGIME_KINDS} == {
         n: launches[n] for n in pchol.REGIME_KINDS}
     assert pchol.ROUTED["cholesky_solve_hot"] == n_routed
-    # past KMAX the plain kernels are routed to the anchor
-    G, rhs, reg = _gpu_systems(gen, 17, 136, dev)
+    # past the reference's one-block batch (120 at k = 168) the solve is
+    # routed to the anchor, as the reference routes it to XLA
+    G, rhs, reg = _gpu_systems(gen, 121, 168, dev)
     _close(pchol.cholesky_solve_batched(G, rhs, reg).cpu().numpy(),
            pchol.anchor_solve(G, rhs, reg).cpu().numpy())
     assert pchol.ROUTED["cholesky_solve_batched"] == 1

@@ -146,8 +146,9 @@ def test_solve_spd_t_two_operand_matches_reference(rng, solver):
 @pytest.mark.parametrize("b,k", [(300, 8), (88, 192)])
 def test_solve_spd_t_two_operand_partial_and_large(rng, b, k):
     """The reference's partial-block case (b=300, k=8: one and a bit of its
-    halved block) and its k=192 case, which it routes to XLA; the port
-    takes any batch, and on a card routes k > 128 to the torch anchor."""
+    halved block) and its k=192 case, which it routes to XLA (88 systems
+    past its halved one-block batch of 40); the port takes any batch, and
+    on a card routes the k=192 case to the torch anchor as well."""
     A = rng.standard_normal((b, k, k)).astype(np.float32) / np.sqrt(k)
     G1 = np.einsum("bij,bkj->bik", A, A) + 0.3 * np.eye(k, dtype=np.float32)
     B2 = rng.standard_normal((b, k, k)).astype(np.float32) / np.sqrt(k)
@@ -346,8 +347,8 @@ def _gpu_cases():
 def test_cuda_variant_kernels_match_plain_versions():
     """Each new CUDA kernel (every instantiation) against its plain version
     on the card, at k in {1, 10, 16, 64, 128} (Schur at the multiples of
-    16) and B in {1, 37, 4096} (the dual kernel also at B=2); k past the
-    limit is routed (counted). Then B4, B5a, B5b and B5c at their
+    16) and B in {1, 37, 4096} (the dual kernel also at B=2); at k = 144
+    B3 launches and the variants, past their k = 128, are routed (counted). Then B4, B5a, B5b and B5c at their
     boundaries (``_rank_panel_boundaries``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -381,10 +382,14 @@ def test_cuda_variant_kernels_match_plain_versions():
             ref = plain(*a, *extra)
             torch.cuda.synchronize()
             _close(x.cpu().numpy(), ref.cpu().numpy())
-            expect[name] += pchol.kernel_supported(k)
+            if name == "cholesky_solve_2g":
+                expect[name] += pchol.kernel_supported(k, b, True)
+            else:
+                expect[name] += k <= pchol.VARIANT_KMAX
     assert {n: pchol.LAUNCHES[n] for n in NEW_KERNELS} == {
         n: expect[n] for n in NEW_KERNELS}
-    assert pchol.ROUTED["cholesky_solve_2g"] == 1
+    # B3 takes k = 144 (k <= 160); the variants stop at k = 128
+    assert pchol.ROUTED["cholesky_solve_2g"] == 0
     assert pchol.ROUTED["cholesky_solve_rank1"] == 3
     assert pchol.ROUTED["cholesky_solve_panel"] == 1
     assert pchol.ROUTED["cholesky_solve_schur"] == 2

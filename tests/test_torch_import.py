@@ -59,8 +59,11 @@ _PROBE = textwrap.dedent("""
     import recommendation_models_tpu_torch.probes.imc
     import recommendation_models_tpu_torch.probes.multiprocess
     import recommendation_models_tpu_torch.probes.exchange
+    import recommendation_models_tpu_torch.probes.fuzz_kernel_shapes
     import recommendation_models_tpu_torch.probes.parser
     import recommendation_models_tpu_torch.probes.plan_build
+    import recommendation_models_tpu_torch.probes.quality_parity
+    import recommendation_models_tpu_torch.probes.quality_parity_imc
     import recommendation_models_tpu_torch.probes.serving
     import recommendation_models_tpu_torch.probes.solve_latency
     import recommendation_models_tpu_torch.probes.solve_variants
