@@ -219,13 +219,14 @@ non-zero before the result lines are printed:
    anchors, 'auto' ids equal to 'exact') and the IMC mode (ML-1M, rank 64
    capped to 32: history within 2e-2 of ``REF_IMC_ML1M``, cold-start RMSE
    within 1e-3);
-13. the solve kernels past k = 128, the rank-160 fit, the shape fuzz and
-   the quality probes. (a) B1, B2 (C = the reference's hot cap, 24 and
-   16) and B3 (both grams summed) at k = 136 and 160, at 256 and 65,536
-   rows: each launched (nothing routed), against its plain version,
-   repeated bitwise; device ms (``torch.profiler``), event ms, host µs at
-   256 rows, the bound and ``torch.linalg.cholesky`` + ``cholesky_solve``
-   as the library's device ms. (b) The one-block kernel
+13. the solve kernels past k = 128, the rank-160 fit, the shape fuzz,
+   the quality probes and the variants past k = 128. (a) B1, B2 (C = the
+   reference's hot cap, 24 and 16) and B3 (both grams summed) at k = 136
+   and 160, at 256 and 65,536 rows: each launched (nothing routed),
+   against its plain version, repeated bitwise; device ms
+   (``torch.profiler``), event ms, host µs at 256 rows, the bound and
+   ``torch.linalg.cholesky`` + ``cholesky_solve`` as the library's device
+   ms. (b) The one-block kernel
    ``cholesky_solve_large`` (``csrc/cholesky_large.cu``) at k = 168, 256,
    512 and 656, B = 1 and ``block_batch(k)`` (with two grams: 1 and the
    halved block), through the batch wrappers: against the plain versions,
@@ -259,7 +260,26 @@ non-zero before the result lines are printed:
    12, so they share the host with phases 12 and 13) and ``IMC`` on the
    card: the history within 2e-2 of the oracle's from the second sweep
    (the first within 2e-2 of the JAX package's f32 history) and the test
-   predictions within rtol 2e-2, atol 2e-2;
+   predictions within rtol 2e-2, atol 2e-2. (f) B4 (its three
+   instantiations), B5a, B5b (srows 1 and 2) and B5c over the reference's
+   Pallas range (``phase_variant_range``): each at k = 136, 157, 160 (Schur
+   144, 160) and B = 1, 37, 4,096 (dual also 2) on its
+   ``csrc/cholesky_rank_panel.cu`` kernel, and at the one-block orders k =
+   161, 168, 256, 512, 656 (Schur 176, 256, 512, 656) at B = 1 and
+   ``block_batch(k)`` (dual also 3 and ``block_batch(k) - 1``) on
+   ``csrc/cholesky_large_variants.cu``'s: against its plain version,
+   repeated bitwise, the launch, one-block and route counts equal to what
+   ``kernel_supported`` predicts (nothing routed), zero and identity
+   systems exactly 0 at k = 160 and 656, one batch past the block at k =
+   168 (Schur 176) routed and counted; device ms (``torch.profiler``),
+   event ms, host µs, plain ms (256 rows), the library's device ms and the
+   bound at k = 136 and 160 (Schur 144, 160) at 256 and 65,536 rows, and
+   event and device ms, host µs, plain ms, library ms and the bound at k =
+   168 (Schur 176), 256, 512 and 656 at ``block_batch(k)``; then the
+   variant probe at PSV_K = 160 (8,192 systems) and 656 (8) with every
+   variant, the counts set to 0 just before each run and read just after:
+   nothing routed, every variant kernel launched, past k = 160 through its
+   one-block kernel;
 14. one JSON line describing every kernel, then the result line. Each
    entry's numbers are at its ``k`` and ``batch``; B4, B5a, B5b and B5c
    have ``resident`` (their kernel's resident blocks at k=64; B4 and B5b
@@ -276,7 +296,12 @@ non-zero before the result lines are printed:
    rank-160 fit's), each in ``launches_by_path``; B1, B2 and B3 have
    ``wide_orders`` (phase 13a's numbers by k and batch), and
    ``cholesky_solve_large`` is at k = 656, B = 8 with ``by_order`` (phase
-   13b's numbers) and its launches from phase 13b's paths.
+   13b's numbers) and its launches from phase 13b's paths. B4, B5a, B5b
+   and B5c have ``wide_orders`` (phase 13f's numbers by k and batch) and
+   ``by_order`` (its one-block numbers by k), B4's and B5b's with each
+   instantiation's event ms in ``instantiations``, ``large_source`` (the
+   one-block kernel's source), ``max_abs_err_all``, and their launches by
+   path in ``launches_by_path`` (the probe at k = 128, 160 and 656).
 
 ``--profile`` adds one profiled main-path sweep and prints its device time
 by kernel and the device's idle share (not run by default).
@@ -665,10 +690,10 @@ PATH = {
     "cholesky_solve_hot": (f"{MAIN_PATH}; {SHARDED_PATH}; {MP_PATH}; "
                            f"{BENCH_PATH}"),
     "cholesky_solve_2g": "ops.solve.solve_spd_t(Gt2=), k=64, B=65,536",
-    "cholesky_solve_rank1": "probes.solve_variants, k=128, B=65,536",
-    "cholesky_solve_panel": "probes.solve_variants, k=128, B=65,536",
-    "cholesky_solve_schur": "probes.solve_variants, k=128, B=65,536",
-    "cholesky_solve_dual": "probes.solve_variants, k=128, B=65,536",
+    **dict.fromkeys(("cholesky_solve_rank1", "cholesky_solve_panel",
+                     "cholesky_solve_schur", "cholesky_solve_dual"),
+                    "probes.solve_variants at k=128, B=65,536; k=160, "
+                    "B=8,192; k=656, B=8 (the one-block kernel)"),
     "gather_rows_sum": "probes.dma_gather / probes.ablate_epoch gather only",
     "cholesky_solve_large": ("ops.solve.solve_spd_t (and Gt2=) at k = 168, "
                              "256, 512, 656, one block; ALS(rank=256).fit, "
@@ -752,9 +777,10 @@ def phase_environment(torch):
                          text=True, timeout=60)
     log(f"# torch {torch.__version__} cuda {torch.version.cuda}; "
         f"nvcc: {ver.stdout.strip().splitlines()[-1]}")
-    # the kernels' sources, and the L2 probe's that phase 3c measures with
+    # the kernels' sources (the variants' one-block kernels' too), and the
+    # L2 probe's that phase 3c measures with
     sources = sorted({os.path.basename(p)[:-3] for p in SOURCE.values()}
-                     | {"l2_probe"})
+                     | {"cholesky_large_variants", "l2_probe"})
     t0 = time.perf_counter()
     build.build(*sources)        # one nvcc per source, all started together
     log(f"# build: {', '.join(f'csrc/{n}.cu' for n in sources)} in "
@@ -3336,6 +3362,262 @@ def phase_quality(torch, dev, children):
     return line, imc_line
 
 
+# --------------------------------- phase 13f: the variants past k = 128
+
+VARIANT_WIDE_KS = (136, 157, 160)       # past the old k = 128 cap, any batch
+VARIANT_WIDE_BATCHES = (1, 37, 4_096)
+VARIANT_ONE_BLOCK_KS = (161, 168, 256, 512, 656)
+VARIANT_TIMED_KS = (136, 160)           # at WIDE_BATCHES' 256 and 65,536 rows
+VARIANT_TIMED_ONE_BLOCK = (168, 256, 512, 656)   # at block_batch(k)
+VARIANT_ZERO_KS = (160, 656)            # zero / identity, each kernel
+# the variant probe's runs: (PSV_K, PSV_B; None: the probe's default, the
+# one-block batch past k = 160)
+VARIANT_PROBES = ((160, 8_192), (656, None))
+VARIANT_REPORTED = {"cholesky_solve_rank1": "fcols=1,srows=1",
+                    "cholesky_solve_schur": "srows=2"}
+LARGE_VARIANT_SOURCE = _CSRC + "cholesky_large_variants.cu"
+
+
+def variant_instantiations(ch):
+    """(label, wrapper name, kernel call, plain call) of each instantiation
+    of B4-B5c, the calls of (G, rhs, reg)."""
+    out = [(f"fcols={f},srows={s}", "cholesky_solve_rank1",
+            lambda G, r, g, f=f, s=s: ch.cholesky_solve_rank1(G, r, g, f, s),
+            lambda G, r, g, f=f, s=s: ch.cholesky_solve_rank1_plain(
+                G, r, g, f, s)) for f, s in ch.RANK1_SCHEDULES]
+    out.append(("", "cholesky_solve_panel", ch.cholesky_solve_panel,
+                ch.cholesky_solve_panel_plain))
+    out += [(f"srows={s}", "cholesky_solve_schur",
+             lambda G, r, g, s=s: ch.cholesky_solve_schur(G, r, g, s),
+             lambda G, r, g, s=s: ch.cholesky_solve_schur_plain(G, r, g, s))
+            for s in (1, 2)]
+    out.append(("", "cholesky_solve_dual", ch.cholesky_solve_dual,
+                ch.cholesky_solve_dual_plain))
+    return out
+
+
+def variant_orders(name, ks):
+    """The orders of ``ks`` a variant runs at: Schur (k % 16 == 0) takes
+    each order's next multiple of 16."""
+    if name != "cholesky_solve_schur":
+        return tuple(ks)
+    return tuple(sorted({-(-k // 16) * 16 for k in ks}))
+
+
+def variant_batches(name, k, ch):
+    """The checked batches: 1, 37 and 4,096 to k = 160 (dual also 2); past
+    it 1 and ``block_batch(k)`` (dual also 3 and ``block_batch(k) - 1``:
+    an odd pair count)."""
+    if k <= ch.VARIANT_KMAX:
+        extra = (2,) if name == "cholesky_solve_dual" else ()
+        return tuple(sorted(VARIANT_WIDE_BATCHES + extra))
+    bb = ch.block_batch(k)
+    extra = (3, bb - 1) if name == "cholesky_solve_dual" else ()
+    return tuple(sorted((1, bb) + extra))
+
+
+def solve_library(torch, G, rhs, reg):
+    """The library's solve of the same systems: ``torch.linalg.cholesky``
+    and ``cholesky_solve`` on G + diag(reg)."""
+    eye = torch.eye(G.shape[1], device=G.device)
+    return torch.cholesky_solve(rhs[:, :, None], torch.linalg.cholesky(
+        G + reg[:, None, None] * eye))
+
+
+def phase_variant_range(torch, dev):
+    """13f: B4 (three instantiations), B5a, B5b (srows 1 and 2) and B5c over
+    the reference's Pallas range. (1) Each instantiation at k = 136, 157,
+    160 (Schur 144, 160) and B = 1, 37, 4,096 (dual also 2), then at the
+    one-block orders k = 161, 168, 256, 512, 656 (Schur 176, 256, 512, 656)
+    at B = 1 and ``block_batch(k)`` (dual also 3 and ``block_batch(k) -
+    1``): against its plain version, repeated bitwise, with the launch
+    and route counts equal to what ``kernel_supported`` predicts (the
+    one-block kernel, ``LARGE_LAUNCHES``, past k = 160; nothing routed);
+    zero and identity systems exactly 0 at k = 160 and 656; a batch one past
+    the block at k = 168 (Schur 176) routed and counted. (2) Times: at k =
+    136 and 160 (Schur 144, 160) at 256 and 65,536 rows, device ms
+    (profiler), event ms, host µs and plain ms (256 rows), the library's
+    device ms and the bound; at k = 168 (Schur 176), 256, 512, 656 and
+    ``block_batch(k)``, event and device ms, host µs, plain ms, the library
+    and the bound. (3) The variant probe at PSV_K = 160 (8,192 systems)
+    and 656 (its one-block default) with every variant, the counts set to 0
+    just before each run and read just after: nothing routed, every
+    variant kernel launched (past k = 160 through its one-block kernel).
+    Returns ({kernel: numbers}, {kernel: {path: launches}})."""
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.probes import host_us
+    from recommendation_models_tpu_torch.probes import solve_variants
+    from recommendation_models_tpu_torch.probes.solve_latency import (
+        random_systems)
+    t0 = time.perf_counter()
+    insts = variant_instantiations(ch)
+    out = {n: dict(wide_orders={}, by_order={}, max_abs_err=0.0)
+           for n in ch.VARIANT_KINDS}
+
+    def checked(label, name, fn, plain, args):
+        b, k = args[0].shape[:2]
+        ch.reset_counts()
+        x = fn(*args)
+        large = k > ch.VARIANT_KMAX
+        routed = not ch.kernel_supported(k, b)
+        what = f"{name} {label} k={k} B={b}"
+        check(ch.LAUNCHES[name] == (not routed)
+              and ch.LARGE_LAUNCHES[name] == (large and not routed)
+              and ch.ROUTED[name] == routed
+              and sum(ch.LAUNCHES.values()) + sum(ch.ROUTED.values()) == 1,
+              f"{what}: launches {ch.LAUNCHES} one-block "
+              f"{ch.LARGE_LAUNCHES} routed {ch.ROUTED}, not the rule's")
+        err, ok = compare(torch, x, plain(*args))
+        check(ok, f"{what} disagrees with its plain version ({err:.3e})")
+        if not routed:
+            check(torch.equal(x, fn(*args)),
+                  f"{what} is not bitwise repeatable")
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        return err
+
+    # (1) every instantiation at every order, against its plain version
+    ks = sorted({k for _, n, _, _ in insts for k in variant_orders(
+        n, VARIANT_WIDE_KS + VARIANT_ONE_BLOCK_KS)})
+    n_checked = 0
+    for k in ks:
+        n = (max(VARIANT_WIDE_BATCHES) if k <= ch.VARIANT_KMAX
+             else ch.block_batch(k))
+        gen = torch.Generator(device=dev).manual_seed(1000 + k)
+        G, rhs, reg = random_systems(n, k, 3 * k // 4, gen, dev)
+        for label, name, fn, plain in insts:
+            if k not in variant_orders(
+                    name, VARIANT_WIDE_KS + VARIANT_ONE_BLOCK_KS):
+                continue
+            for b in variant_batches(name, k, ch):
+                checked(label, name, fn, plain,
+                        (G[:b].contiguous(), rhs[:b].contiguous(),
+                         reg[:b].contiguous()))
+                n_checked += 1
+            if k in VARIANT_ZERO_KS:
+                nz = 9 if k <= ch.VARIANT_KMAX else 5
+                Gz = torch.zeros(nz, k, k, device=dev)
+                Gz[nz // 2:] = torch.eye(k, device=dev)
+                z = fn(Gz, torch.zeros(nz, k, device=dev),
+                       torch.zeros(nz, device=dev))
+                check(bool((z == 0).all()),
+                      f"zero / identity systems did not solve to 0 in "
+                      f"{name} {label} at k={k}")
+        del G, rhs, reg
+    for label, name, fn, plain in insts:
+        k = variant_orders(name, (168,))[0]
+        b = ch.block_batch(k) + 1
+        gen = torch.Generator(device=dev).manual_seed(7)
+        checked(label, name, fn, plain, random_systems(b, k, 3 * k // 4,
+                                                       gen, dev))
+    log(f"# 13f checks: {n_checked} shapes and the routed batch of each "
+        f"instantiation in {time.perf_counter() - t0:.1f}s; max_abs_err "
+        + ", ".join(f"{n} {v['max_abs_err']:.3e}" for n, v in out.items()))
+
+    def record(where, name, label, nums):
+        entry = where.setdefault("instantiations", {})
+        if label:
+            entry[label] = nums["ms"]
+        else:
+            del where["instantiations"]
+        if VARIANT_REPORTED.get(name, label) == label:
+            where.update(nums)
+
+    # (2) times
+    t1 = time.perf_counter()
+    for k in sorted({k for n in ch.VARIANT_KINDS
+                     for k in variant_orders(n, VARIANT_TIMED_KS)}):
+        gen = torch.Generator(device=dev).manual_seed(k)
+        n = max(WIDE_BATCHES)
+        G, rhs, reg = random_systems(n, k, 3 * k // 4, gen, dev)
+        for label, name, fn, plain in insts:
+            if k not in variant_orders(name, VARIANT_TIMED_KS):
+                continue
+            for b in WIDE_BATCHES:
+                args = (G[:b].contiguous(), rhs[:b].contiguous(),
+                        reg[:b].contiguous())
+                small = b == min(WIDE_BATCHES)
+                nums = wide_numbers(torch, lambda: fn(*args),
+                                    lambda: solve_library(torch, *args), b,
+                                    timed_host=small)
+                err, _ = compare(torch, fn(*args), plain(*args))
+                nums["plain_ms"] = (time_ms(torch, lambda: plain(*args), 1,
+                                            warm=1) if small else None)
+                bound_ms, bound_by = bound(solve_bytes(b, k),
+                                           solve_flops(b, k))
+                nums.update(max_abs_err=err, bound_ms=bound_ms,
+                            bound_by=bound_by)
+                record(out[name]["wide_orders"].setdefault(
+                    str(k), {}).setdefault(str(b), {}), name, label, nums)
+                log(f"# 13f {' '.join(filter(None, (name, label)))} k={k} "
+                    f"B={b}: max_abs_err={err:.3e} device_ms="
+                    f"{nums['device_ms']} ms={nums['ms']:.5f} host_us="
+                    f"{nums['host_us']} plain_ms={nums['plain_ms']} "
+                    f"library_device_ms={nums['library_device_ms']} "
+                    f"bound_ms={bound_ms:.5f} ({bound_by})")
+        del G, rhs, reg
+        torch.cuda.empty_cache()
+    for k in sorted({k for n in ch.VARIANT_KINDS
+                     for k in variant_orders(n, VARIANT_TIMED_ONE_BLOCK)}):
+        b = ch.block_batch(k)
+        gen = torch.Generator(device=dev).manual_seed(k)
+        args = random_systems(b, k, 3 * k // 4, gen, dev)
+        for label, name, fn, plain in insts:
+            if k not in variant_orders(name, VARIANT_TIMED_ONE_BLOCK):
+                continue
+            x = fn(*args)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            ref = plain(*args)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t2) * 1e3
+            err, _ = compare(torch, x, ref)
+            bound_ms, bound_by = bound(solve_bytes(b, k), solve_flops(b, k))
+            nums = dict(ms=time_ms(torch, lambda: fn(*args), 10),
+                        device_ms=profiled_or_none(lambda: fn(*args), 10),
+                        host_us=host_us(lambda: fn(*args)),
+                        library_ms=time_ms(
+                            torch, lambda: solve_library(torch, *args), 5),
+                        plain_ms=plain_ms, max_abs_err=err,
+                        bound_ms=bound_ms, bound_by=bound_by)
+            record(out[name]["by_order"].setdefault(str(k), {}).setdefault(
+                f"g_{b}", {}), name, label, nums)
+            log(f"# 13f {' '.join(filter(None, (name, label)))} k={k} "
+                f"B={b}: max_abs_err={err:.3e} ms={nums['ms']:.4f} "
+                f"device_ms={nums['device_ms']} host_us="
+                f"{nums['host_us']:.1f} plain_ms={plain_ms:.1f} library_ms="
+                f"{nums['library_ms']:.4f} bound_ms={bound_ms:.5f} "
+                f"({bound_by})")
+        del args
+    log(f"# 13f times: {time.perf_counter() - t1:.1f}s")
+
+    # (3) the variant probe on the card, counted
+    by_path = {n: {} for n in ch.VARIANT_KINDS}
+    for k, b in VARIANT_PROBES:
+        env = dict(PSV_K=str(k), PSV_ITERS="3", PSV_VARIANTS=PROBE_VARIANTS)
+        if b:
+            env["PSV_B"] = str(b)
+        torch.cuda.synchronize()
+        ch.reset_counts()
+        rc = solve_variants.main(["--platform", "cuda"], env=env)
+        torch.cuda.synchronize()
+        launches, routed = dict(ch.LAUNCHES), dict(ch.ROUTED)
+        large = dict(ch.LARGE_LAUNCHES)
+        log(f"# 13f probe PSV_K={k} PSV_B={b or ch.block_batch(k)}: rc={rc} "
+            f"launches={launches} one-block={large} routed={routed}")
+        check(rc == 0, f"the variant probe failed at PSV_K={k}")
+        check(not any(routed.values()),
+              f"the variant probe at PSV_K={k} routed calls: {routed}")
+        for n in ch.VARIANT_KINDS:
+            check(launches[n] > 0 and (large[n] == launches[n]
+                                       if k > ch.VARIANT_KMAX
+                                       else large[n] == 0),
+                  f"the variant probe at PSV_K={k} did not launch {n}'s "
+                  f"kernel: {launches} {large}")
+            by_path[n][f"probe_k{k}"] = launches[n]
+    log(f"# 13f: {time.perf_counter() - t0:.1f}s")
+    return out, by_path
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3438,6 +3720,14 @@ def main(argv) -> int:
         phase_quality(torch, dev, children)
     finally:
         stop_children(children)
+    torch.cuda.empty_cache()
+    variant_range, variant_paths = phase_variant_range(torch, dev)
+    for n, r in variant_range.items():
+        results[n]["max_abs_err_all"] = max(results[n]["max_abs_err"],
+                                            r.pop("max_abs_err"))
+        results[n].update(r, large_source=LARGE_VARIANT_SOURCE)
+        by_path[n] = {"probe_k128": launches[n], **variant_paths[n]}
+        launches[n] += sum(variant_paths[n].values())
     log(f"# phase 13: {time.perf_counter() - t13:.1f}s")
     head = large["by_order"][str(max(LARGE_KS))][
         f"g_{ch.block_batch(max(LARGE_KS))}"]
@@ -3469,7 +3759,8 @@ def main(argv) -> int:
                else {}),
             **{f: r[f] for f in ("device_ms", "host_us", "l2_bound_ms",
                                  "l2_tb_s", "at_main_path", "at_row_block",
-                                 "by_order", "max_abs_err_all")
+                                 "large_source", "wide_orders", "by_order",
+                                 "max_abs_err_all")
                if f in r},
             **({"wide_orders": wide[name]} if name in wide else {})})
     check(all(k["launches"] > 0 for k in kernels), "a kernel never ran")

@@ -20,8 +20,10 @@
 // clamped at max(d, 1e-30) (L_jj = d * rsqrt(max(d, 1e-30)), substitutions
 // multiply by 1 / max(L_jj, 1e-30)), so identity-padded and all-zero systems
 // with rhs 0 solve to exactly 0. G (B, k, k), rhs (B, k), reg (B,), batch
-// major; 1 <= k <= 128 (Schur: k % 16 == 0), any B. Results repeat bitwise
-// (no atomics, fixed orders).
+// major; 1 <= k <= 160 (Schur: k % 16 == 0), any B. Results repeat bitwise
+// (no atomics, fixed orders). Past k = 160 the reference runs these kernels
+// only at a one-block grid; csrc/cholesky_large_variants.cu takes that
+// regime.
 //
 // What bounds them on an H100: at k = 64 a system must read 8.6 KB (the
 // lower triangle of G, rhs, reg) and write 256 B for ~0.1 MFLOP, so the
@@ -115,7 +117,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define CHOL_KMAX 128   // largest system order of these kernels
+#define CHOL_KMAX 160   // largest system order of these kernels
 #include "cholesky_common.cuh"
 
 namespace {
@@ -192,17 +194,24 @@ __device__ __forceinline__ float rsqrt_normal(float x) {
 // factor's buffers (rank steps: four sets a system, by system and step
 // parity, of two column buffers of kp + 4, at (parity NS + system) 4
 // (kp + 4); the panel: two, by panel parity, of PW columns of kp + 4),
-// 2 NS slots of [packed L, rhs / y (kp), 1 / L_jj (kp)] (slot
+// nslot NS slots of [packed L, rhs / y (kp), 1 / L_jj (kp)] (slot
 // parity NS + system), and the rank steps' barrier counts (kp ints).
 //
-// DUAL keeps two slots a system: the factor writes L as it goes, so with
-// one slot a system the next pair's factor would wait for both
-// substitutions and the two stages would not overlap. At k = 128 its
-// block takes 213 KB (one slot a system: 145 KB), one block per SM either
-// way; at k = 64, 57 KB.
+// DUAL keeps two slots a system where they fit: the factor writes L as it
+// goes, so with one slot a system the next pair's factor waits for both
+// substitutions and the two stages do not overlap. At k = 128 its block
+// takes 213 KB, one block per SM; at k = 64, 57 KB. Past kp = 132 two
+// slots a system do not fit (239 KB at kp = 136, 327 KB at 160, against
+// 227 KB), and DUAL keeps one slot a system (162 KB at 136, 221.7 KB at
+// 160): the pair's factor and its substitutions then take turns. The other
+// option, L in a global scratch as csrc/cholesky_large_variants.cu keeps
+// it, would move every step's column through the L2; the pair still shares
+// each barrier of its factor, which is what the schedule interleaves.
+constexpr int SMEM_MAX = 227 * 1024;   // an H100 block's dynamic bytes
+
 struct Layout {
     int ntiles, ps, lsz;
-    int work, slot0, slot_floats, nbar, total;
+    int work, slot0, slot_floats, nslot, nbar, total;
 };
 
 __host__ __device__ inline Layout layout(int kp, int sched) {
@@ -214,14 +223,18 @@ __host__ __device__ inline Layout layout(int kp, int sched) {
     q.work = ns * q.ntiles * 16;
     q.slot0 = q.work + (sched == PANEL ? 2 * PW : 8 * ns) * q.ps;
     q.slot_floats = q.lsz + 2 * kp;
-    q.nbar = q.slot0 + 2 * ns * q.slot_floats;
+    q.nslot = 2;
+    if (4 * (q.slot0 + 2 * ns * q.slot_floats + kp) > SMEM_MAX) q.nslot = 1;
+    q.nbar = q.slot0 + q.nslot * ns * q.slot_floats;
     q.total = q.nbar + kp;
     return q;
 }
 
 // Thread configurations: NTH factor threads with NT tiles each cover the
 // T (T + 1) / 2 tiles: <160, 1> up to k = 68, <224, 2> up to k = 116,
-// <224, 3> to k = 128; a block adds a substitution warp per system. A
+// <224, 3> to k = 128, <224, 4> (896 tiles; 820 at kp = 160) past it; a
+// block adds a substitution warp per system, whose lanes hold NQ rows each
+// (3 at <160, 1>, 4 to k = 128, 5 past it). A
 // block's warps share the SM's four schedulers, each with a quarter of the
 // registers, so 224 + 32 threads (8 warps) at two blocks per SM keep 128
 // registers a thread where 256 + 32 (9 warps) kept 96 and spilled. DUAL
@@ -230,10 +243,11 @@ __host__ __device__ inline Layout layout(int kp, int sched) {
 // registers, and two tiles a thread of each system fit in 154 without
 // spills. On an H100 at k = 128, <224, 3> (9 warps, the same cap, three
 // tiles) spilled 204 bytes, and <192, 3> (8 warps, 214 registers) ran
-// 19.0 ms against 15.6 (PERF.md).
+// 19.0 ms against 15.6 (PERF.md). Past k = 128 DUAL takes <288, 3> (864
+// tiles), the same 11 warps and cap with three tiles of each system.
 int frame_config(int kp) {
     const int T = kp / 4, tiles = T * (T + 1) / 2;
-    return tiles <= 160 ? 0 : tiles <= 448 ? 1 : 2;
+    return kp > 128 ? 3 : tiles <= 160 ? 0 : tiles <= 448 ? 1 : 2;
 }
 
 // Residency targets (blocks per SM; measured on an H100, PERF.md): at
@@ -248,9 +262,14 @@ int frame_config(int kp) {
 // accumulators): at k <= 68, 3 blocks of 224 threads (80 registers; 2
 // blocks, at 117 registers without spills, ran 10% slower at k = 64);
 // above, one block (its shared memory allows no more at k = 128). Schur at
-// k <= 68: 3 blocks, at 96 registers without spills, ran 18% slower.
-constexpr int min_blocks(int nth, int sched) {
-    return sched == DUAL ? (nth == 160 ? 3 : 1)
+// k <= 68: 3 blocks, at 96 registers without spills, ran 18% slower. Past
+// k = 128 (the NQ = 5 configurations) shared memory allows one block of
+// any schedule (119.8 KB at kp = 136, 164 KB at 160, the panel's 169 KB),
+// so the target is 1 and a thread of four tiles is not held to 128
+// registers.
+constexpr int min_blocks(int nth, int nq, int sched) {
+    return nq == 5       ? 1
+           : sched == DUAL ? (nth == 160 ? 3 : 1)
            : nth != 160  ? 2
            : sched == PANEL || sched == SCHUR ? 4
                                               : 5;
@@ -506,7 +525,7 @@ __device__ __forceinline__ void step2(Tiles<NT> (&s)[NS],
 // and column at or past h = 4 ht) sums its eight terms in order p = g ..
 // g + 7, then subtracts the sum. A22's tri(ht) tiles are the first in the
 // column-from-the-right order, so they are all n = 0 tiles
-// (tri(ht) <= NTH at every k % 16 == 0).
+// (tri(ht) <= NTH at every k % 16 == 0: 210 <= 224 at k = 160).
 template <int NT>
 __device__ __forceinline__ void schur_group(Tiles<NT>& s, const float* L,
                                             int g, int ht) {
@@ -772,15 +791,14 @@ __device__ __forceinline__ void substitute(const float* L, float* rinv,
 
 // NTH factor threads with NT tiles each, plus one substitution warp per
 // system (DUAL: two systems a block, b = 2 p and 2 p + 1 for the block's
-// pair p); SCHED the factor schedule, SROWS the substitutions' rows per
-// round.
-template <int NTH, int NT, int SCHED, int SROWS>
+// pair p) with NQ rows a lane (kp <= 32 NQ); SCHED the factor schedule,
+// SROWS the substitutions' rows per round.
+template <int NTH, int NT, int NQ, int SCHED, int SROWS>
 __global__ void __launch_bounds__(block_threads(NTH, SCHED),
-                                  min_blocks(NTH, SCHED))
+                                  min_blocks(NTH, NQ, SCHED))
 rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
                   const float* __restrict__ reg, float* __restrict__ out,
                   int B, int k, int kp, int vec) {
-    constexpr int NQ = NTH == 160 ? 3 : 4;   // rows per lane (kp <= 32 NQ)
     constexpr int NS = systems(SCHED);
     constexpr int HAND = block_threads(NTH, SCHED);   // FULL / EMPTY count
     extern __shared__ __align__(16) float smem[];
@@ -804,11 +822,12 @@ rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
     __syncthreads();
 
     if (tid >= NTH) {
-        // substitution warp w: slot (it & 1, w) holds system it's factor;
-        // a system past the batch (DUAL, odd B) still takes the hand-overs
+        // substitution warp w: slot (it % nslot, w) holds system it's
+        // factor; a system past the batch (DUAL, odd B) still takes the
+        // hand-overs
         const int lane = tid & 31, w = (tid - NTH) >> 5;
         for (int it = 0; it < count; ++it) {
-            const int s = it & 1;
+            const int s = it % q.nslot;
             const int b = (blockIdx.x + it * gridDim.x) * NS + w;
             float* slot = smem + q.slot0 + (s * NS + w) * q.slot_floats;
             bar_sync(BAR_FULL + s, HAND);
@@ -816,7 +835,7 @@ rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
                 substitute<SROWS, NQ>(slot, slot + q.lsz + kp, slot + q.lsz,
                                       out + (size_t)b * k, k, lane);
             // the factor threads wait for the slot only if they use it again
-            if (it + 2 < count) bar_arrive(BAR_EMPTY + s, HAND);
+            if (it + q.nslot < count) bar_arrive(BAR_EMPTY + s, HAND);
         }
         return;
     }
@@ -852,13 +871,15 @@ rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
     // the last rank step this thread's warp takes part in
     const int last = warp_exit(tid >> 5, kp >> 2, k);
     for (int it = 0; it < count; ++it, p += gridDim.x) {
-        const int s = it & 1;
+        // s: the system's parity (its barrier and column buffers); sl: its
+        // slot
+        const int s = it & 1, sl = it % q.nslot;
         Out o[NS];
 #pragma unroll
         for (int w = 0; w < NS; ++w)
-            o[w] = {smem + q.slot0 + (s * NS + w) * q.slot_floats,
+            o[w] = {smem + q.slot0 + (sl * NS + w) * q.slot_floats,
                     tri(min(tid, KMAX - 1)), k, kp};
-        if (it >= 2) bar_sync(BAR_EMPTY + s, HAND);
+        if (it >= q.nslot) bar_sync(BAR_EMPTY + sl, HAND);
         cp_async_wait_all();
 #pragma unroll
         for (int w = 0; w < NS; ++w) {
@@ -923,16 +944,16 @@ rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
         // L, y's right-hand side and 1 / L_jj of the systems are in the
         // slots
         __threadfence_block();
-        bar_arrive(BAR_FULL + s, HAND);
+        bar_arrive(BAR_FULL + sl, HAND);
     }
 }
 
-template <int NTH, int NT, int SCHED, int SROWS>
+template <int NTH, int NT, int NQ, int SCHED, int SROWS>
 cudaError_t launch(const float* G, const float* rhs, const float* reg,
                    float* out, int B, int k, int kp, int vec,
                    cudaStream_t stream, long long* resident) {
     const size_t smem = sizeof(float) * layout(kp, SCHED).total;
-    const auto kern = rank_panel_kernel<NTH, NT, SCHED, SROWS>;
+    const auto kern = rank_panel_kernel<NTH, NT, NQ, SCHED, SROWS>;
     constexpr int nth = block_threads(NTH, SCHED), ns = systems(SCHED);
     if (resident)
         return chol::resident_blocks(reinterpret_cast<const void*>(kern),
@@ -958,22 +979,31 @@ cudaError_t dispatch(const void* G, const void* rhs, const void* reg,
     auto o = static_cast<float*>(out);
     auto s = static_cast<cudaStream_t>(stream);
     if constexpr (SCHED == DUAL) {
-        if (frame_config(kp) > 0)
-            return launch<288, 2, SCHED, SROWS>(g, r, rg, o, B, k, kp, vec,
-                                                s, resident);
-        return launch<160, 1, SCHED, SROWS>(g, r, rg, o, B, k, kp, vec, s,
-                                            resident);
+        switch (frame_config(kp)) {
+        case 0:
+            return launch<160, 1, 3, SCHED, SROWS>(g, r, rg, o, B, k, kp,
+                                                   vec, s, resident);
+        case 3:
+            return launch<288, 3, 5, SCHED, SROWS>(g, r, rg, o, B, k, kp,
+                                                   vec, s, resident);
+        default:
+            return launch<288, 2, 4, SCHED, SROWS>(g, r, rg, o, B, k, kp,
+                                                   vec, s, resident);
+        }
     } else {
         switch (frame_config(kp)) {
         case 0:
-            return launch<160, 1, SCHED, SROWS>(g, r, rg, o, B, k, kp, vec,
-                                                s, resident);
+            return launch<160, 1, 3, SCHED, SROWS>(g, r, rg, o, B, k, kp,
+                                                   vec, s, resident);
         case 1:
-            return launch<224, 2, SCHED, SROWS>(g, r, rg, o, B, k, kp, vec,
-                                                s, resident);
+            return launch<224, 2, 4, SCHED, SROWS>(g, r, rg, o, B, k, kp,
+                                                   vec, s, resident);
+        case 2:
+            return launch<224, 3, 4, SCHED, SROWS>(g, r, rg, o, B, k, kp,
+                                                   vec, s, resident);
         default:
-            return launch<224, 3, SCHED, SROWS>(g, r, rg, o, B, k, kp, vec,
-                                                s, resident);
+            return launch<224, 4, 5, SCHED, SROWS>(g, r, rg, o, B, k, kp,
+                                                   vec, s, resident);
         }
     }
 }
@@ -1014,7 +1044,7 @@ cudaError_t by_kind(int kind, const void* G, const void* rhs,
 extern "C" {
 
 // x (B, k) = (G + diag(reg))^-1 rhs for G (B, k, k), rhs (B, k), reg (B,),
-// all f32, contiguous, batch-major, 1 <= k <= 128: a right-looking factor
+// all f32, contiguous, batch-major, 1 <= k <= 160: a right-looking factor
 // with fcols (1 or 2) columns per step, then substitutions with srows (1 or
 // 2) rows per step. (fcols, srows) = (2, 2) is cholesky_solve_batched's
 // combination and is refused here.

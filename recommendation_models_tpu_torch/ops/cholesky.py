@@ -39,6 +39,13 @@ options (``cholesky_solve_t``, ``cholesky_solve``, ``cholesky_solve_flat``,
   interleaved, then two-row substitutions (TPU
   ``_cholesky_solve_kernel_dual``; ``csrc/cholesky_rank_panel.cu``).
 
+The last four take k <= 160 at any batch in ``csrc/cholesky_rank_panel.cu``
+and, past it, the reference's one-block regime (160 < kp <= 656, a batch
+of at most ``block_batch(k)``) in ``csrc/cholesky_large_variants.cu``
+(``cholesky_solve_variant_large``: one block a system, two for the dual
+schedule, the factor in a global scratch, each schedule's own order of
+terms), counted under the wrapper's name and in ``LARGE_LAUNCHES``.
+
 Shared contract: f32 factorization, ridge added on load, pivots clamped at
 ``max(d, 1e-30)``, so identity-padded and all-zero systems with rhs 0 solve
 to 0. The kernels take batch-major tensors: G (B, k, k), rhs (B, k),
@@ -58,8 +65,7 @@ reference's: a (k, B) batch that the JAX package sends to XLA
 (``kernel_supported``, its ``pallas_supported``; ``hot_kernel_supported``,
 its hot gate) is routed, before any launch, to the torch anchor
 (``torch.linalg.cholesky``) or to the torch fold of the hot terms, and
-counted in ``ROUTED``. The variant kernels of ``csrc/cholesky_rank_panel.cu``
-stop at k = 128 (``VARIANT_KMAX``) and route the larger orders too.
+counted in ``ROUTED``; the variant wrappers follow the same rule.
 ``LAUNCHES`` counts kernel launches.
 """
 
@@ -75,14 +81,16 @@ from recommendation_models_tpu_torch.ops.gram import objective_weights
 
 PIVOT_FLOOR = 1e-30
 KMAX = 160              # csrc/cholesky_solve.cu KMAX (B1-B3)
-VARIANT_KMAX = 128      # csrc/cholesky_rank_panel.cu KMAX (B4-B5c)
-LARGE_KMAX = 656        # csrc/cholesky_large.cu KMAX (the one-block regime)
+VARIANT_KMAX = 160      # csrc/cholesky_rank_panel.cu KMAX (B4-B5c)
+LARGE_KMAX = 656        # csrc/cholesky_large.cu and cholesky_large_variants.cu
+                        # KMAX (the one-block regime)
 LARGE_PANEL = 32        # csrc/cholesky_large.cu NB: the scratch's granule
 HOT_CMAX = 1024         # csrc/cholesky_solve.cu CMAX
 SMEM_MAX = 227 * 1024   # csrc/cholesky_solve.cu SMEM_MAX
 # each source's largest order (its cholesky_kernel_kmax export)
 SOURCE_KMAX = {"cholesky_solve": KMAX, "cholesky_rank_panel": VARIANT_KMAX,
-               "cholesky_large": LARGE_KMAX}
+               "cholesky_large": LARGE_KMAX,
+               "cholesky_large_variants": LARGE_KMAX}
 # the reference's VMEM budget of a batch block past kp = 160
 # (ops/pallas/cholesky.py block_batch / pallas_supported)
 _VMEM_BUDGET = 40 * 1024 * 1024
@@ -97,13 +105,18 @@ ROUTED = dict.fromkeys(KERNELS, 0)
 LATENCY_LAUNCHES = dict.fromkeys(("cholesky_solve_batched",
                                   "cholesky_solve_hot", "cholesky_solve_2g"),
                                  0)
+# the variant kernels, and the launches of LAUNCHES that took their
+# one-block kernel (csrc/cholesky_large_variants.cu) past kp = 160
+VARIANT_KINDS = ("cholesky_solve_rank1", "cholesky_solve_panel",
+                 "cholesky_solve_schur", "cholesky_solve_dual")
+LARGE_LAUNCHES = dict.fromkeys(VARIANT_KINDS, 0)
 PANEL_WIDTH = 8         # the panel width and the Schur phase's group
                         # (csrc/cholesky_rank_panel.cu PW)
 RANK1_SCHEDULES = ((1, 1), (1, 2), (2, 1))   # (fcols, srows) of the kernel
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, ROUTED, LATENCY_LAUNCHES):
+    for d in (LAUNCHES, ROUTED, LATENCY_LAUNCHES, LARGE_LAUNCHES):
         for key in d:
             d[key] = 0
 
@@ -433,6 +446,10 @@ SOURCES = {
     "cholesky_large": {
         "cholesky_solve_large": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
+    "cholesky_large_variants": {
+        "cholesky_solve_variant_large": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                         _I, _P],
+    },
     "cholesky_rank_panel": {
         "cholesky_solve_rank1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "cholesky_solve_panel": [_P, _P, _P, _P, _I, _I, _P],
@@ -595,22 +612,14 @@ def _device_kind(t: torch.Tensor) -> str:
     raise ValueError(f"unsupported device {t.device}")
 
 
-def _variant_supported(b: int, k: int) -> bool:
-    """The variant kernels' routing: the reference's rule, within their
-    own order cap (k <= 128)."""
-    return k <= VARIANT_KMAX and kernel_supported(k, b)
-
-
-def _launch_large(G, G2, rhs, reg):
-    """Checks and one launch of ``cholesky_solve_large`` (``csrc/
-    cholesky_large.cu``, the batch wrappers' kernel past kp = 160), with a
-    (B, kq, kq) f32 scratch for the factors, kq = k padded to the kernel's
-    32-column panels; a failed launch raises."""
+def _large_inputs(name, G, G2, rhs, reg):
+    """Checks of a one-block launch's inputs, and its output and (B, kq,
+    kq) f32 factor scratch, kq = k padded to the kernels' 32-column panels
+    (None for an empty batch)."""
     b, k, _ = G.shape
     dev = G.device
     if not 1 <= k <= LARGE_KMAX:
-        raise ValueError(f"cholesky_solve_large takes 1 <= k <= "
-                         f"{LARGE_KMAX}, got {k}")
+        raise ValueError(f"{name} takes 1 <= k <= {LARGE_KMAX}, got {k}")
     _check("G", G, (b, k, k), torch.float32, dev)
     if G2 is not None:
         _check("G2", G2, (b, k, k), torch.float32, dev)
@@ -618,17 +627,64 @@ def _launch_large(G, G2, rhs, reg):
     _check("reg", reg, (b,), torch.float32, dev)
     out = torch.empty((b, k), dtype=torch.float32, device=dev)
     if b == 0:
-        return out
+        return out, None, 0
     kq = -(-k // LARGE_PANEL) * LARGE_PANEL
-    scratch = torch.empty((b, kq, kq), dtype=torch.float32, device=dev)
+    return out, torch.empty((b, kq, kq), dtype=torch.float32,
+                            device=dev), kq
+
+
+def _launch_large(G, G2, rhs, reg):
+    """Checks and one launch of ``cholesky_solve_large`` (``csrc/
+    cholesky_large.cu``, the batch wrappers' kernel past kp = 160); a failed
+    launch raises."""
+    b, k, _ = G.shape
+    out, scratch, kq = _large_inputs("cholesky_solve_large", G, G2, rhs, reg)
+    if scratch is None:
+        return out
     lib = _lib("cholesky_large")
     err = lib.cholesky_solve_large(
         G.data_ptr(), 0 if G2 is None else G2.data_ptr(), rhs.data_ptr(),
         reg.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, k, kq,
-        _stream(dev))
+        _stream(G.device))
     _raise_on(err, "cholesky_solve_large", lib)
     LAUNCHES["cholesky_solve_large"] += 1
     return out
+
+
+def _launch_variant_large(name, G, rhs, reg, sched, srows):
+    """Checks and one launch of ``cholesky_solve_variant_large`` (``csrc/
+    cholesky_large_variants.cu``, the variant wrappers' kernel past kp =
+    160) with the schedule ``sched`` (``csrc/cholesky_rank_panel.cu``'s
+    code) and ``srows``, counted under ``name``; a failed launch raises."""
+    b, k, _ = G.shape
+    out, scratch, kq = _large_inputs(name, G, None, rhs, reg)
+    if scratch is None:
+        return out
+    lib = _lib("cholesky_large_variants")
+    err = lib.cholesky_solve_variant_large(
+        G.data_ptr(), rhs.data_ptr(), reg.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), b, k, kq, sched, srows, _stream(G.device))
+    _raise_on(err, name, lib)
+    LAUNCHES[name] += 1
+    LARGE_LAUNCHES[name] += 1
+    return out
+
+
+def _launch_variant(name, G, rhs, reg, sched, srows, ints=()):
+    """A variant kernel's launch, or its routing by the reference's rule
+    (``kernel_supported``; Schur's k % 16 is checked before): the torch
+    anchor where the reference goes to XLA (counted in ``ROUTED``), the
+    one-block kernel past k = 160, else the kernel of
+    ``csrc/cholesky_rank_panel.cu`` of the C signature ``name(G, rhs, reg,
+    out, B, k, *ints, stream)``."""
+    b, k, _ = G.shape
+    if not kernel_supported(k, b):
+        ROUTED[name] += 1
+        return anchor_solve(G, rhs, reg)
+    if k > VARIANT_KMAX:
+        return _launch_variant_large(name, G, rhs, reg, sched, srows)
+    return _launch_solve(name, "cholesky_rank_panel", G, rhs, reg,
+                         ints=ints)
 
 
 def _launch_solve(name, source, G, rhs, reg, G2=None, ints=()):
@@ -738,11 +794,8 @@ def cholesky_solve_rank1(G: torch.Tensor, rhs: torch.Tensor,
     _check_schedule(fcols, srows)
     if _device_kind(G) == "cpu":
         return cholesky_solve_rank1_plain(G, rhs, reg, fcols, srows)
-    if not _variant_supported(*G.shape[:2]):
-        ROUTED["cholesky_solve_rank1"] += 1
-        return anchor_solve(G, rhs, reg)
-    return _launch_solve("cholesky_solve_rank1", "cholesky_rank_panel", G,
-                         rhs, reg, ints=(fcols, srows))
+    return _launch_variant("cholesky_solve_rank1", G, rhs, reg, fcols, srows,
+                           ints=(fcols, srows))
 
 
 def cholesky_solve_panel(G: torch.Tensor, rhs: torch.Tensor,
@@ -751,11 +804,8 @@ def cholesky_solve_panel(G: torch.Tensor, rhs: torch.Tensor,
     one-row substitutions."""
     if _device_kind(G) == "cpu":
         return cholesky_solve_panel_plain(G, rhs, reg)
-    if not _variant_supported(*G.shape[:2]):
-        ROUTED["cholesky_solve_panel"] += 1
-        return anchor_solve(G, rhs, reg)
-    return _launch_solve("cholesky_solve_panel", "cholesky_rank_panel", G,
-                         rhs, reg)
+    return _launch_variant("cholesky_solve_panel", G, rhs, reg,
+                           SCHED_CODE["cholesky_solve_panel"], 1)
 
 
 def cholesky_solve_schur(G: torch.Tensor, rhs: torch.Tensor,
@@ -766,11 +816,9 @@ def cholesky_solve_schur(G: torch.Tensor, rhs: torch.Tensor,
     _check_schur(k, srows)
     if _device_kind(G) == "cpu":
         return cholesky_solve_schur_plain(G, rhs, reg, srows)
-    if not _variant_supported(G.shape[0], k):
-        ROUTED["cholesky_solve_schur"] += 1
-        return anchor_solve(G, rhs, reg)
-    return _launch_solve("cholesky_solve_schur", "cholesky_rank_panel", G,
-                         rhs, reg, ints=(srows,))
+    return _launch_variant("cholesky_solve_schur", G, rhs, reg,
+                           SCHED_CODE["cholesky_solve_schur"], srows,
+                           ints=(srows,))
 
 
 def cholesky_solve_dual(G: torch.Tensor, rhs: torch.Tensor,
@@ -779,11 +827,8 @@ def cholesky_solve_dual(G: torch.Tensor, rhs: torch.Tensor,
     rank-2 factors interleaved, with two-row substitutions; any B."""
     if _device_kind(G) == "cpu":
         return cholesky_solve_dual_plain(G, rhs, reg)
-    if not _variant_supported(*G.shape[:2]):
-        ROUTED["cholesky_solve_dual"] += 1
-        return anchor_solve(G, rhs, reg)
-    return _launch_solve("cholesky_solve_dual", "cholesky_rank_panel", G,
-                         rhs, reg)
+    return _launch_variant("cholesky_solve_dual", G, rhs, reg,
+                           SCHED_CODE["cholesky_solve_dual"], 2)
 
 
 # --------------------------------------------------------------------------
@@ -878,5 +923,6 @@ __all__ = ["cholesky_solve_batched", "cholesky_solve_hot",
            "hot_kernel_supported", "hot_smem_bytes", "hot_cols_cap",
            "hot_cols_auto", "latency_regime", "solve_regime",
            "variant_resident",
-           "forced_regime", "REGIME_KINDS", "KERNELS", "RANK1_SCHEDULES",
-           "LAUNCHES", "ROUTED", "LATENCY_LAUNCHES", "reset_counts"]
+           "forced_regime", "REGIME_KINDS", "VARIANT_KINDS", "KERNELS",
+           "RANK1_SCHEDULES", "LAUNCHES", "ROUTED", "LATENCY_LAUNCHES",
+           "LARGE_LAUNCHES", "reset_counts"]

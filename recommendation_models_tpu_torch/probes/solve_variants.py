@@ -13,10 +13,16 @@ and ``cholesky_solve``, the port's 'xla' anchor): the run fails above a
 relative error of 5e-2. On the card each variant is timed as the mean of
 ``PSV_ITERS`` calls between CUDA events; the solutions are compared bitwise
 with the first variant's, and the ``schur/pair`` time ratio is printed.
+Beside each variant's time stand its kernel launches and the calls routed
+to the torch anchor (``ops.cholesky.LAUNCHES`` and ``ROUTED``, read around
+its checked call), and the run ends with the whole ``ROUTED`` count.
 
-Env: PSV_K (default 128), PSV_B (65536), PSV_ITERS (10), PSV_VARIANTS
-(comma list of the table's names; default pair,schur). PSV_BT, the TPU
-kernel's batch block, has no counterpart here and is refused.
+Env: PSV_K (default 128; the kernels take any order to 656, one block a
+system past 160), PSV_B (65536 to k = 160, past it the reference's
+one-block batch ``block_batch(k)``: a larger batch is routed, as the
+reference sends it to XLA), PSV_ITERS (10), PSV_VARIANTS (comma list of the
+table's names; default pair,schur). PSV_BT, the TPU kernel's batch block,
+has no counterpart here and is refused.
 
 Runs on the CUDA card, and raises when there is none, unless
 ``--platform cpu`` is given; on the CPU the wrappers take the kernels' plain
@@ -26,6 +32,7 @@ versions and nothing is timed. A variant that raises ends the run.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from recommendation_models_tpu_torch.device import resolve_device
+from recommendation_models_tpu_torch.ops import cholesky as ch
 from recommendation_models_tpu_torch.ops.cholesky import (
     anchor_solve, cholesky_solve_variant)
 from recommendation_models_tpu_torch.probes import time_ms
@@ -84,7 +92,8 @@ def main(argv=None, env=None) -> int:
             "solve one system per thread block on a persistent grid and "
             "have no such block. Unset PSV_BT.")
     k = int(env.get("PSV_K", "128"))
-    b = int(env.get("PSV_B", "65536"))
+    b = int(env.get("PSV_B", "65536" if k <= ch.KMAX
+                    else str(ch.block_batch(k))))
     iters = int(env.get("PSV_ITERS", "10"))
     variants = env.get("PSV_VARIANTS", "pair,schur").split(",")
     unknown = [v for v in variants if v not in VARIANT_KW]
@@ -103,9 +112,13 @@ def main(argv=None, env=None) -> int:
     denom = xref.abs().clamp_min(1e-3)
 
     results, sols = {}, {}
+    routed0 = dict(ch.ROUTED)
     for v in variants:
         kw = VARIANT_KW[v]
+        launched, routed = sum(ch.LAUNCHES.values()), sum(ch.ROUTED.values())
         x = cholesky_solve_variant(G, rhs, reg, **kw)
+        counts = (f"launches={sum(ch.LAUNCHES.values()) - launched} "
+                  f"routed={sum(ch.ROUTED.values()) - routed}")
         sols[v] = x
         err = float(((x[:nref] - xref).abs() / denom).max())
         if not bool(torch.isfinite(x).all()):
@@ -115,9 +128,9 @@ def main(argv=None, env=None) -> int:
                          iters)
             results[v] = ms
             print(f"{v:8s} {ms:9.3f} ms  {b / ms / 1e3:7.2f} Msys/s  "
-                  f"max_rel_err={err:.2e}", flush=True)
+                  f"max_rel_err={err:.2e}  {counts}", flush=True)
         else:
-            print(f"{v:8s} (cpu, untimed)  max_rel_err={err:.2e}",
+            print(f"{v:8s} (cpu, untimed)  max_rel_err={err:.2e}  {counts}",
                   flush=True)
         if not err <= MAX_REL_ERR:
             print(f"!! {v}: correctness FAILURE", flush=True)
@@ -128,6 +141,8 @@ def main(argv=None, env=None) -> int:
         print(f"# bitwise {names[0]} == {other}: {same}")
     if "pair" in results and "schur" in results:
         print(f"# schur/pair = {results['schur'] / results['pair']:.3f}")
+    routed = {n: c - routed0[n] for n, c in ch.ROUTED.items()}
+    print(f"# ROUTED {json.dumps(routed)}", flush=True)
     return 0
 
 

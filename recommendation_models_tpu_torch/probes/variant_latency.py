@@ -175,8 +175,9 @@ def parse_ptxas(log: str):
     template argument gives the thread count (``ILi<n>E``), the blocks per
     SM the registers allow. A kernel whose launch bound adds its
     substitution warps to that count (the rank/panel kernels: n + 32
-    threads; n + 64 for the dual schedule, ``SCHED`` 32, its third template
-    argument) is read so."""
+    threads; n + 64 for the dual schedule, ``SCHED`` 32, its fourth template
+    argument) is read so, and the one-block variant kernels, whose template
+    arguments are their schedule, at their 256 threads."""
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -197,12 +198,15 @@ def parse_ptxas(log: str):
             cur["static_smem"] = int(m2.group(1)) if m2 else 0
             # the int template arguments of the mangled name (Li160E...)
             t = re.search(r"ILi(\d+)E((?:Li\d+E)*)", cur["kernel"])
-            if t:
+            if "variant_large_kernel" in cur["kernel"]:
+                cur["threads"] = 256
+            elif t:
                 extra = 0
                 if "rank_panel_kernel" in cur["kernel"]:
                     rest = re.findall(r"Li(\d+)E", t.group(2))
-                    extra = 64 if rest[1:2] == ["32"] else 32
+                    extra = 64 if rest[2:3] == ["32"] else 32
                 cur["threads"] = int(t.group(1)) + extra
+            if "threads" in cur:
                 cur["resident_by_registers"] = resident_by_registers(
                     cur["registers"], cur["threads"])
     return out

@@ -347,16 +347,18 @@ def _gpu_cases():
 def test_cuda_variant_kernels_match_plain_versions():
     """Each new CUDA kernel (every instantiation) against its plain version
     on the card, at k in {1, 10, 16, 64, 128} (Schur at the multiples of
-    16) and B in {1, 37, 4096} (the dual kernel also at B=2); at k = 144
-    B3 launches and the variants, past their k = 128, are routed (counted). Then B4, B5a, B5b and B5c at their
-    boundaries (``_rank_panel_boundaries``)."""
+    16) and B in {1, 37, 4096} (the dual kernel also at B=2), at k = 144
+    (any batch to kp = 160) and at the one-block orders k = 176 and 256
+    (B = 3 and 8, within ``block_batch``): each launches where
+    ``kernel_supported`` says, nothing is routed. Then B4, B5a, B5b and
+    B5c at their boundaries (``_rank_panel_boundaries``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
     pchol.reset_counts()
     expect = dict.fromkeys(NEW_KERNELS, 0)
-    for b, k in [*_gpu_cases(), (2, 64), (9, 144)]:
+    for b, k in [*_gpu_cases(), (2, 64), (9, 144), (3, 176), (8, 256)]:
         G = _spd(rng, b, k)
         G2 = _spd(rng, b, k, jitter=0.1)
         rhs = rng.standard_normal((b, k)).astype(np.float32)
@@ -382,18 +384,19 @@ def test_cuda_variant_kernels_match_plain_versions():
             ref = plain(*a, *extra)
             torch.cuda.synchronize()
             _close(x.cpu().numpy(), ref.cpu().numpy())
-            if name == "cholesky_solve_2g":
-                expect[name] += pchol.kernel_supported(k, b, True)
-            else:
-                expect[name] += k <= pchol.VARIANT_KMAX
+            expect[name] += pchol.kernel_supported(
+                k, b, name == "cholesky_solve_2g")
+    # B3 past k = 160 launches cholesky_solve_large, counted under its name
+    expect["cholesky_solve_2g"] -= 2
     assert {n: pchol.LAUNCHES[n] for n in NEW_KERNELS} == {
         n: expect[n] for n in NEW_KERNELS}
-    # B3 takes k = 144 (k <= 160); the variants stop at k = 128
-    assert pchol.ROUTED["cholesky_solve_2g"] == 0
-    assert pchol.ROUTED["cholesky_solve_rank1"] == 3
-    assert pchol.ROUTED["cholesky_solve_panel"] == 1
-    assert pchol.ROUTED["cholesky_solve_schur"] == 2
-    assert pchol.ROUTED["cholesky_solve_dual"] == 1
+    assert pchol.LAUNCHES["cholesky_solve_large"] == 2
+    # every shape is within the reference's range: the variants take
+    # k = 144 (to kp = 160) and the one-block orders, nothing is routed
+    assert not any(pchol.ROUTED.values())
+    assert pchol.LARGE_LAUNCHES == {
+        "cholesky_solve_rank1": 6, "cholesky_solve_panel": 2,
+        "cholesky_solve_schur": 4, "cholesky_solve_dual": 2}
     # zero and identity systems solve to exactly 0 in every kernel
     k = 64
     Gz = torch.zeros(4, k, k, device=dev)

@@ -8,8 +8,8 @@ from recommendation_models_tpu_torch.probes import variant_latency as vl
 
 # the shape of ptxas's report for two kernels (trimmed)
 LOG = """\
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117rank_panel_kernelILi160ELi1ELi1ELi1EEEvPKfS2_S2_Pfiiii' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_117rank_panel_kernelILi160ELi1ELi1ELi1EEEvPKfS2_S2_Pfiiii
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117rank_panel_kernelILi160ELi1ELi3ELi1ELi1EEEvPKfS2_S2_Pfiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117rank_panel_kernelILi160ELi1ELi3ELi1ELi1EEEvPKfS2_S2_Pfiiii
     8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 48 registers, used 1 barriers, 376 bytes cmem[0]
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114variant_kernelILi256ELi3ELi16ELi2EEEvPKfS2_S2_Pfiiii' for 'sm_90a'
@@ -40,12 +40,25 @@ def test_parse_ptxas_reads_each_kernel():
 
 
 def test_parse_ptxas_counts_the_dual_kernels_two_warps():
-    """The dual schedule (SCHED 32) adds a substitution warp per system."""
-    log = LOG.replace("ILi160ELi1ELi1ELi1E", "ILi160ELi1ELi32ELi2E")
+    """The dual schedule (SCHED 32, the fourth template argument after
+    NTH, NT and NQ) adds a substitution warp per system."""
+    log = LOG.replace("ILi160ELi1ELi3ELi1ELi1E", "ILi160ELi1ELi3ELi32ELi2E")
     rows = vl.parse_ptxas(log)
     assert rows[0]["threads"] == 224
     assert rows[0]["resident_by_registers"] == vl.resident_by_registers(48,
                                                                        224)
+
+
+def test_parse_ptxas_reads_the_one_block_variant_kernels():
+    """``variant_large_kernel<SCHED, SROWS>`` (csrc/
+    cholesky_large_variants.cu): its template arguments are its schedule,
+    and its block is 256 threads."""
+    log = LOG.replace("17rank_panel_kernelILi160ELi1ELi3ELi1ELi1E",
+                      "20variant_large_kernelILi16ELi2E")
+    rows = vl.parse_ptxas(log)
+    assert rows[0]["threads"] == 256
+    assert rows[0]["resident_by_registers"] == vl.resident_by_registers(48,
+                                                                       256)
 
 
 @pytest.mark.parametrize("k,b,by", [(64, 65_536, "bytes"),
