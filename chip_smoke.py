@@ -227,11 +227,15 @@ non-zero before the result lines are printed:
    (``torch.profiler``), event ms, host µs at 256 rows, the bound and
    ``torch.linalg.cholesky`` + ``cholesky_solve`` as the library's device
    ms. (b) The one-block kernel
-   ``cholesky_solve_large`` (``csrc/cholesky_large.cu``) at k = 168, 256,
+   ``cholesky_solve_large`` (``csrc/cholesky_large.cu``, a thread-block
+   cluster a system, ``ops.cholesky.cluster_size`` CTAs) at k = 168, 256,
    512 and 656, B = 1 and ``block_batch(k)`` (with two grams: 1 and the
    halved block), through the batch wrappers: against the plain versions,
    bitwise, zero and identity systems exactly 0, event and device ms,
-   host µs, plain ms, the bound and the library; then its paths with the
+   host µs, plain ms, the bound, the library and the cluster size; at k =
+   168 ``block_batch(k)`` systems past one wave of clusters
+   (``multiwave_cluster``: 120 clusters of 2) against the plain version and
+   bitwise equal to the rule's launch; then its paths with the
    launch counts set to 0 just before and read just after:
    ``ops.solve.solve_spd_t`` (and ``Gt2=``) at each order and one block,
    and ``ALS(rank=256).fit`` on ML-100K-shaped ratings (reg 1.0, exact
@@ -271,7 +275,9 @@ non-zero before the result lines are printed:
    repeated bitwise, the launch, one-block and route counts equal to what
    ``kernel_supported`` predicts (nothing routed), zero and identity
    systems exactly 0 at k = 160 and 656, one batch past the block at k =
-   168 (Schur 176) routed and counted; device ms (``torch.profiler``),
+   168 (Schur 176) routed and counted, ``block_batch(k)`` systems there
+   past one wave of clusters bitwise equal to the rule's launch; device
+   ms (``torch.profiler``),
    event ms, host µs, plain ms (256 rows), the library's device ms and the
    bound at k = 136 and 160 (Schur 144, 160) at 256 and 65,536 rows, and
    event and device ms, host µs, plain ms, library ms and the bound at k =
@@ -296,9 +302,12 @@ non-zero before the result lines are printed:
    rank-160 fit's), each in ``launches_by_path``; B1, B2 and B3 have
    ``wide_orders`` (phase 13a's numbers by k and batch), and
    ``cholesky_solve_large`` is at k = 656, B = 8 with ``by_order`` (phase
-   13b's numbers) and its launches from phase 13b's paths. B4, B5a, B5b
+   13b's numbers, each with its ``cluster``), ``multiwave`` (the launch
+   past one wave) and its launches from phase 13b's paths. B4, B5a, B5b
    and B5c have ``wide_orders`` (phase 13f's numbers by k and batch) and
-   ``by_order`` (its one-block numbers by k), B4's and B5b's with each
+   ``by_order`` (its one-block numbers by k, each with its ``cluster``),
+   ``multiwave`` (k, batch and cluster of its launch past one wave), B4's
+   and B5b's with each
    instantiation's event ms in ``instantiations``, ``large_source`` (the
    one-block kernel's source), ``max_abs_err_all``, and their launches by
    path in ``launches_by_path`` (the probe at k = 128, 160 and 656).
@@ -2845,6 +2854,7 @@ def phase_bench(torch, dev, main_data):
 WIDE_KS = (136, 160)            # B1-B3 past the old k = 128 cap
 WIDE_BATCHES = (256, 65_536)
 LARGE_KS = (168, 256, 512, 656)  # the one-block kernel's orders
+MULTIWAVE_K = 168                 # block_batch(k) systems past one wave
 FUZZ_TRIALS, FUZZ_SEED = 25, 0
 R160 = 160
 LARGE_FIT_RANK = 256            # the estimator path of the one-block kernel
@@ -3079,9 +3089,10 @@ def phase_large_kernel(torch, dev):
                     host_us=host_us(lambda: fn(*args)),
                     library_ms=time_ms(torch, library, 5),
                     plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms,
-                    bound_by=bound_by)
+                    bound_by=bound_by, cluster=ch.cluster_size(k, b))
                 out[str(k)][f"{'2g' if two else 'g'}_{b}"] = nums
-                log(f"# 13b cholesky_solve_large k={k} B={b} "
+                log(f"# 13b cholesky_solve_large k={k} B={b} C="
+                    f"{nums['cluster']} "
                     f"{'G+G2' if two else 'G'}: max_abs_err={err:.3e} ms="
                     f"{nums['ms']:.4f} device_ms={nums['device_ms']} "
                     f"host_us={nums['host_us']:.1f} plain_ms={plain_ms:.1f} "
@@ -3094,10 +3105,47 @@ def phase_large_kernel(torch, dev):
                   ch.cholesky_solve_2g(Gz[:b2], Gz[:b2], z[:b2], zr[:b2])):
             check(bool((x == 0).all()),
                   f"zero / identity systems did not solve to 0 at k={k}")
+        if k == MULTIWAVE_K:
+            out["multiwave"] = multiwave_case(torch, ch, G, rhs, reg, k, bb)
         del G, G2, rhs, reg
         torch.cuda.empty_cache()
     log(f"# 13b: {time.perf_counter() - t0:.1f}s")
     return out
+
+
+def multiwave_case(torch, ch, G, rhs, reg, k, b):
+    """13b's launch past one wave of clusters: b systems of order k at the
+    smallest cluster size above the rule's that the card cannot hold at
+    once (``ops.cholesky.multiwave_cluster``), against the plain version,
+    repeated bitwise and bitwise equal to the rule's launch (no element's
+    order of terms depends on the cluster), launched once a call."""
+    x = ch.cholesky_solve_batched(G, rhs, reg)
+    c = ch.multiwave_cluster(k, b)
+    with ch.forced_cluster(c):
+        ch.reset_counts()
+        xw = ch.cholesky_solve_batched(G, rhs, reg)
+        check(ch.LAUNCHES["cholesky_solve_large"] == 1
+              and not any(ch.ROUTED.values()),
+              f"the multi-wave launch at k={k} B={b} C={c} did not take "
+              f"the one-block kernel: {ch.LAUNCHES} {ch.ROUTED}")
+        err, ok = compare(torch, xw, ch.cholesky_solve_plain(G, rhs, reg))
+        check(ok and torch.equal(xw, ch.cholesky_solve_batched(G, rhs, reg))
+              and torch.equal(xw, x),
+              f"the multi-wave launch at k={k} B={b} C={c} disagrees "
+              f"({err:.3e}) or is not bitwise the rule's")
+        ms = time_ms(torch, lambda: ch.cholesky_solve_batched(G, rhs, reg),
+                     10)
+    nums = dict(k=k, batch=b, cluster=c,
+                active_clusters=ch.active_clusters(k, c), ms=ms,
+                max_abs_err=err,
+                rule_cluster=ch.cluster_size(k, b),
+                rule_ms=time_ms(
+                    torch, lambda: ch.cholesky_solve_batched(G, rhs, reg), 10))
+    log(f"# 13b multi-wave k={k} B={b} C={c} (the card holds "
+        f"{nums['active_clusters']} such clusters; {b * c} CTAs): "
+        f"max_abs_err={err:.3e} ms={ms:.4f} against C="
+        f"{nums['rule_cluster']}'s {nums['rule_ms']:.4f}")
+    return nums
 
 
 def phase_large_path(torch, dev):
@@ -3434,7 +3482,9 @@ def phase_variant_range(torch, dev):
     and route counts equal to what ``kernel_supported`` predicts (the
     one-block kernel, ``LARGE_LAUNCHES``, past k = 160; nothing routed);
     zero and identity systems exactly 0 at k = 160 and 656; a batch one past
-    the block at k = 168 (Schur 176) routed and counted. (2) Times: at k =
+    the block at k = 168 (Schur 176) routed and counted; ``block_batch(k)``
+    systems there past one wave of clusters (``multiwave_cluster``),
+    bitwise equal to the rule's launch. (2) Times: at k =
     136 and 160 (Schur 144, 160) at 256 and 65,536 rows, device ms
     (profiler), event ms, host µs and plain ms (256 rows), the library's
     device ms and the bound; at k = 168 (Schur 176), 256, 512, 656 and
@@ -3509,6 +3559,22 @@ def phase_variant_range(torch, dev):
         gen = torch.Generator(device=dev).manual_seed(7)
         checked(label, name, fn, plain, random_systems(b, k, 3 * k // 4,
                                                        gen, dev))
+    # block_batch(k) systems past one wave of clusters (13b's case), each
+    # instantiation bitwise equal to its launch on the rule's cluster
+    for label, name, fn, plain in insts:
+        k = variant_orders(name, (MULTIWAVE_K,))[0]
+        b = ch.block_batch(k)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        args = random_systems(b, k, 3 * k // 4, gen, dev)
+        x = fn(*args)
+        c = ch.multiwave_cluster(k, b)
+        with ch.forced_cluster(c):
+            checked(f"{label} C={c}".strip(), name, fn, plain, args)
+            check(torch.equal(fn(*args), x),
+                  f"{name} {label} k={k} B={b} on {c} CTAs a system is not "
+                  f"bitwise its launch on {ch.cluster_size(k, b)}")
+        out[name]["multiwave"] = dict(k=k, batch=b, cluster=c)
+        n_checked += 1
     log(f"# 13f checks: {n_checked} shapes and the routed batch of each "
         f"instantiation in {time.perf_counter() - t0:.1f}s; max_abs_err "
         + ", ".join(f"{n} {v['max_abs_err']:.3e}" for n, v in out.items()))
@@ -3578,11 +3644,13 @@ def phase_variant_range(torch, dev):
                         library_ms=time_ms(
                             torch, lambda: solve_library(torch, *args), 5),
                         plain_ms=plain_ms, max_abs_err=err,
-                        bound_ms=bound_ms, bound_by=bound_by)
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        cluster=ch.cluster_size(k, b))
             record(out[name]["by_order"].setdefault(str(k), {}).setdefault(
                 f"g_{b}", {}), name, label, nums)
             log(f"# 13f {' '.join(filter(None, (name, label)))} k={k} "
-                f"B={b}: max_abs_err={err:.3e} ms={nums['ms']:.4f} "
+                f"B={b} C={nums['cluster']}: max_abs_err={err:.3e} "
+                f"ms={nums['ms']:.4f} "
                 f"device_ms={nums['device_ms']} host_us="
                 f"{nums['host_us']:.1f} plain_ms={plain_ms:.1f} library_ms="
                 f"{nums['library_ms']:.4f} bound_ms={bound_ms:.5f} "
@@ -3703,8 +3771,9 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         t13 = time.perf_counter()
         wide = phase_wide_kernels(torch, dev)
+        by_order = phase_large_kernel(torch, dev)
         results["cholesky_solve_large"] = large = dict(
-            by_order=phase_large_kernel(torch, dev))
+            multiwave=by_order.pop("multiwave"), by_order=by_order)
         launches["cholesky_solve_large"] = phase_large_path(
             torch, dev)["cholesky_solve_large"]
         torch.cuda.empty_cache()
@@ -3733,7 +3802,7 @@ def main(argv) -> int:
         f"g_{ch.block_batch(max(LARGE_KS))}"]
     large.update({f: head[f] for f in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
-                                       "library_ms")},
+                                       "library_ms", "cluster")},
                  k=max(LARGE_KS), batch=ch.block_batch(max(LARGE_KS)),
                  max_abs_err_all=max(v["max_abs_err"] for o in
                                      large["by_order"].values()
@@ -3760,7 +3829,7 @@ def main(argv) -> int:
             **{f: r[f] for f in ("device_ms", "host_us", "l2_bound_ms",
                                  "l2_tb_s", "at_main_path", "at_row_block",
                                  "large_source", "wide_orders", "by_order",
-                                 "max_abs_err_all")
+                                 "multiwave", "max_abs_err_all")
                if f in r},
             **({"wide_orders": wide[name]} if name in wide else {})})
     check(all(k["launches"] > 0 for k in kernels), "a kernel never ran")

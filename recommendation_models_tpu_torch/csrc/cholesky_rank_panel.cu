@@ -204,9 +204,9 @@ __device__ __forceinline__ float rsqrt_normal(float x) {
 // slots a system do not fit (239 KB at kp = 136, 327 KB at 160, against
 // 227 KB), and DUAL keeps one slot a system (162 KB at 136, 221.7 KB at
 // 160): the pair's factor and its substitutions then take turns. The other
-// option, L in a global scratch as csrc/cholesky_large_variants.cu keeps
-// it, would move every step's column through the L2; the pair still shares
-// each barrier of its factor, which is what the schedule interleaves.
+// option, L in a global scratch, would move every step's column through
+// the L2; the pair still shares each barrier of its factor, which is what
+// the schedule interleaves.
 constexpr int SMEM_MAX = 227 * 1024;   // an H100 block's dynamic bytes
 
 struct Layout {

@@ -17,9 +17,9 @@ One takes the reference's single-block regime past k = 160
 - ``cholesky_solve_large``: the ``cholesky_solve_batched`` solve (and, with
   a second gram, the ``cholesky_solve_2g`` one) at 160 < kp <= 656 for a
   batch of at most ``block_batch(k)`` systems (halved with two grams), one
-  block a system, the factor in a global scratch (the same TPU kernels at
-  their one-block grid). It computes B1's and B3's functions, so their
-  plain versions are its own.
+  thread-block cluster a system (the same TPU kernels at their one-block
+  grid). It computes B1's and B3's functions, so their plain versions are
+  its own.
 
 Five run the solve-variant path, the public solve API with its variant
 options (``cholesky_solve_t``, ``cholesky_solve``, ``cholesky_solve_flat``,
@@ -42,9 +42,18 @@ options (``cholesky_solve_t``, ``cholesky_solve``, ``cholesky_solve_flat``,
 The last four take k <= 160 at any batch in ``csrc/cholesky_rank_panel.cu``
 and, past it, the reference's one-block regime (160 < kp <= 656, a batch
 of at most ``block_batch(k)``) in ``csrc/cholesky_large_variants.cu``
-(``cholesky_solve_variant_large``: one block a system, two for the dual
-schedule, the factor in a global scratch, each schedule's own order of
-terms), counted under the wrapper's name and in ``LARGE_LAUNCHES``.
+(``cholesky_solve_variant_large``: one cluster a system, each schedule's
+own order of terms), counted under the wrapper's name and in
+``LARGE_LAUNCHES``.
+
+The one-block kernels share ``csrc/cholesky_cluster.cuh``'s frame: a
+system takes a cluster of C CTAs, one an SM, and its factor lives in the
+cluster's distributed shared memory, its 32-column panels dealt to the
+CTAs in the cyclic order reflected every C panels. ``cluster_size`` is the
+rule for C (B x C fills the card's SMs where the batch leaves room, and
+each CTA's share of the factor and its copy of a panel fit in shared
+memory, the batch's clusters in one wave as the card places them);
+``forced_cluster`` takes another C, to measure one on another's ground.
 
 Shared contract: f32 factorization, ridge added on load, pivots clamped at
 ``max(d, 1e-30)``, so identity-padded and all-zero systems with rhs 0 solve
@@ -84,7 +93,12 @@ KMAX = 160              # csrc/cholesky_solve.cu KMAX (B1-B3)
 VARIANT_KMAX = 160      # csrc/cholesky_rank_panel.cu KMAX (B4-B5c)
 LARGE_KMAX = 656        # csrc/cholesky_large.cu and cholesky_large_variants.cu
                         # KMAX (the one-block regime)
-LARGE_PANEL = 32        # csrc/cholesky_large.cu NB: the scratch's granule
+LARGE_PANEL = 32        # csrc/cholesky_cluster.cuh NB: the one-block
+                        # kernels' panel width (k is padded to it)
+CLUSTER_MAX = 8         # the largest cluster cluster_size picks (the card's
+                        # portable size; csrc/cholesky_cluster.cuh takes 16)
+CLUSTER_LIMIT = 16      # csrc/cholesky_cluster.cuh CMAX
+CTA_SMEM = 232_448      # an H100 CTA's largest dynamic shared memory
 HOT_CMAX = 1024         # csrc/cholesky_solve.cu CMAX
 SMEM_MAX = 227 * 1024   # csrc/cholesky_solve.cu SMEM_MAX
 # each source's largest order (its cholesky_kernel_kmax export)
@@ -143,6 +157,91 @@ def two_operand_block(k: int) -> int:
     """The reference's batch block with a second gram (``Gt2``): half of
     ``block_batch``, in multiples of 8, at least 8."""
     return max(block_batch(k) // 2 // 8 * 8, 8)
+
+
+def cluster_owner(p: int, c: int) -> int:
+    """The CTA of a one-block cluster of c that holds 32-column panel p:
+    the cyclic order reflected every c panels (0 .. c-1, c-1 .. 0, ...;
+    ``owner_of`` in csrc/cholesky_cluster.cuh)."""
+    r = p % (2 * c)
+    return r if r < c else 2 * c - 1 - r
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_smem_bytes(kq: int, c: int) -> int:
+    """Dynamic shared memory of a CTA of the one-block kernels at padded
+    order kq (a multiple of 32) and cluster size c, at the CTA that needs
+    the most (``smem_bytes`` in csrc/cholesky_cluster.cuh): its panels
+    (panel p: ``kq / 32 - p`` blocks of 32 x 32 floats) and its copy of
+    another CTA's panel (the rows from its first panel past the step's),
+    after the signals (three mbarriers a panel), the panel offsets, y,
+    1 / L_jj, the inverse pivots and the diagonal block."""
+    np_ = kq // LARGE_PANEL
+    owned = [[p for p in range(np_) if cluster_owner(p, c) == x]
+             for x in range(c)]
+    most = 0
+    for x in range(c):
+        copy = max((np_ - next(q for q in owned[x] if q > j)
+                    for j in range(np_ - 1)
+                    if cluster_owner(j, c) != x and owned[x]
+                    and owned[x][-1] > j), default=0)
+        most = max(most, sum(np_ - p for p in owned[x]) + copy)
+    fixed = (-(-6 * np_ // 4) * 4 + -(-np_ // 4) * 4 + 2 * kq + LARGE_PANEL
+             + LARGE_PANEL * LARGE_PANEL)
+    return 4 * (fixed + most * LARGE_PANEL * LARGE_PANEL)
+
+
+_cluster_forced = None   # forced_cluster's choice; None: cluster_size picks
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_fits(kq: int):
+    """The cluster sizes up to ``CLUSTER_MAX`` (and the panels) whose
+    CTAs' shares fit in ``CTA_SMEM`` at padded order kq."""
+    return tuple(c for c in range(1, min(CLUSTER_MAX, kq // LARGE_PANEL) + 1)
+                 if cluster_smem_bytes(kq, c) <= CTA_SMEM)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_holds(k: int, c: int, device: int) -> int:
+    return active_clusters(k, c)
+
+
+def cluster_size(k: int, b: int, sms: int = None) -> int:
+    """CTAs of a system's cluster in the one-block kernels for b systems of
+    order k: the largest c <= ``CLUSTER_MAX`` (and no more than the
+    32-column panels) whose CTAs' shares fit in ``CTA_SMEM`` and whose b
+    clusters the card holds at once, so that the batch fills the card in
+    one wave where it leaves room; where no c that fits does, the smallest
+    that fits. How many clusters of c the card holds is the card's own
+    answer (``active_clusters``, asked once a size) on a card, and sms // c
+    for a card of ``sms`` SMs given (a count that ignores how the SMs group
+    into GPCs: an H100 holds 15 clusters of 8, not 16)."""
+    kq = -(-k // LARGE_PANEL) * LARGE_PANEL
+    fits = _cluster_fits(kq)
+    if not fits:
+        raise ValueError(f"no cluster of at most {CLUSTER_MAX} holds order "
+                         f"{k}")
+    if sms is None:
+        dev = torch.cuda.current_device()
+        holds = {c: _card_holds(k, c, dev) for c in fits}
+    else:
+        holds = {c: sms // c for c in fits}
+    one_wave = [c for c in fits if holds[c] >= b]
+    return max(one_wave) if one_wave else min(fits)
+
+
+@contextlib.contextmanager
+def forced_cluster(c: int):
+    """Inside the block every one-block launch takes clusters of c CTAs,
+    whatever its batch (the kernel refuses a c whose share does not fit),
+    so that one cluster size can be timed on another's ground."""
+    global _cluster_forced
+    _cluster_forced = int(c)
+    try:
+        yield
+    finally:
+        _cluster_forced = None
 
 
 def kernel_supported(k: int, b: int, two_operand: bool = False) -> bool:
@@ -444,10 +543,12 @@ SOURCES = {
                                     ctypes.POINTER(ctypes.c_longlong)],
     },
     "cholesky_large": {
-        "cholesky_solve_large": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "cholesky_solve_large": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "cholesky_large_active_clusters": [_I, _I,
+                                           ctypes.POINTER(ctypes.c_longlong)],
     },
     "cholesky_large_variants": {
-        "cholesky_solve_variant_large": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+        "cholesky_solve_variant_large": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                          _I, _P],
     },
     "cholesky_rank_panel": {
@@ -613,9 +714,11 @@ def _device_kind(t: torch.Tensor) -> str:
 
 
 def _large_inputs(name, G, G2, rhs, reg):
-    """Checks of a one-block launch's inputs, and its output and (B, kq,
-    kq) f32 factor scratch, kq = k padded to the kernels' 32-column panels
-    (None for an empty batch)."""
+    """Checks of a one-block launch's inputs; its output, the padded order
+    kq (k rounded up to the kernels' 32-column panels) and the cluster size
+    (``cluster_size``, or ``forced_cluster``'s); kq is None for an empty
+    batch. The kernels keep the factor in the clusters' shared memory, so a
+    launch allocates nothing else."""
     b, k, _ = G.shape
     dev = G.device
     if not 1 <= k <= LARGE_KMAX:
@@ -628,9 +731,38 @@ def _large_inputs(name, G, G2, rhs, reg):
     out = torch.empty((b, k), dtype=torch.float32, device=dev)
     if b == 0:
         return out, None, 0
+    c = _cluster_forced
+    if c is None:
+        c = cluster_size(k, b)
+    return out, -(-k // LARGE_PANEL) * LARGE_PANEL, c
+
+
+def active_clusters(k: int, c: int) -> int:
+    """Clusters of c CTAs of the one-block kernels at order k that the
+    current card holds at once (``cudaOccupancyMaxActiveClusters``, asked
+    once; the variants' kernels take the same shared memory and threads);
+    raises where a CTA's share does not fit. Launches nothing."""
+    n = ctypes.c_longlong(0)
+    lib = _lib("cholesky_large")
+    _raise_on(lib.cholesky_large_active_clusters(k, c, ctypes.byref(n)),
+              "cholesky_large_active_clusters", lib)
+    return n.value
+
+
+def multiwave_cluster(k: int, b: int) -> int:
+    """The smallest cluster size above ``cluster_size(k, b)`` whose b
+    clusters at order k the current card cannot hold at once
+    (``active_clusters(k, c) < b``), for a launch that takes more than one
+    wave of clusters (``forced_cluster``); raises where no size the
+    kernels take does."""
     kq = -(-k // LARGE_PANEL) * LARGE_PANEL
-    return out, torch.empty((b, kq, kq), dtype=torch.float32,
-                            device=dev), kq
+    for c in range(cluster_size(k, b) + 1,
+                   min(CLUSTER_LIMIT, kq // LARGE_PANEL) + 1):
+        if (cluster_smem_bytes(kq, c) <= CTA_SMEM
+                and active_clusters(k, c) < b):
+            return c
+    raise ValueError(f"no cluster size makes {b} systems of order {k} "
+                     f"more than one wave")
 
 
 def _launch_large(G, G2, rhs, reg):
@@ -638,14 +770,13 @@ def _launch_large(G, G2, rhs, reg):
     cholesky_large.cu``, the batch wrappers' kernel past kp = 160); a failed
     launch raises."""
     b, k, _ = G.shape
-    out, scratch, kq = _large_inputs("cholesky_solve_large", G, G2, rhs, reg)
-    if scratch is None:
+    out, kq, c = _large_inputs("cholesky_solve_large", G, G2, rhs, reg)
+    if kq is None:
         return out
     lib = _lib("cholesky_large")
     err = lib.cholesky_solve_large(
         G.data_ptr(), 0 if G2 is None else G2.data_ptr(), rhs.data_ptr(),
-        reg.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, k, kq,
-        _stream(G.device))
+        reg.data_ptr(), out.data_ptr(), b, k, kq, c, _stream(G.device))
     _raise_on(err, "cholesky_solve_large", lib)
     LAUNCHES["cholesky_solve_large"] += 1
     return out
@@ -657,13 +788,13 @@ def _launch_variant_large(name, G, rhs, reg, sched, srows):
     160) with the schedule ``sched`` (``csrc/cholesky_rank_panel.cu``'s
     code) and ``srows``, counted under ``name``; a failed launch raises."""
     b, k, _ = G.shape
-    out, scratch, kq = _large_inputs(name, G, None, rhs, reg)
-    if scratch is None:
+    out, kq, c = _large_inputs(name, G, None, rhs, reg)
+    if kq is None:
         return out
     lib = _lib("cholesky_large_variants")
     err = lib.cholesky_solve_variant_large(
-        G.data_ptr(), rhs.data_ptr(), reg.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), b, k, kq, sched, srows, _stream(G.device))
+        G.data_ptr(), rhs.data_ptr(), reg.data_ptr(), out.data_ptr(), b, k,
+        kq, c, sched, srows, _stream(G.device))
     _raise_on(err, name, lib)
     LAUNCHES[name] += 1
     LARGE_LAUNCHES[name] += 1
@@ -919,7 +1050,9 @@ __all__ = ["cholesky_solve_batched", "cholesky_solve_hot",
            "cholesky_solve_variant", "cholesky_solve_t", "cholesky_solve",
            "cholesky_solve_flat", "fold_hot",
            "anchor_solve", "block_batch", "two_operand_block",
-           "kernel_supported",
+           "kernel_supported", "cluster_size", "cluster_owner",
+           "cluster_smem_bytes", "forced_cluster", "active_clusters",
+           "multiwave_cluster",
            "hot_kernel_supported", "hot_smem_bytes", "hot_cols_cap",
            "hot_cols_auto", "latency_regime", "solve_regime",
            "variant_resident",

@@ -3,6 +3,8 @@ cost per call, at the batches the main path launches them with.
 
     python -m recommendation_models_tpu_torch.probes.solve_latency \
         [--batches 256,4201,65536] [--k 64] [--hot-cols 128] [--regimes]
+    python -m recommendation_models_tpu_torch.probes.solve_latency \
+        --k 656 --batches 1,8 [--cluster 16]
 
 For B1 ``cholesky_solve_batched`` and B2 ``cholesky_solve_hot`` (a random
 bf16 hot slab, 28% nonzero as the ML-25M main path's) at each batch, one
@@ -25,6 +27,21 @@ JSON line with:
 - with ``--regimes``, ``latency_device_ms`` and ``throughput_device_ms``:
   the device time of each regime's kernel at this batch (``forced_regime``),
   both checked against the plain version, to place the crossover.
+
+Past k = 160 (``--k 168`` to ``656``) the batch wrappers take the
+one-block kernel (``cholesky_solve_large``): the probe then times
+``cholesky_solve_batched`` at each batch and ``cholesky_solve_2g`` at each
+batch of at most ``two_operand_block(k)``, on grams of 3k/4 random factor
+rows, one JSON line each with ``kernel`` ``cholesky_solve_large`` and
+``grams`` 1 or 2, ``event_ms``, ``device_ms`` (null where the profiler
+did not record every call), ``host_us``, ``library_ms`` and
+``library_event_ms`` (the library solve, read both ways), ``max_abs_err``
+against the plain version, ``bound_ms`` and, where the checkout's
+``ops.cholesky`` has ``cluster_size``, the ``cluster`` the launch took
+(thread blocks a system). ``--cluster C`` times those launches at C
+CTAs a system instead of the rule's (``ops.cholesky.forced_cluster``),
+to compare cluster sizes. The hot kernel is routed to the torch fold at
+those orders and is not timed.
 
 The probe imports only ``ops.cholesky``'s public wrappers and this
 package's timers, so the same file measures another checkout's kernels
@@ -101,9 +118,75 @@ def measure(name, fn, plain, library, b, k, c=0, regimes=False):
     return row
 
 
-def run(batches, k: int = 64, c: int = 128, seed: int = 0, regimes=False):
+def one_block_bound(b: int, k: int, grams: int = 1):
+    """(ms, "bytes" or "operations"): the least time of b solves of order k
+    on an H100, each gram's lower triangle, rhs, reg and x moved once over
+    3.35 TB/s, or k³/3 + 2k² flops a system (and the second gram's sum)
+    over 67 TFLOP/s f32, whichever is longer."""
+    tri = k * (k + 1) / 2
+    t_bytes = 4.0 * b * (grams * tri + 2 * k + 1) / 3.35e12
+    t_ops = b * (k ** 3 / 3.0 + 2.0 * k * k + (grams - 1) * tri) / 67e12
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops \
+        else (t_ops * 1e3, "operations")
+
+
+def one_block_rows(batches, k: int, seed: int = 0, cluster: int = None):
+    """The one-block kernel's rows past k = 160 (the module docstring)."""
+    import contextlib
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.probes.variant_latency import (
+        device_ms)
+    forced = (ch.forced_cluster(cluster) if cluster
+              else contextlib.nullcontext())
+    with forced:
+        return _one_block_rows(ch, device_ms, batches, k, seed, cluster)
+
+
+def _one_block_rows(ch, device_ms, batches, k, seed, cluster):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    eye = torch.eye(k, device=dev)
+    rows = []
+    for b in batches:
+        G, rhs, reg = random_systems(b, k, 3 * k // 4, gen, dev)
+        G2 = random_systems(b, k, 16, gen, dev)[0]
+        cases = [(1, ch.cholesky_solve_batched, ch.cholesky_solve_plain,
+                  (G, rhs, reg), G)]
+        if b <= ch.two_operand_block(k):
+            cases.append((2, ch.cholesky_solve_2g, ch.cholesky_solve_2g_plain,
+                          (G, G2, rhs, reg), G + G2))
+        for grams, fn, plain, args, A in cases:
+            def library(A=A):
+                return torch.cholesky_solve(rhs[:, :, None],
+                                            torch.linalg.cholesky(
+                                                A + reg[:, None, None] * eye))
+            ch.reset_counts()
+            x = fn(*args)
+            launched = ch.LAUNCHES["cholesky_solve_large"] == 1
+            err, ok = agrees(x, plain(*args))
+            ok = ok and launched and torch.equal(x, fn(*args))
+            bms, by = one_block_bound(b, k, grams)
+            size = getattr(ch, "cluster_size", None)
+            rows.append(dict(
+                kernel="cholesky_solve_large", grams=grams, k=k, batch=b,
+                cluster=cluster or (size(k, b) if size else None),
+                event_ms=time_ms(lambda: fn(*args), 20, warm=2),
+                device_ms=device_ms(lambda: fn(*args), 20),
+                host_us=host_us(lambda: fn(*args)),
+                library_ms=device_ms(library, 5),
+                library_event_ms=time_ms(library, 5, warm=1),
+                max_abs_err=err, agrees=ok, bound_ms=bms, bound_by=by))
+        del G, G2, rhs, reg
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run(batches, k: int = 64, c: int = 128, seed: int = 0, regimes=False,
+        cluster: int = None):
     """The rows of the probe, one per kernel and batch."""
     from recommendation_models_tpu_torch.ops import cholesky as ch
+    if k > ch.KMAX:
+        return one_block_rows(batches, k, seed, cluster)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     eye = torch.eye(k, device=dev)
@@ -146,6 +229,8 @@ def main(argv=None) -> int:
     ap.add_argument("--hot-cols", type=int, default=128)
     ap.add_argument("--regimes", action="store_true",
                     help="also time each regime's kernel at every batch")
+    ap.add_argument("--cluster", type=int, default=None,
+                    help="past k = 160: CTAs a system instead of the rule's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("solve_latency: needs a CUDA card", file=sys.stderr)
@@ -154,7 +239,8 @@ def main(argv=None) -> int:
           flush=True)
     batches = [int(x) for x in args.batches.split(",")]
     ok = True
-    for row in run(batches, args.k, args.hot_cols, regimes=args.regimes):
+    for row in run(batches, args.k, args.hot_cols, regimes=args.regimes,
+                   cluster=args.cluster):
         print(json.dumps(row), flush=True)
         ok = ok and row["agrees"]
     return 0 if ok else 1

@@ -17,7 +17,11 @@ the first ``min(B, 1024)`` systems, within 5e-4·scale + 5e-4·|x|),
 ``bound_ms`` (the lower triangle of G, rhs, reg and x once over 3.35 TB/s,
 or k³/3 + 2k² flops a system over 67 TFLOP/s, whichever is larger),
 ``library_ms`` and ``library_event_ms`` (``torch.linalg.cholesky`` +
-``cholesky_solve``, read both ways) and, with ``--plain``, ``plain_ms`` (CUDA events, one call). Systems:
+``cholesky_solve``, read both ways), ``cluster`` (past k = 160, where the
+checkout's ``ops.cholesky`` has ``cluster_size``: the CTAs of a system's
+cluster in the one-block kernel) and, with ``--plain``, ``plain_ms`` (CUDA
+events, one call). Past k = 160 the shapes are the one-block kernels'
+(``--shapes 656:1,656:8``, at most ``block_batch(k)`` systems). Systems:
 at k = 128 the variant probe's (``probes.solve_variants.make_systems``,
 ridge 0.05), else grams of 48 random factor rows with a 0.1 ridge
 (``probes.solve_latency.random_systems``, seed 0).
@@ -134,7 +138,10 @@ def run(shapes, names, plain=False):
                 continue
             fn, pl = table[name]
             err, ok = agrees(fn(G, rhs, reg)[:n], pl(Gc, rc, gc))
+            size = getattr(ch, "cluster_size", None)
             row = dict(kernel=name, k=k, batch=b,
+                       cluster=(size(k, b) if size and k > ch.VARIANT_KMAX
+                                else None),
                        device_ms=device_ms(lambda: fn(G, rhs, reg), reps),
                        event_ms=time_ms(lambda: fn(G, rhs, reg), reps,
                                         warm=1),
@@ -176,8 +183,10 @@ def parse_ptxas(log: str):
     SM the registers allow. A kernel whose launch bound adds its
     substitution warps to that count (the rank/panel kernels: n + 32
     threads; n + 64 for the dual schedule, ``SCHED`` 32, its fourth template
-    argument) is read so, and the one-block variant kernels, whose template
-    arguments are their schedule, at their 256 threads."""
+    argument) is read so, and the one-block kernels
+    (``cluster_solve_kernel<SCHED, SROWS, TWO_G>``, and the earlier
+    ``variant_large_kernel<SCHED, SROWS>``), whose template arguments are
+    their schedule, at their 256 threads."""
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -198,7 +207,8 @@ def parse_ptxas(log: str):
             cur["static_smem"] = int(m2.group(1)) if m2 else 0
             # the int template arguments of the mangled name (Li160E...)
             t = re.search(r"ILi(\d+)E((?:Li\d+E)*)", cur["kernel"])
-            if "variant_large_kernel" in cur["kernel"]:
+            if ("cluster_solve_kernel" in cur["kernel"]
+                    or "variant_large_kernel" in cur["kernel"]):
                 cur["threads"] = 256
             elif t:
                 extra = 0

@@ -69,6 +69,81 @@ def test_kernel_supported_matches_pallas_supported(two_operand):
         assert got == want, k
 
 
+CTA_SMEM = 232_448     # an H100 CTA's largest dynamic shared memory
+H100_SMS = 132
+
+
+def _cluster_blocks(kq, c):
+    """32 x 32 blocks a CTA of the one-block kernels holds at (kq, c), at
+    the CTA that holds the most, counted step by step: its panels (panel p,
+    rows p*32 .. kq - 1, on CTA p's place in 0 .. c-1, c-1 .. 0, ...) and,
+    at each step j whose panel is another CTA's, that panel's rows from the
+    CTA's first panel past j."""
+    np_ = kq // 32
+    order = [x for _ in range(np_) for x in (*range(c), *range(c - 1, -1, -1))]
+    owner = order[:np_]
+    most = 0
+    for x in range(c):
+        mine = [p for p in range(np_) if owner[p] == x]
+        copy = 0
+        for j in range(np_ - 1):
+            later = [p for p in mine if p > j]
+            if owner[j] != x and later:
+                copy = max(copy, np_ - later[0])
+        most = max(most, sum(np_ - p for p in mine) + copy)
+    return most
+
+
+def test_cluster_size_fills_the_card_and_fits():
+    """The one-block kernels' cluster rule (``cluster_size``) for every
+    padded order 161..656 and every batch 1..``block_batch``: C is at least
+    1 and at most ``CLUSTER_MAX`` and the panels; a CTA's panels and its
+    copy of a panel (counted here step by step) and the fixed part fit in
+    232,448 bytes (``cluster_smem_bytes`` agrees); and, on a card of 132
+    SMs that holds 132 // C clusters of C (the rule's count without a card;
+    on one it asks the card), B x C fills the SMs as far as a C that fits
+    allows: no larger C that fits keeps B x C within them, and B x C passes
+    132 only where the smallest C that fits does."""
+    assert pchol.CLUSTER_MAX <= pchol.CLUSTER_LIMIT
+    for kp in range(161, 657):
+        kq = -(-kp // 32) * 32
+        fixed = (-(-6 * (kq // 32) // 4) * 4 + -(-(kq // 32) // 4) * 4
+                 + 2 * kq + 32 + 32 * 32)
+        fits = [c for c in range(1, min(pchol.CLUSTER_MAX, kq // 32) + 1)
+                if 4 * (fixed + 1024 * _cluster_blocks(kq, c)) <= CTA_SMEM]
+        for c in fits:
+            assert pchol.cluster_smem_bytes(kq, c) == 4 * (
+                fixed + 1024 * _cluster_blocks(kq, c))
+        for b in range(1, pchol.block_batch(kp) + 1):
+            c = pchol.cluster_size(kp, b, H100_SMS)
+            assert 1 <= c <= min(pchol.CLUSTER_MAX, kq // 32), (kp, b, c)
+            assert pchol.cluster_smem_bytes(kq, c) <= CTA_SMEM, (kp, b, c)
+            if b * min(fits) <= H100_SMS:
+                assert b * c <= H100_SMS, (kp, b, c)
+                assert all(b * d > H100_SMS for d in fits if d > c), (kp, b)
+            else:
+                assert c == min(fits), (kp, b, c)
+    # the sizes the design names: one SM a system where the batch fills the
+    # card, two at kq = 256, eight past kp = 472
+    assert pchol.cluster_size(168, 120, H100_SMS) == 1
+    assert pchol.cluster_size(256, 48, H100_SMS) == 2
+    assert {pchol.cluster_size(k, b, H100_SMS) for k in (472, 512, 656)
+            for b in range(1, 9)} == {8}
+
+
+@pytest.mark.parametrize("c,first", [
+    (1, [0] * 7), (3, [0, 1, 2, 2, 1, 0, 0]), (8, [0, 1, 2, 3, 4, 5, 6])])
+def test_cluster_panels_are_dealt_in_reflected_order(c, first):
+    """Panel p of a cluster of c lives on CTA p of 0 .. c-1, c-1 .. 0, ...:
+    the order ``cluster_owner`` gives and the shares it makes; at kq = 672
+    and c = 8 every CTA holds 27 to 32 of the 231 blocks, where p mod c
+    would give 20 to 39."""
+    assert [pchol.cluster_owner(p, c) for p in range(7)] == first
+    shares = [sum(21 - p for p in range(21) if pchol.cluster_owner(p, 8) == x)
+              for x in range(8)]
+    assert sum(shares) == 231 and min(shares) == 27 and max(shares) == 32
+
+
 def test_hot_predicate_matches_reference_gate():
     """``hot_kernel_supported`` against ``ops/solve.py::solve_spd_t_hot``'s
     gate (pallas_supported, a 128-multiple batch block, C <= the cap) at
@@ -216,8 +291,11 @@ def test_cuda_kernels_match_plain_versions_at_new_orders():
     """On the card: B1, B2 (C = the reference's cap) and B3 at k = 136,
     157 and 160 at 1, 256 and 4,201 systems, and the one-block kernel at
     k = 161, 168, 256, 512 and 656 at B = 1 and ``block_batch(k)`` (B3 at
-    the halved block), each against its plain version, repeated bitwise,
-    counted in ``LAUNCHES`` with nothing routed; zero and identity systems
+    the halved block), and at k = 168, 256, 512 and 656 with
+    ``block_batch(k)`` systems in more than one wave of clusters
+    (``multiwave_cluster``, bitwise equal to the rule's cluster), each
+    against its plain version, repeated bitwise, counted in ``LAUNCHES``
+    with nothing routed; zero and identity systems
     with rhs 0 solve to exactly 0; one batch past the one-block batch is
     routed."""
     if not torch.cuda.is_available():
@@ -261,6 +339,20 @@ def test_cuda_kernels_match_plain_versions_at_new_orders():
             G2 = _gpu_systems(gen, b, k, dev, jitter=0.1)[0]
             run("cholesky_solve_large", pchol.cholesky_solve_2g,
                 pchol.cholesky_solve_2g_plain, (G, G2, rhs, reg))
+    # more than one wave of clusters: block_batch(k) systems at the
+    # smallest cluster size past the rule's that the card cannot hold at
+    # once, bitwise equal to the rule's launch (no element's order of terms
+    # depends on the cluster)
+    for k in (168, 256, 512, 656):
+        b = pchol.block_batch(k)
+        G, rhs, reg = _gpu_systems(gen, b, k, dev)
+        x = pchol.cholesky_solve_batched(G, rhs, reg)
+        launches["cholesky_solve_large"] += 1
+        with pchol.forced_cluster(pchol.multiwave_cluster(k, b)):
+            run("cholesky_solve_large", pchol.cholesky_solve_batched,
+                pchol.cholesky_solve_plain, (G, rhs, reg))
+            assert torch.equal(x, pchol.cholesky_solve_batched(G, rhs, reg))
+        launches["cholesky_solve_large"] += 1
     assert pchol.LAUNCHES == launches
     assert not any(pchol.ROUTED.values()), pchol.ROUTED
     for k in (160, 168, 656):

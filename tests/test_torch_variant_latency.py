@@ -50,11 +50,13 @@ def test_parse_ptxas_counts_the_dual_kernels_two_warps():
 
 
 def test_parse_ptxas_reads_the_one_block_variant_kernels():
-    """``variant_large_kernel<SCHED, SROWS>`` (csrc/
-    cholesky_large_variants.cu): its template arguments are its schedule,
-    and its block is 256 threads."""
-    log = LOG.replace("17rank_panel_kernelILi160ELi1ELi3ELi1ELi1E",
-                      "20variant_large_kernelILi16ELi2E")
+    """``clu::cluster_solve_kernel<SCHED, SROWS, TWO_G>`` (csrc/
+    cholesky_cluster.cuh, instantiated in cholesky_large_variants.cu and
+    cholesky_large.cu): its template arguments are its schedule, and its
+    block is 256 threads."""
+    log = LOG.replace(
+        "_ZN12_GLOBAL__N_117rank_panel_kernelILi160ELi1ELi3ELi1ELi1EEEvPKfS2_"
+        "S2_Pfiiii", "_ZN3clu20cluster_solve_kernelILi16ELi2ELb0EEEvNS_4ArgsE")
     rows = vl.parse_ptxas(log)
     assert rows[0]["threads"] == 256
     assert rows[0]["resident_by_registers"] == vl.resident_by_registers(48,

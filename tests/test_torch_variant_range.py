@@ -1,7 +1,7 @@
 """The solve variants' range against the reference's: B4 (the rank-1
 schedules), B5a (panel), B5b (Schur) and B5c (dual) over the JAX package's
-whole Pallas range, any batch to kp = 160 and one block a system to kp =
-656, and the public entries' shape contract.
+whole Pallas range, any batch to kp = 160 and one thread-block cluster a
+system to kp = 656, and the public entries' shape contract.
 
 On the CPU the wrappers take their plain versions; they are held here
 against the reference's ``_cholesky_solve_t`` with the same flags in
@@ -236,6 +236,8 @@ WIDE = (136, 157, 160)            # past the old cap, any batch
 WIDE_SCHUR = (144, 160)
 ONE_BLOCK = (161, 168, 256, 512, 656)
 ONE_BLOCK_SCHUR = (176, 256, 512, 656)
+MULTIWAVE = (168, 256, 512, 656)      # a batch past one wave of clusters
+MULTIWAVE_SCHUR = (176,)
 
 
 def _card():
@@ -268,8 +270,10 @@ def test_cuda_variants_over_the_reference_range(label):
     """Each instantiation on the card, at k = 136, 157, 160 (Schur 144,
     160) and B in {1, 37, 4096} (dual also 2), and at the one-block orders
     k = 161, 168, 256, 512, 656 (Schur 176, 256, 512, 656) at B = 1 and
-    ``block_batch(k)`` (dual also at an odd B): against its plain version,
-    repeated bitwise, launched exactly where ``kernel_supported`` says
+    ``block_batch(k)`` (dual also at an odd B), and ``block_batch(k)``
+    systems at k = 168, 256, 512, 656 (Schur 176, 256, 512, 656) in more
+    than one wave of clusters (``multiwave_cluster``, bitwise equal to the
+    rule's cluster): against its plain version, repeated bitwise, launched exactly where ``kernel_supported`` says
     (the one-block kernel past k = 160), nothing routed; zero and identity
     systems with rhs 0 solve to exactly 0; a batch one past the block at
     the first one-block order is routed and counted."""
@@ -288,6 +292,19 @@ def test_cuda_variants_over_the_reference_range(label):
             assert pchol.LARGE_LAUNCHES[name] == (k > pchol.VARIANT_KMAX)
             _close(x.cpu().numpy(), plain(G, rhs, reg).cpu().numpy())
             assert torch.equal(x, fn(G, rhs, reg)), (label, k, b)
+        if k in MULTIWAVE or k in MULTIWAVE_SCHUR and label in SCHUR:
+            # block_batch(k) systems in more than one wave of clusters,
+            # bitwise equal to the rule's cluster
+            b = pchol.block_batch(k)
+            G, rhs, reg = _systems_on(dev, b, k, 1000 * k + b)
+            x = fn(G, rhs, reg)
+            pchol.reset_counts()
+            with pchol.forced_cluster(pchol.multiwave_cluster(k, b)):
+                xw = fn(G, rhs, reg)
+                assert torch.equal(xw, fn(G, rhs, reg)), (label, k)
+            assert pchol.LARGE_LAUNCHES[name] == 2
+            assert torch.equal(xw, x), (label, k)
+            _close(xw.cpu().numpy(), plain(G, rhs, reg).cpu().numpy())
         n = 5 if k > pchol.VARIANT_KMAX else 9
         z = torch.zeros(n, k, k, device=dev)
         z[n // 2:] = torch.eye(k, device=dev)
