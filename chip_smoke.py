@@ -266,8 +266,9 @@ non-zero before the result lines are printed:
    (the first within 2e-2 of the JAX package's f32 history) and the test
    predictions within rtol 2e-2, atol 2e-2. (f) B4 (its three
    instantiations), B5a, B5b (srows 1 and 2) and B5c over the reference's
-   Pallas range (``phase_variant_range``): each at k = 136, 157, 160 (Schur
-   144, 160) and B = 1, 37, 4,096 (dual also 2) on its
+   Pallas range (``phase_variant_range``): each at k = 136, 157, 160 (B4
+   and B5c also 129 and 153, whose last panel is four columns wide; Schur
+   144, 160) and B = 1, 37, 4,096 (dual also 2 and 4,097) on its
    ``csrc/cholesky_rank_panel.cu`` kernel, and at the one-block orders k =
    161, 168, 256, 512, 656 (Schur 176, 256, 512, 656) at B = 1 and
    ``block_batch(k)`` (dual also 3 and ``block_batch(k) - 1``) on
@@ -304,7 +305,8 @@ non-zero before the result lines are printed:
    ``cholesky_solve_large`` is at k = 656, B = 8 with ``by_order`` (phase
    13b's numbers, each with its ``cluster``), ``multiwave`` (the launch
    past one wave) and its launches from phase 13b's paths. B4, B5a, B5b
-   and B5c have ``wide_orders`` (phase 13f's numbers by k and batch) and
+   and B5c have ``wide_orders`` (phase 13f's numbers by k and batch, each
+   with its factor ``frame`` and ``blocks_per_sm``) and
    ``by_order`` (its one-block numbers by k, each with its ``cluster``),
    ``multiwave`` (k, batch and cluster of its launch past one wave), B4's
    and B5b's with each
@@ -1054,17 +1056,18 @@ def variant_systems(torch, dev, b=65_536, k=RANK):
 def persistent_boundary(torch, name, fn, plain, args, extra, resident, dev):
     """A persistent-grid kernel against its plain version at B = 1, 255,
     256, 257, its resident blocks and that count +- 1, and 4,201 (the first
-    b systems of ``args``; ``cholesky_solve_dual``, whose block carries two
-    systems, also at B = 2, 3 and twice its resident blocks +- 1), each
-    repeated bitwise; then identity and zero systems with rhs 0, inside one
-    wave and past it, must give exactly 0. Returns the max abs error."""
+    b systems of ``args``; ``cholesky_solve_dual`` also at B = 2, 3 and its
+    wave, the systems of its resident blocks (``variant_block_systems``:
+    two a block to kp = 128), +- 1), each repeated bitwise; then identity
+    and zero systems with rhs 0, inside one wave and past it, must give
+    exactly 0. Returns the max abs error."""
+    from recommendation_models_tpu_torch.ops import cholesky as ch
     k = args[0].shape[1]
     err_all = 0.0
     batches = {1, 255, 256, 257, resident - 1, resident, resident + 1,
                4_201}
-    wave = resident
+    wave = resident * ch.variant_block_systems(name, k)
     if name == "cholesky_solve_dual":
-        wave = 2 * resident
         batches |= {2, 3, wave - 1, wave, wave + 1}
     for b in sorted(batches):
         sl = tuple(a[:b].contiguous() for a in args)
@@ -3413,6 +3416,9 @@ def phase_quality(torch, dev, children):
 # --------------------------------- phase 13f: the variants past k = 128
 
 VARIANT_WIDE_KS = (136, 157, 160)       # past the old k = 128 cap, any batch
+# B4 and B5c also at orders whose last panel is four columns wide
+VARIANT_NARROW_KS = (129, 153)
+VARIANT_NARROW_KINDS = ("cholesky_solve_rank1", "cholesky_solve_dual")
 VARIANT_WIDE_BATCHES = (1, 37, 4_096)
 VARIANT_ONE_BLOCK_KS = (161, 168, 256, 512, 656)
 VARIANT_TIMED_KS = (136, 160)           # at WIDE_BATCHES' 256 and 65,536 rows
@@ -3446,22 +3452,34 @@ def variant_instantiations(ch):
 
 def variant_orders(name, ks):
     """The orders of ``ks`` a variant runs at: Schur (k % 16 == 0) takes
-    each order's next multiple of 16."""
+    each order's next multiple of 16; B4 and B5c add ``VARIANT_NARROW_KS``
+    where ``ks`` holds ``VARIANT_WIDE_KS``."""
+    if name in VARIANT_NARROW_KINDS and set(VARIANT_WIDE_KS) <= set(ks):
+        ks = tuple(sorted(set(ks) | set(VARIANT_NARROW_KS)))
     if name != "cholesky_solve_schur":
         return tuple(ks)
     return tuple(sorted({-(-k // 16) * 16 for k in ks}))
 
 
 def variant_batches(name, k, ch):
-    """The checked batches: 1, 37 and 4,096 to k = 160 (dual also 2); past
-    it 1 and ``block_batch(k)`` (dual also 3 and ``block_batch(k) - 1``:
-    an odd pair count)."""
+    """The checked batches: 1, 37 and 4,096 to k = 160 (dual also 2 and
+    4,097: odd, past one wave); past it 1 and ``block_batch(k)`` (dual also
+    3 and ``block_batch(k) - 1``: an odd pair count)."""
     if k <= ch.VARIANT_KMAX:
-        extra = (2,) if name == "cholesky_solve_dual" else ()
+        extra = (2, 4_097) if name == "cholesky_solve_dual" else ()
         return tuple(sorted(VARIANT_WIDE_BATCHES + extra))
     bb = ch.block_batch(k)
     extra = (3, bb - 1) if name == "cholesky_solve_dual" else ()
     return tuple(sorted((1, bb) + extra))
+
+
+def variant_blocks_per_sm(torch, dev, ch, name, label, k):
+    """Resident blocks an SM of the instantiation ``label`` of ``name``
+    at order k <= 160 (``variant_resident`` over the SM count)."""
+    kw = dict(kv.split("=") for kv in label.split(",")) if label else {}
+    res = ch.variant_resident(name, k, int(kw.get("fcols", 1)),
+                              int(kw.get("srows", 1)))
+    return res / torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def solve_library(torch, G, rhs, reg):
@@ -3475,19 +3493,22 @@ def solve_library(torch, G, rhs, reg):
 def phase_variant_range(torch, dev):
     """13f: B4 (three instantiations), B5a, B5b (srows 1 and 2) and B5c over
     the reference's Pallas range. (1) Each instantiation at k = 136, 157,
-    160 (Schur 144, 160) and B = 1, 37, 4,096 (dual also 2), then at the
+    160 (B4 and B5c also 129 and 153; Schur 144, 160) and B = 1, 37, 4,096
+    (dual also 2 and 4,097), then at the
     one-block orders k = 161, 168, 256, 512, 656 (Schur 176, 256, 512, 656)
     at B = 1 and ``block_batch(k)`` (dual also 3 and ``block_batch(k) -
     1``): against its plain version, repeated bitwise, with the launch
     and route counts equal to what ``kernel_supported`` predicts (the
     one-block kernel, ``LARGE_LAUNCHES``, past k = 160; nothing routed);
-    zero and identity systems exactly 0 at k = 160 and 656; a batch one past
+    zero and identity systems exactly 0 at k = 160 and 656; past kp = 128
+    B4's three forms and B5c bitwise equal; a batch one past
     the block at k = 168 (Schur 176) routed and counted; ``block_batch(k)``
     systems there past one wave of clusters (``multiwave_cluster``),
     bitwise equal to the rule's launch. (2) Times: at k =
     136 and 160 (Schur 144, 160) at 256 and 65,536 rows, device ms
     (profiler), event ms, host µs and plain ms (256 rows), the library's
-    device ms and the bound; at k = 168 (Schur 176), 256, 512, 656 and
+    device ms and the bound, with the kernel's frame and blocks an SM; at
+    k = 168 (Schur 176), 256, 512, 656 and
     ``block_batch(k)``, event and device ms, host µs, plain ms, the library
     and the bound. (3) The variant probe at PSV_K = 160 (8,192 systems)
     and 656 (its one-block default) with every variant, the counts set to 0
@@ -3530,8 +3551,8 @@ def phase_variant_range(torch, dev):
         n, VARIANT_WIDE_KS + VARIANT_ONE_BLOCK_KS)})
     n_checked = 0
     for k in ks:
-        n = (max(VARIANT_WIDE_BATCHES) if k <= ch.VARIANT_KMAX
-             else ch.block_batch(k))
+        n = max(b for _, name, _, _ in insts
+                for b in variant_batches(name, k, ch))
         gen = torch.Generator(device=dev).manual_seed(1000 + k)
         G, rhs, reg = random_systems(n, k, 3 * k // 4, gen, dev)
         for label, name, fn, plain in insts:
@@ -3552,6 +3573,14 @@ def phase_variant_range(torch, dev):
                 check(bool((z == 0).all()),
                       f"zero / identity systems did not solve to 0 in "
                       f"{name} {label} at k={k}")
+        if (k <= ch.VARIANT_KMAX
+                and ch.variant_frame(VARIANT_NARROW_KINDS[0], k) == "panel"):
+            # in the panel frame B4's three forms and B5c give each element
+            # its terms in one order: one result, bit for bit
+            xs = [fn(G, rhs, reg) for _, name, fn, _ in insts
+                  if name in VARIANT_NARROW_KINDS]
+            check(all(torch.equal(xs[0], x) for x in xs[1:]),
+                  f"B4's forms and B5c differ bitwise at k={k}")
         del G, rhs, reg
     for label, name, fn, plain in insts:
         k = variant_orders(name, (168,))[0]
@@ -3611,11 +3640,16 @@ def phase_variant_range(torch, dev):
                 bound_ms, bound_by = bound(solve_bytes(b, k),
                                            solve_flops(b, k))
                 nums.update(max_abs_err=err, bound_ms=bound_ms,
-                            bound_by=bound_by)
+                            bound_by=bound_by,
+                            frame=ch.variant_frame(name, k),
+                            blocks_per_sm=variant_blocks_per_sm(
+                                torch, dev, ch, name, label, k))
                 record(out[name]["wide_orders"].setdefault(
                     str(k), {}).setdefault(str(b), {}), name, label, nums)
                 log(f"# 13f {' '.join(filter(None, (name, label)))} k={k} "
-                    f"B={b}: max_abs_err={err:.3e} device_ms="
+                    f"B={b} ({nums['frame']} frame, "
+                    f"{nums['blocks_per_sm']:g} blocks an SM): "
+                    f"max_abs_err={err:.3e} device_ms="
                     f"{nums['device_ms']} ms={nums['ms']:.5f} host_us="
                     f"{nums['host_us']} plain_ms={nums['plain_ms']} "
                     f"library_device_ms={nums['library_device_ms']} "

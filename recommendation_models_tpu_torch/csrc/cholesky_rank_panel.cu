@@ -29,7 +29,8 @@
 // lower triangle of G, rhs, reg) and write 256 B for ~0.1 MFLOP, so the
 // bound is device-memory bytes (0.173 ms for 65,536 systems at 3.35 TB/s);
 // at k = 128 it is ~0.73 MFLOP for 34 KB, and f32 operations bound it
-// (0.716 ms at 67 TFLOP/s). All run far above: a factor is a chain of
+// (0.716 ms at 67 TFLOP/s; 0.856 and 1.386 ms at k = 136 and 160). All
+// run far above: a factor is a chain of
 // dependent column (or panel) steps separated by block barriers, and a
 // substitution a chain of 2k dependent shuffle rounds.
 //
@@ -97,22 +98,56 @@
 //   the barriers of phase 1 hand the groups over and no further barrier is
 //   needed. The groups keep their order and sum their terms before
 //   subtracting, so the result is the old kernel's.
-// - Dual (B5c): each factor thread owns the same tiles of both systems,
-//   and each step publishes both systems' columns and takes one barrier
-//   for the two chains (two independent FMA chains a thread, half a
-//   barrier a system a step). Each system has its own substitution warp
-//   and slots, so the pair's two substitutions run side by side and
+// - Dual (B5c) to kp = 128: each factor thread owns the same tiles of
+//   both systems, and each step publishes both systems' columns and takes
+//   one barrier for the two chains (two independent FMA chains a thread,
+//   half a barrier a system a step). Each system has its own substitution
+//   warp and slots, so the pair's two substitutions run side by side and
 //   overlap the next pair's factor, where the old kernel's two warps
 //   substituted while the block waited. Both substitution warps wait on
 //   one FULL and arrive on one EMPTY barrier. A pair past an odd B factors
 //   an identity in its second place, and that place's warp takes the
 //   hand-overs without solving.
+// - Past kp = 128 (frame_config 3) B4 in its three forms and B5c run the
+//   panel frame (ALONE): factor_panel as B5a runs it, with each of the
+//   trailing update's eight terms subtracted alone, in p order, instead
+//   of summed first. Before (PR 16's frame, an H100 at 65,536 rows, k =
+//   136 / 160) they stepped a column (fcols 1) or a column pair (fcols 2,
+//   dual) at a time, one barrier a step (160 or 80 a system at kp = 160)
+//   around one float4 pair and 16-32 FMAs a tile, and one block an SM
+//   (shared memory allows no more) had nothing to hide the barriers with:
+//   B4 22.8-30.5 ms, B5c 30.7-37.8 (its pair kept one slot a system, so
+//   factor and substitutions took turns), where B5a took 13.4-16.7. A
+//   panel takes two barriers (40 a system at kp = 160) around 128 FMAs a
+//   tile. Each schedule keeps its order of terms: every element takes
+//   every term alone, in increasing p, inside the panel (left-looking,
+//   factor_panel's own order) and in the update; the rank-2 form
+//   L[i][j+1] = (A[i][j+1] - L[i][j] L[j+1][j]) / L[j+1][j+1] is the
+//   panel's column j + 1 taking its last term. In this frame the rank-1
+//   and rank-2 orders coincide (as their plain versions do, bit for bit),
+//   so fcols 1 and 2 share the kernel of their srows, and the dual is the
+//   srows 2 kernel: one system a block, one substitution warp and two
+//   slots, so its substitution overlaps the next system's factor again
+//   and an odd B needs no identity partner. Its two-row rounds take their
+//   results by selects (substitute, SELECTS): with the other kernels'
+//   nested form the two-row kernel ran 18.9 ms at k = 136 against the
+//   one-row kernel's 13.3, and a lone system at k = 160 took 0.074 ms
+//   against 0.057. The two srows give the same bits: a two-row round's
+//   arithmetic is two one-row rounds'. Measured against the old frame
+//   (an H100, 700 W, alternated in one call; PERF.md, PR 18): at 65,536
+//   rows B4 13.3-13.6 ms at k = 136 (24.8-25.0 / 23.0 before) and
+//   16.4-16.9 at 160 (30.1-30.5 / 28.4), B5c 13.5-13.6 (31.0) and 16.8-16.9
+//   (37.8), B5a 13.4-13.5 and 16.6-16.7; 231 registers, no spills. B4
+//   (2,1) and B5c keep their old bits (the rank-2 step took the same
+//   terms, rounded the same way); B4 (1,1) and (1,2) now round each term
+//   as L_ip L_lp, where the rank-1 step formed (A_ip / L_pp^2) A_lp.
 //
 // The factors' arithmetic is the old kernels': the rank-1 and rank-2 steps
-// of the reference's column schedules; the panel's column jj takes the
-// panel's earlier columns' terms in order p = 0 .. jj - 1 (left-looking, as
-// the reference and cholesky_solve_panel_plain), and the trailing update
-// sums its eight terms before subtracting them (as each Schur group).
+// of the reference's column schedules (to kp = 128); the panel's column jj
+// takes the panel's earlier columns' terms in order p = 0 .. jj - 1
+// (left-looking, as the reference and cholesky_solve_panel_plain), and
+// B5a's trailing update sums its eight terms before subtracting them (as
+// each Schur group).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -127,12 +162,21 @@ using chol::PIVOT_FLOOR;
 using chol::pick4;
 
 constexpr int PW = 8;                 // panel width; the Schur groups' too
-// the factor schedules; each value is also the kernel's code in
-// cholesky_rank_panel_resident
-enum Sched { RANK1 = 1, PAIR = 2, PANEL = 8, SCHUR = 16, DUAL = 32 };
+// the factor schedules; RANK1 .. DUAL are also the kernels' codes in
+// cholesky_rank_panel_resident. ALONE is no export's: it is the frame that
+// RANK1, PAIR and DUAL take past kp = 128 (frame_config 3), the panel
+// factor with every term alone (see the header).
+enum Sched { RANK1 = 1, PAIR = 2, PANEL = 8, SCHUR = 16, DUAL = 32,
+             ALONE = 64 };
 
-// systems a block carries (DUAL: two, each with its own substitution
-// warp), and a block's threads
+// the schedules that factor in panels (factor_panel)
+__host__ __device__ constexpr bool panel_frame(int sched) {
+    return sched == PANEL || sched == ALONE;
+}
+
+// systems a block carries (DUAL, to kp = 128: two, each with its own
+// substitution warp; past it the dual runs as ALONE, one), and a block's
+// threads
 __host__ __device__ constexpr int systems(int sched) {
     return sched == DUAL ? 2 : 1;
 }
@@ -197,16 +241,17 @@ __device__ __forceinline__ float rsqrt_normal(float x) {
 // nslot NS slots of [packed L, rhs / y (kp), 1 / L_jj (kp)] (slot
 // parity NS + system), and the rank steps' barrier counts (kp ints).
 //
-// DUAL keeps two slots a system where they fit: the factor writes L as it
-// goes, so with one slot a system the next pair's factor waits for both
-// substitutions and the two stages do not overlap. At k = 128 its block
-// takes 213 KB, one block per SM; at k = 64, 57 KB. Past kp = 132 two
-// slots a system do not fit (239 KB at kp = 136, 327 KB at 160, against
-// 227 KB), and DUAL keeps one slot a system (162 KB at 136, 221.7 KB at
-// 160): the pair's factor and its substitutions then take turns. The other
-// option, L in a global scratch, would move every step's column through
-// the L2; the pair still shares each barrier of its factor, which is what
-// the schedule interleaves.
+// Two slots a system: the factor writes L as it goes, so with one slot
+// the next system's factor waits for the substitution and the two stages
+// do not overlap. DUAL's block (two systems, to kp = 128) takes 213 KB at
+// k = 128, one block per SM; at k = 64, 57 KB. Past kp = 128 the rank
+// schedules and the dual take the panel frame (ALONE), one system a block
+// with the panel's buffers and two slots, as B5a: 124.3 KB at kp = 136,
+// 169.2 KB at 160. (Before, PR 16's dual block kept its pair past kp = 132
+// in one slot a system, 162 KB at 136 and 221.7 KB at 160, so its factor
+// and substitutions took turns.) One slot would let two blocks share an
+// SM up to kp = 156 (85.9 KB at 136, 111.0 KB at 156, against the SM's
+// 228 KB less 1 KB a block); measured, that lost (see min_blocks).
 constexpr int SMEM_MAX = 227 * 1024;   // an H100 block's dynamic bytes
 
 struct Layout {
@@ -221,7 +266,7 @@ __host__ __device__ inline Layout layout(int kp, int sched) {
     q.ps = kp + 4;
     q.lsz = (tri(kp) + 3) & ~3;
     q.work = ns * q.ntiles * 16;
-    q.slot0 = q.work + (sched == PANEL ? 2 * PW : 8 * ns) * q.ps;
+    q.slot0 = q.work + (panel_frame(sched) ? 2 * PW : 8 * ns) * q.ps;
     q.slot_floats = q.lsz + 2 * kp;
     q.nslot = 2;
     if (4 * (q.slot0 + 2 * ns * q.slot_floats + kp) > SMEM_MAX) q.nslot = 1;
@@ -243,8 +288,13 @@ __host__ __device__ inline Layout layout(int kp, int sched) {
 // registers, and two tiles a thread of each system fit in 154 without
 // spills. On an H100 at k = 128, <224, 3> (9 warps, the same cap, three
 // tiles) spilled 204 bytes, and <192, 3> (8 warps, 214 registers) ran
-// 19.0 ms against 15.6 (PERF.md). Past k = 128 DUAL takes <288, 3> (864
-// tiles), the same 11 warps and cap with three tiles of each system.
+// 19.0 ms against 15.6 (PERF.md). Past k = 128 every schedule is one
+// system a block at <224, 4>, and RANK1, PAIR and DUAL run the panel frame
+// (ALONE, see the header): a column or pair step a barrier there left one
+// block an SM (shared memory allows no more) idle at 160 or 80 barriers a
+// system. (Before, DUAL took <288, 3>, 864 tiles, with three tiles of
+// each of its two systems a thread; 168 registers and 268 bytes of
+// spills.)
 int frame_config(int kp) {
     const int T = kp / 4, tiles = T * (T + 1) / 2;
     return kp > 128 ? 3 : tiles <= 160 ? 0 : tiles <= 448 ? 1 : 2;
@@ -263,10 +313,14 @@ int frame_config(int kp) {
 // blocks, at 117 registers without spills, ran 10% slower at k = 64);
 // above, one block (its shared memory allows no more at k = 128). Schur at
 // k <= 68: 3 blocks, at 96 registers without spills, ran 18% slower. Past
-// k = 128 (the NQ = 5 configurations) shared memory allows one block of
-// any schedule (119.8 KB at kp = 136, 164 KB at 160, the panel's 169 KB),
-// so the target is 1 and a thread of four tiles is not held to 128
-// registers.
+// k = 128 (the NQ = 5 configurations) the target is 1 at every kp: shared
+// memory allows one block of Schur (164 KB at kp = 160) and of the panel
+// frame with two slots (124.3-169.2 KB), and a thread of four tiles is not
+// held to 128 registers (the panel frame takes 217-231). Two blocks of the
+// panel frame with one slot each, which fit to kp = 156, are held to 128
+// registers and spilled 368 bytes; on an H100 at 65,536 rows they ran
+// 29-32% slower at k = 129-153 with one-row substitutions (17.5 ms against
+// 13.3 at k = 136) and 10-17% slower with two-row ones (PERF.md, PR 18).
 constexpr int min_blocks(int nth, int nq, int sched) {
     return nq == 5       ? 1
            : sched == DUAL ? (nth == 160 ? 3 : 1)
@@ -566,7 +620,7 @@ __device__ __forceinline__ void schur_group(Tiles<NT>& s, const float* L,
 // buffers by panel parity (a panel's publish must not overwrite the last
 // panel's while slower threads still update from it), column-major: column
 // c of the panel at R + c ps, row i at [i].
-template <int NTH, int NT>
+template <int NTH, int NT, bool ALONE_TERMS>
 __device__ __forceinline__ void factor_panel(Tiles<NT>& s, const Out& o,
                                              float* work, int ps, int tid) {
     const int kp = o.kp;
@@ -646,6 +700,24 @@ __device__ __forceinline__ void factor_panel(Tiles<NT>& s, const Out& o,
         for (int n = 0; n < NT; ++n) {
             if (!s.live[n] || s.tl[n] * 4 < j0 + PW) continue;
             const int i0 = s.ti[n] * 4, l0 = s.tl[n] * 4;
+            if constexpr (ALONE_TERMS) {
+                // each of the eight terms subtracted in turn, in p order
+#pragma unroll
+                for (int p = 0; p < PW; ++p) {
+                    const float4 u = *reinterpret_cast<const float4*>(
+                        R + p * ps + i0);
+                    const float4 w = *reinterpret_cast<const float4*>(
+                        R + p * ps + l0);
+                    const float pi[4] = {u.x, u.y, u.z, u.w};
+                    const float pl[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+                    for (int r = 0; r < 4; ++r)
+#pragma unroll
+                        for (int c = 0; c < 4; ++c)
+                            s.a[n][r][c] = fmaf(-pi[r], pl[c], s.a[n][r][c]);
+                }
+                continue;
+            }
             float acc[4][4] = {};
 #pragma unroll
             for (int p = 0; p < PW; ++p) {
@@ -682,8 +754,12 @@ __device__ __forceinline__ float pick(const float (&y)[NQ], int q) {
 // registers (lane l holds rows l, l + 32, ...). The warp first writes
 // 1 / max(L_jj, 1e-30) into rinv (correctly rounded, as 1.f / x); each
 // round loads its L entries and 1 / L_jj before its shuffle. Rows at or
-// past k are never read into the result.
-template <int SROWS, int NQ>
+// past k are never read into the result. SELECTS (the panel frame of the
+// rank schedules, ALONE) takes a two-row round's results by selects: the
+// nested conditional of the other kernels compiles to a divergent branch
+// for each of a lane's rows (BSSY / BSYNC), and their two-row rounds take
+// twice a one-row round's time a row (same bits either way).
+template <int SROWS, int NQ, bool SELECTS = false>
 __device__ __forceinline__ void substitute(const float* L, float* rinv,
                                            const float* ys, float* ob, int k,
                                            int lane) {
@@ -719,8 +795,14 @@ __device__ __forceinline__ void substitute(const float* L, float* rinv,
             for (int q = 0; q < NQ; ++q) {
                 const int i = lane + 32 * q;
                 const float u = fmaf(-l1[q], yj1, fmaf(-l0[q], yj, y[q]));
-                y[q] = i == j ? yj : i == j + 1 ? yj1
-                       : (i > j + 1 && i < k) ? u : y[q];
+                if constexpr (SELECTS) {
+                    float v = (i > j + 1) & (i < k) ? u : y[q];
+                    v = i == j + 1 ? yj1 : v;
+                    y[q] = i == j ? yj : v;
+                } else {
+                    y[q] = i == j ? yj : i == j + 1 ? yj1
+                           : (i > j + 1 && i < k) ? u : y[q];
+                }
             }
         }
     }
@@ -764,7 +846,14 @@ __device__ __forceinline__ void substitute(const float* L, float* rinv,
             for (int q = 0; q < NQ; ++q) {
                 const int i = lane + 32 * q;
                 const float u = fmaf(-a1[q], xj1, fmaf(-a0[q], xj, y[q]));
-                y[q] = i == j ? xj : i == j - 1 ? xj1 : i < j - 1 ? u : y[q];
+                if constexpr (SELECTS) {
+                    float v = i < j - 1 ? u : y[q];
+                    v = i == j - 1 ? xj1 : v;
+                    y[q] = i == j ? xj : v;
+                } else {
+                    y[q] = i == j ? xj : i == j - 1 ? xj1
+                           : i < j - 1 ? u : y[q];
+                }
             }
         }
     }
@@ -811,7 +900,7 @@ rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
     // the rank steps' barrier counts: 32 x the factor warps with work at
     // step j
     int* nbar = reinterpret_cast<int*>(smem + q.nbar);
-    if (SCHED != PANEL) {
+    if (!panel_frame(SCHED)) {
         for (int j = tid; j < kp; j += HAND) {
             int n = 0;
             for (int w = 0; w < NTH / 32; ++w)
@@ -832,8 +921,9 @@ rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
             float* slot = smem + q.slot0 + (s * NS + w) * q.slot_floats;
             bar_sync(BAR_FULL + s, HAND);
             if (NS == 1 || b < B)
-                substitute<SROWS, NQ>(slot, slot + q.lsz + kp, slot + q.lsz,
-                                      out + (size_t)b * k, k, lane);
+                substitute<SROWS, NQ, SCHED == ALONE>(
+                    slot, slot + q.lsz + kp, slot + q.lsz,
+                    out + (size_t)b * k, k, lane);
             // the factor threads wait for the slot only if they use it again
             if (it + q.nslot < count) bar_arrive(BAR_EMPTY + s, HAND);
         }
@@ -903,8 +993,9 @@ rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
         // (pair's) sets are its parity's
         const int bs = q.ps, bar = s ? BAR_FACTOR_ODD : BAR_FACTOR;
         float* cb = work + s * NS * 4 * bs;
-        if constexpr (SCHED == PANEL) {
-            factor_panel<NTH, NT>(t[0], o[0], work, q.ps, tid);
+        if constexpr (panel_frame(SCHED)) {
+            factor_panel<NTH, NT, SCHED == ALONE>(t[0], o[0], work, q.ps,
+                                                  tid);
         } else if constexpr (SCHED == SCHUR) {
             // k % 16 == 0, so kp == k; h = k / 2 = 4 ht. Phase 1 (rank-2
             // steps over [0, h), left tiles only) carries phase 2: after
@@ -984,7 +1075,7 @@ cudaError_t dispatch(const void* G, const void* rhs, const void* reg,
             return launch<160, 1, 3, SCHED, SROWS>(g, r, rg, o, B, k, kp,
                                                    vec, s, resident);
         case 3:
-            return launch<288, 3, 5, SCHED, SROWS>(g, r, rg, o, B, k, kp,
+            return launch<224, 4, 5, ALONE, SROWS>(g, r, rg, o, B, k, kp,
                                                    vec, s, resident);
         default:
             return launch<288, 2, 4, SCHED, SROWS>(g, r, rg, o, B, k, kp,
@@ -1001,9 +1092,13 @@ cudaError_t dispatch(const void* G, const void* rhs, const void* reg,
         case 2:
             return launch<224, 3, 4, SCHED, SROWS>(g, r, rg, o, B, k, kp,
                                                    vec, s, resident);
-        default:
-            return launch<224, 4, 5, SCHED, SROWS>(g, r, rg, o, B, k, kp,
+        default: {
+            // past kp = 128 RANK1 and PAIR take the panel frame (ALONE)
+            constexpr int sched = SCHED == RANK1 || SCHED == PAIR ? ALONE
+                                                                  : SCHED;
+            return launch<224, 4, 5, sched, SROWS>(g, r, rg, o, B, k, kp,
                                                    vec, s, resident);
+        }
         }
     }
 }
@@ -1046,8 +1141,9 @@ extern "C" {
 // x (B, k) = (G + diag(reg))^-1 rhs for G (B, k, k), rhs (B, k), reg (B,),
 // all f32, contiguous, batch-major, 1 <= k <= 160: a right-looking factor
 // with fcols (1 or 2) columns per step, then substitutions with srows (1 or
-// 2) rows per step. (fcols, srows) = (2, 2) is cholesky_solve_batched's
-// combination and is refused here.
+// 2) rows per step (past kp = 128 in the panel frame, every term alone).
+// (fcols, srows) = (2, 2) is cholesky_solve_batched's combination and is
+// refused here.
 int cholesky_solve_rank1(const void* G, const void* rhs, const void* reg,
                          void* out, int B, int k, int fcols, int srows,
                          void* stream) {
@@ -1071,9 +1167,10 @@ int cholesky_solve_schur(const void* G, const void* rhs, const void* reg,
     return (int)by_kind(kind, G, rhs, reg, out, B, k, stream, nullptr);
 }
 
-// The same solve for two systems per block, their rank-2 factors
-// interleaved, with two-row substitutions. Any B (an odd B leaves the last
-// block's second system empty).
+// The same solve with the rank-2 factor and two-row substitutions: to
+// kp = 128 two systems a block, their factors interleaved (an odd B leaves
+// the last block's second system empty); past it one system a block in
+// the panel frame. Any B.
 int cholesky_solve_dual(const void* G, const void* rhs, const void* reg,
                         void* out, int B, int k, void* stream) {
     return (int)by_kind(6, G, rhs, reg, out, B, k, stream, nullptr);
@@ -1082,7 +1179,7 @@ int cholesky_solve_dual(const void* G, const void* rhs, const void* reg,
 // *resident = the blocks of the kernel of (sched, srows) at order k that
 // the current device holds at once (sched: 1 or 2, cholesky_solve_rank1's
 // fcols; 8 the panel kernel; 16 Schur; 32 dual, whose block carries two
-// systems). Launches nothing.
+// systems to kp = 128). Launches nothing.
 int cholesky_rank_panel_resident(int sched, int srows, int k,
                                  long long* resident) {
     const int kind = kind_of(sched, srows);

@@ -35,9 +35,16 @@ options (``cholesky_solve_t``, ``cholesky_solve``, ``cholesky_solve_flat``,
   ``_cholesky_solve_kernel_panel``; ``csrc/cholesky_rank_panel.cu``);
 - ``cholesky_solve_schur``: the two-level Schur factor, k % 16 == 0 (TPU
   ``_cholesky_solve_kernel_schur``; ``csrc/cholesky_rank_panel.cu``);
-- ``cholesky_solve_dual``: two systems per block with their rank-2 factors
-  interleaved, then two-row substitutions (TPU
+- ``cholesky_solve_dual``: the rank-2 factor and two-row substitutions,
+  to kp = 128 two systems a block with their factors interleaved, past it
+  one system a block in the panel frame (TPU
   ``_cholesky_solve_kernel_dual``; ``csrc/cholesky_rank_panel.cu``).
+
+Past kp = 128 ``cholesky_solve_rank1`` (every fcols, srows) and
+``cholesky_solve_dual`` factor in 8-column panels with every term taken
+alone (``variant_frame``): the rank-1 and rank-2 schedules give each
+element its terms in the same order, so there the four give the same bits,
+as their plain versions do everywhere.
 
 The last four take k <= 160 at any batch in ``csrc/cholesky_rank_panel.cu``
 and, past it, the reference's one-block regime (160 < kp <= 656, a batch
@@ -127,6 +134,8 @@ LARGE_LAUNCHES = dict.fromkeys(VARIANT_KINDS, 0)
 PANEL_WIDTH = 8         # the panel width and the Schur phase's group
                         # (csrc/cholesky_rank_panel.cu PW)
 RANK1_SCHEDULES = ((1, 1), (1, 2), (2, 1))   # (fcols, srows) of the kernel
+RANK_FRAME_KPMAX = 128  # csrc/cholesky_rank_panel.cu frame_config: past this
+                        # padded order B4 and B5c factor in panels
 
 
 def reset_counts() -> None:
@@ -452,9 +461,9 @@ def cholesky_solve_rank1_plain(G, rhs, reg, fcols=1, srows=1):
 
 def cholesky_solve_dual_plain(G, rhs, reg):
     """Plain version of ``cholesky_solve_dual``: each system's rank-2
-    factor and two-row substitutions, in the kernel's step order (the
-    kernel interleaves two systems' chains; each system's arithmetic is
-    its own)."""
+    factor and two-row substitutions, in the kernel's step order (to kp =
+    128 the kernel interleaves two systems' chains; each system's
+    arithmetic is its own)."""
     return _substitute_plain(*_factor_plain(G, reg, 2), rhs, 2)
 
 
@@ -646,13 +655,36 @@ def _variant_resident(sched: int, srows: int, k: int, device: int) -> int:
     return resident.value
 
 
+def variant_frame(name: str, k: int) -> str:
+    """The factor frame of a ``csrc/cholesky_rank_panel.cu`` kernel at
+    order k (1 <= k <= ``VARIANT_KMAX``): "panel" (8-column panels; B5a at
+    every order, B4 and B5c past kp = ``RANK_FRAME_KPMAX``, each term
+    alone), "rank" (column or column-pair steps: B4 and B5c to kp = 128) or
+    "schur" (B5b)."""
+    if name == "cholesky_solve_schur":
+        return "schur"
+    if (name == "cholesky_solve_panel"
+            or (k + 3) // 4 * 4 > RANK_FRAME_KPMAX):
+        return "panel"
+    return "rank"
+
+
+def variant_block_systems(name: str, k: int) -> int:
+    """Systems a block of a ``csrc/cholesky_rank_panel.cu`` kernel carries
+    at order k: ``cholesky_solve_dual`` two in the rank frame (each with its
+    substitution warp), every kernel one otherwise."""
+    return 2 if (name == "cholesky_solve_dual"
+                 and variant_frame(name, k) == "rank") else 1
+
+
 def variant_resident(name: str, k: int, fcols: int = 1,
                      srows: int = 1) -> int:
     """Blocks of a ``csrc/cholesky_rank_panel.cu`` kernel at order k that
     the current card holds at once (asked once; launches nothing):
     ``cholesky_solve_rank1`` of (fcols, srows), ``cholesky_solve_panel``,
     ``cholesky_solve_schur`` of srows (k % 16 == 0) or
-    ``cholesky_solve_dual``, whose block carries two systems."""
+    ``cholesky_solve_dual``, whose block carries ``variant_block_systems``
+    systems (two to kp = 128, one past it)."""
     if name == "cholesky_solve_rank1":
         _check_schedule(fcols, srows)
         sched = fcols
@@ -954,8 +986,9 @@ def cholesky_solve_schur(G: torch.Tensor, rhs: torch.Tensor,
 
 def cholesky_solve_dual(G: torch.Tensor, rhs: torch.Tensor,
                         reg: torch.Tensor) -> torch.Tensor:
-    """The ``cholesky_solve_batched`` solve for two systems per block, their
-    rank-2 factors interleaved, with two-row substitutions; any B."""
+    """The ``cholesky_solve_batched`` solve with the rank-2 factor and
+    two-row substitutions (to kp = 128 two systems a block, their factors
+    interleaved; past it one a block in the panel frame); any B."""
     if _device_kind(G) == "cpu":
         return cholesky_solve_dual_plain(G, rhs, reg)
     return _launch_variant("cholesky_solve_dual", G, rhs, reg,
@@ -1055,7 +1088,7 @@ __all__ = ["cholesky_solve_batched", "cholesky_solve_hot",
            "multiwave_cluster",
            "hot_kernel_supported", "hot_smem_bytes", "hot_cols_cap",
            "hot_cols_auto", "latency_regime", "solve_regime",
-           "variant_resident",
+           "variant_resident", "variant_frame", "variant_block_systems",
            "forced_regime", "REGIME_KINDS", "VARIANT_KINDS", "KERNELS",
            "RANK1_SCHEDULES", "LAUNCHES", "ROUTED", "LATENCY_LAUNCHES",
            "LARGE_LAUNCHES", "reset_counts"]

@@ -3,15 +3,17 @@ at, beside their bound, plain version and the library solve.
 
     python -m recommendation_models_tpu_torch.probes.variant_latency \
         [--shapes 64:65536,64:256,128:65536] [--kernels all] [--plain] \
-        [--ptxas SRC.cu,...]
+        [--ptxas SRC.cu,...] [--save DIR] [--against DIR]
 
 For each shape ``k:B`` and each kernel instantiation (``rank1_11``,
 ``rank1_12``, ``rank1_21``: ``cholesky_solve_rank1`` with (fcols, srows);
-``panel``; ``schur_1``, ``schur_2``; ``dual``), one JSON line with
-``device_ms`` (device time per call from ``torch.profiler``, so host gaps
-do not count; null where the profiler did not record every call, as it
-drops some calls milliseconds long), ``event_ms`` (CUDA events around the
-same calls; with the stream kept full, the device time of such calls),
+``panel``; ``schur_1``, ``schur_2``; ``dual``; and B1
+``cholesky_solve_batched`` as ``batched``, the yardstick of the same
+solve), one JSON line with ``device_ms`` (device time per call from
+``torch.profiler``, so host gaps do not count; null where the profiler
+did not record every call, as it drops some calls milliseconds long),
+``event_ms`` (CUDA events around the same calls; with the stream kept
+full, the device time of such calls),
 ``max_abs_err`` and ``agrees`` (the kernel against its plain version on
 the first ``min(B, 1024)`` systems, within 5e-4·scale + 5e-4·|x|),
 ``bound_ms`` (the lower triangle of G, rhs, reg and x once over 3.35 TB/s,
@@ -19,12 +21,22 @@ or k³/3 + 2k² flops a system over 67 TFLOP/s, whichever is larger),
 ``library_ms`` and ``library_event_ms`` (``torch.linalg.cholesky`` +
 ``cholesky_solve``, read both ways), ``cluster`` (past k = 160, where the
 checkout's ``ops.cholesky`` has ``cluster_size``: the CTAs of a system's
-cluster in the one-block kernel) and, with ``--plain``, ``plain_ms`` (CUDA
-events, one call). Past k = 160 the shapes are the one-block kernels'
-(``--shapes 656:1,656:8``, at most ``block_batch(k)`` systems). Systems:
+cluster in the one-block kernel), ``blocks_per_sm`` and ``frame`` (to k =
+160, a ``csrc/cholesky_rank_panel.cu`` kernel's resident blocks an SM and
+its factor frame, ``ops.cholesky.variant_frame``: "rank", "panel" or
+"schur"; null for B1 and where the checkout has no such query) and, with
+``--plain``, ``plain_ms`` (CUDA events, one call). Any order 1 <= k <= 160
+is taken, the narrow-last-panel orders (kp % 8 == 4: 129, 147, 153) too.
+Past k = 160 the shapes are the one-block kernels' (``--shapes
+656:1,656:8``, at most ``block_batch(k)`` systems). Systems:
 at k = 128 the variant probe's (``probes.solve_variants.make_systems``,
 ridge 0.05), else grams of 48 random factor rows with a 0.1 ridge
 (``probes.solve_latency.random_systems``, seed 0).
+
+``--save DIR`` writes each solution to ``DIR``; ``--against DIR`` adds
+``bitwise_equal``, whether each solution equals the one a ``--save`` run
+wrote there (on the same inputs: their fingerprint must match), which is
+how two trees' kernels are held bit for bit against each other.
 
 ``--ptxas`` compiles each named source with ``nvcc -Xptxas -v`` (the
 build's flags) and prints, per kernel, its registers, spill bytes, static
@@ -33,8 +45,9 @@ count (``resident_by_registers``: 64 K registers per SM in 256-register
 warp granules, at most 64 warps and 32 blocks).
 
 The probe imports only ``ops.cholesky``'s public wrappers and plain
-versions, so it times another checkout's kernels when that checkout is
-first on ``PYTHONPATH``: that is how two trees are compared in one call.
+versions, so it times another checkout's kernels when run from that
+checkout's root (``python -m`` puts the working directory first on the
+path): that is how two trees are compared in one call.
 Runs only on a CUDA card.
 """
 
@@ -42,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -54,7 +68,16 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 N_CHECK = 1024
 ALL = ("rank1_11", "rank1_12", "rank1_21", "panel", "schur_1", "schur_2",
-       "dual")
+       "dual", "batched")
+# each instantiation's wrapper and residency query arguments (the
+# cholesky_rank_panel.cu kernels; B1 ``batched`` has none here)
+RESIDENCY = {"rank1_11": ("cholesky_solve_rank1", 1, 1),
+             "rank1_12": ("cholesky_solve_rank1", 1, 2),
+             "rank1_21": ("cholesky_solve_rank1", 2, 1),
+             "panel": ("cholesky_solve_panel", 1, 1),
+             "schur_1": ("cholesky_solve_schur", 1, 1),
+             "schur_2": ("cholesky_solve_schur", 1, 2),
+             "dual": ("cholesky_solve_dual", 1, 2)}
 
 
 def kernels(ch):
@@ -71,7 +94,28 @@ def kernels(ch):
             lambda G, r, g, s=s: ch.cholesky_solve_schur(G, r, g, s),
             lambda G, r, g, s=s: ch.cholesky_solve_schur_plain(G, r, g, s))
     out["dual"] = (ch.cholesky_solve_dual, ch.cholesky_solve_dual_plain)
+    out["batched"] = (ch.cholesky_solve_batched, ch.cholesky_solve_plain)
     return out
+
+
+def blocks_per_sm(ch, name, k):
+    """Resident blocks an SM of a ``csrc/cholesky_rank_panel.cu`` kernel
+    at order k (``variant_resident`` over the SM count), or None (B1, or
+    past k = 160)."""
+    if name not in RESIDENCY or k > ch.VARIANT_KMAX:
+        return None
+    wrapper, f, s = RESIDENCY[name]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return ch.variant_resident(wrapper, k, f, s) / sms
+
+
+def frame(ch, name, k):
+    """The factor frame of a ``csrc/cholesky_rank_panel.cu`` kernel at
+    order k (``ops.cholesky.variant_frame``, where the checkout has it)."""
+    fn = getattr(ch, "variant_frame", None)
+    if fn is None or name not in RESIDENCY or k > ch.VARIANT_KMAX:
+        return None
+    return fn(RESIDENCY[name][0], k)
 
 
 def bound_ms(b: int, k: int):
@@ -115,7 +159,7 @@ def agrees(x, ref):
         (err <= 5e-4 * scale + 5e-4 * ref.abs()).all())
 
 
-def run(shapes, names, plain=False):
+def run(shapes, names, plain=False, save=None, against=None):
     from recommendation_models_tpu_torch.ops import cholesky as ch
     dev = torch.device("cuda")
     table = kernels(ch)
@@ -137,15 +181,20 @@ def run(shapes, names, plain=False):
             if name.startswith("schur") and k % 16:
                 continue
             fn, pl = table[name]
-            err, ok = agrees(fn(G, rhs, reg)[:n], pl(Gc, rc, gc))
+            x = fn(G, rhs, reg)
+            err, ok = agrees(x[:n], pl(Gc, rc, gc))
+            same = saved(x, G, f"{name}_{k}_{b}", save, against)
             size = getattr(ch, "cluster_size", None)
             row = dict(kernel=name, k=k, batch=b,
                        cluster=(size(k, b) if size and k > ch.VARIANT_KMAX
                                 else None),
+                       blocks_per_sm=blocks_per_sm(ch, name, k),
+                       frame=frame(ch, name, k),
                        device_ms=device_ms(lambda: fn(G, rhs, reg), reps),
                        event_ms=time_ms(lambda: fn(G, rhs, reg), reps,
                                         warm=1),
-                       max_abs_err=err, agrees=ok, bound_ms=bms,
+                       max_abs_err=err, agrees=ok, bitwise_equal=same,
+                       bound_ms=bms,
                        bound_by=by, library_ms=lib,
                        library_event_ms=lib_ev)
             if plain:
@@ -155,6 +204,24 @@ def run(shapes, names, plain=False):
         del G, rhs, reg
         torch.cuda.empty_cache()
     return rows
+
+
+def saved(x, G, tag, save, against):
+    """With ``save``, write the solution (and a fingerprint of its inputs)
+    to ``save/<tag>.pt``; with ``against``, whether the solution equals the
+    one saved there bit for bit (None without it). The saved inputs'
+    fingerprint must match, or the comparison is refused."""
+    finger = torch.stack([G.sum(), G[-1].sum(), G[0, -1].sum()]).cpu()
+    if save:
+        os.makedirs(save, exist_ok=True)
+        torch.save(dict(x=x.cpu(), finger=finger),
+                   os.path.join(save, f"{tag}.pt"))
+    if not against:
+        return None
+    ref = torch.load(os.path.join(against, f"{tag}.pt"))
+    if not torch.equal(ref["finger"], finger):
+        raise RuntimeError(f"{tag}: the saved run had other inputs")
+    return bool(torch.equal(ref["x"], x.cpu()))
 
 
 def resident_by_registers(regs: int, threads: int) -> int:
@@ -182,8 +249,9 @@ def parse_ptxas(log: str):
     template argument gives the thread count (``ILi<n>E``), the blocks per
     SM the registers allow. A kernel whose launch bound adds its
     substitution warps to that count (the rank/panel kernels: n + 32
-    threads; n + 64 for the dual schedule, ``SCHED`` 32, its fourth template
-    argument) is read so, and the one-block kernels
+    threads, the panel frame of the rank schedules past kp = 128, ``SCHED``
+    64, too; n + 64 for the dual schedule to kp = 128, ``SCHED`` 32, its
+    fourth template argument) is read so, and the one-block kernels
     (``cluster_solve_kernel<SCHED, SROWS, TWO_G>``, and the earlier
     ``variant_large_kernel<SCHED, SROWS>``), whose template arguments are
     their schedule, at their 256 threads."""
@@ -228,6 +296,10 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", default="all")
     ap.add_argument("--plain", action="store_true",
                     help="also time the plain versions (slow)")
+    ap.add_argument("--save", default=None,
+                    help="directory to save each solution in")
+    ap.add_argument("--against", default=None,
+                    help="directory of a --save run to compare bitwise")
     ap.add_argument("--ptxas", default="",
                     help="comma list of CUDA sources to report")
     args = ap.parse_args(argv)
@@ -245,7 +317,7 @@ def main(argv=None) -> int:
         raise SystemExit(f"unknown kernels {unknown}; known: {ALL}")
     shapes = [tuple(int(v) for v in s.split(":"))
               for s in args.shapes.split(",")]
-    rows = run(shapes, names, args.plain)
+    rows = run(shapes, names, args.plain, args.save, args.against)
     return 0 if all(r["agrees"] for r in rows) else 1
 
 

@@ -123,6 +123,46 @@ def test_plain_versions_at_ragged_orders(rng, plain, args):
         _close(x, _exact(G, rhs, reg))
 
 
+@pytest.mark.parametrize("plain,args", [
+    (pchol.cholesky_solve_rank1_plain, (1, 1)),
+    (pchol.cholesky_solve_rank1_plain, (1, 2)),
+    (pchol.cholesky_solve_rank1_plain, (2, 1)),
+    (pchol.cholesky_solve_dual_plain, ()),
+])
+def test_plain_versions_at_narrow_last_panel_orders(rng, plain, args):
+    """Past kp = 128 the B4 and B5c kernels factor in 8-column panels, and
+    at k = 129, 147 and 153 (kp % 8 == 4) their last panel is four columns
+    wide: the plain versions there against f64 np.linalg.solve. The
+    reference's ``_cholesky_solve_t`` gives NaN or drops columns at
+    k % 8 != 0, so it is not the yardstick at these orders."""
+    for k in (129, 147, 153):
+        b = 4
+        A = rng.standard_normal((b, k, k)).astype(np.float32) / np.sqrt(k)
+        G = A @ A.transpose(0, 2, 1) + 0.5 * np.eye(k, dtype=np.float32)
+        rhs = rng.standard_normal((b, k)).astype(np.float32)
+        reg = rng.uniform(0.05, 0.2, b).astype(np.float32)
+        x = plain(_t(G), _t(rhs), _t(reg), *args).numpy()
+        _close(x, _exact(G, rhs, reg))
+
+
+@pytest.mark.parametrize("k", [7, 64, 129, 153])
+def test_rank_schedules_take_their_terms_in_one_order(rng, k):
+    """B4's three forms and B5c give each element its factor terms and its
+    substitution terms in the same order, each alone: their plain versions
+    agree bit for bit. (Past kp = 128 the kernels share their code on this
+    ground: csrc/cholesky_rank_panel.cu's panel frame.)"""
+    b = 6
+    A = rng.standard_normal((b, k, k)).astype(np.float32) / np.sqrt(k)
+    G = _t(A @ A.transpose(0, 2, 1) + 0.5 * np.eye(k, dtype=np.float32))
+    rhs = _t(rng.standard_normal((b, k)).astype(np.float32))
+    reg = _t(rng.uniform(0.05, 0.2, b).astype(np.float32))
+    x = pchol.cholesky_solve_rank1_plain(G, rhs, reg, 1, 1)
+    for args in ((1, 2), (2, 1)):
+        assert torch.equal(
+            pchol.cholesky_solve_rank1_plain(G, rhs, reg, *args), x), args
+    assert torch.equal(pchol.cholesky_solve_dual_plain(G, rhs, reg), x)
+
+
 @pytest.mark.parametrize("solver", ["pallas", "xla", "lu"])
 def test_solve_spd_t_two_operand_matches_reference(rng, solver):
     b, k = 48, 16

@@ -49,6 +49,17 @@ def test_parse_ptxas_counts_the_dual_kernels_two_warps():
                                                                        224)
 
 
+def test_parse_ptxas_reads_the_panel_frame_of_the_rank_schedules():
+    """Past kp = 128 B4 and B5c run the panel frame with every term alone
+    (``ALONE``, schedule code 64): one system and one substitution warp a
+    block, <224, 4> factor threads, so 256 threads, the dual's too."""
+    log = LOG.replace("ILi160ELi1ELi3ELi1ELi1E", "ILi224ELi4ELi5ELi64ELi2E")
+    rows = vl.parse_ptxas(log)
+    assert rows[0]["threads"] == 256
+    assert rows[0]["resident_by_registers"] == vl.resident_by_registers(48,
+                                                                       256)
+
+
 def test_parse_ptxas_reads_the_one_block_variant_kernels():
     """``clu::cluster_solve_kernel<SCHED, SROWS, TWO_G>`` (csrc/
     cholesky_cluster.cuh, instantiated in cholesky_large_variants.cu and

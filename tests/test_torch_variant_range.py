@@ -193,6 +193,25 @@ def test_variant_routing_matches_pallas_supported(monkeypatch):
         "cholesky_solve_dual": n_routed}
 
 
+@pytest.mark.parametrize("k,frame,dual_systems", [
+    (64, "rank", 2), (128, "rank", 2), (129, "panel", 1), (132, "panel", 1),
+    (136, "panel", 1), (160, "panel", 1)])
+def test_frame_and_dual_systems_a_block_by_order(k, frame, dual_systems):
+    """``variant_frame`` and ``variant_block_systems`` mirror csrc/
+    cholesky_rank_panel.cu: B4 and B5c take the rank frame to kp = 128 (the
+    dual's block two systems) and the panel frame past it (one system a
+    block); B5a is a panel frame and B5b a Schur frame at every order."""
+    for name in ("cholesky_solve_rank1", "cholesky_solve_dual"):
+        assert pchol.variant_frame(name, k) == frame
+    assert pchol.variant_frame("cholesky_solve_panel", k) == "panel"
+    assert pchol.variant_frame("cholesky_solve_schur", k) == "schur"
+    assert pchol.variant_block_systems("cholesky_solve_dual", k) == \
+        dual_systems
+    for name in ("cholesky_solve_rank1", "cholesky_solve_panel",
+                 "cholesky_solve_schur"):
+        assert pchol.variant_block_systems(name, k) == 1
+
+
 # ------------------------------------------- the public entries' contract
 
 def _queue3_systems(b, k):
@@ -233,6 +252,7 @@ def test_public_entries_solve_shapes_the_reference_refuses(entry, b, k,
 # ------------------------------------------------------------ on the card
 
 WIDE = (136, 157, 160)            # past the old cap, any batch
+WIDE_NARROW = (129, 153)          # B4 and B5c: a four-column last panel
 WIDE_SCHUR = (144, 160)
 ONE_BLOCK = (161, 168, 256, 512, 656)
 ONE_BLOCK_SCHUR = (176, 256, 512, 656)
@@ -259,7 +279,9 @@ def _systems_on(dev, b, k, seed):
 
 def _batches(label, k):
     if k <= pchol.VARIANT_KMAX:
-        return (1, 2, 37, 4_096) if label == "dual" else (1, 37, 4_096)
+        # dual: an odd B past one wave too
+        return ((1, 2, 37, 4_096, 4_097) if label == "dual"
+                else (1, 37, 4_096))
     bb = pchol.block_batch(k)
     return (1, 3, bb - 1, bb) if label == "dual" else (1, bb)
 
@@ -267,8 +289,10 @@ def _batches(label, k):
 @pytest.mark.gpu
 @pytest.mark.parametrize("label", list(KERNELS))
 def test_cuda_variants_over_the_reference_range(label):
-    """Each instantiation on the card, at k = 136, 157, 160 (Schur 144,
-    160) and B in {1, 37, 4096} (dual also 2), and at the one-block orders
+    """Each instantiation on the card, at k = 136, 157, 160 (B4 and B5c
+    also 129 and 153, whose last panel is four columns wide; Schur 144,
+    160) and B in {1, 37, 4096} (dual also 2 and 4,097), and at the
+    one-block orders
     k = 161, 168, 256, 512, 656 (Schur 176, 256, 512, 656) at B = 1 and
     ``block_batch(k)`` (dual also at an odd B), and ``block_batch(k)``
     systems at k = 168, 256, 512, 656 (Schur 176, 256, 512, 656) in more
@@ -279,7 +303,8 @@ def test_cuda_variants_over_the_reference_range(label):
     the first one-block order is routed and counted."""
     dev = _card()
     name, fn, plain = KERNELS[label]
-    orders = (_orders(label, WIDE, WIDE_SCHUR)
+    narrow = () if label in SCHUR or label == "panel" else WIDE_NARROW
+    orders = (tuple(sorted(_orders(label, WIDE, WIDE_SCHUR) + narrow))
               + _orders(label, ONE_BLOCK, ONE_BLOCK_SCHUR))
     for k in orders:
         for b in _batches(label, k):
@@ -318,6 +343,21 @@ def test_cuda_variants_over_the_reference_range(label):
     x = fn(G, rhs, reg)
     assert pchol.ROUTED[name] == 1 and pchol.LAUNCHES[name] == 0
     _close(x.cpu().numpy(), plain(G, rhs, reg).cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_cuda_rank_schedules_share_bits_in_the_panel_frame():
+    """Past kp = 128 B4's three forms and B5c run the panel frame with
+    every term alone, where their orders of terms coincide: on the card
+    they give the same bits, and so do their plain versions."""
+    dev = _card()
+    labels = ("rank1", "rank1_subs2", "pair_s1", "dual")
+    for k in WIDE_NARROW + WIDE:
+        G, rhs, reg = _systems_on(dev, 37, k, k)
+        assert all(pchol.variant_frame(KERNELS[n][0], k) == "panel"
+                   for n in labels)
+        xs = [KERNELS[n][1](G, rhs, reg) for n in labels]
+        assert all(torch.equal(xs[0], x) for x in xs[1:]), k
 
 
 @pytest.mark.gpu
