@@ -224,9 +224,11 @@ non-zero before the result lines are printed:
    reference's hot cap, 24 and 16) and B3 (both grams summed) at k = 136
    and 160, at 256 and 65,536 rows: each launched (nothing routed),
    against its plain version, repeated bitwise; device ms
-   (``torch.profiler``), event ms, host µs at 256 rows, the bound and
-   ``torch.linalg.cholesky`` + ``cholesky_solve`` as the library's device
-   ms. (b) The one-block kernel
+   (``torch.profiler``), event ms, host µs and plain ms at 256 rows, the
+   bound and ``torch.linalg.cholesky`` + ``cholesky_solve`` as the
+   library's device ms, and the kernel's frame and blocks an SM (B1 past kp = 128 takes the
+   panel frame of ``csrc/cholesky_rank_panel.cu`` past two waves, at k =
+   160 past one: ``ops.cholesky.solve_frame``). (b) The one-block kernel
    ``cholesky_solve_large`` (``csrc/cholesky_large.cu``, a thread-block
    cluster a system, ``ops.cholesky.cluster_size`` CTAs) at k = 168, 256,
    512 and 656, B = 1 and ``block_batch(k)`` (with two grams: 1 and the
@@ -248,12 +250,14 @@ non-zero before the result lines are printed:
    ratings (the auto policy: no hot columns, dense threshold 3,200, a
    4,096 MB gather budget, the riding SSE), 10 sweeps from the bench's warm
    start, the launch counts set to 0 just before and read just after: B1
-   launched in both regimes (``LATENCY_LAUNCHES``), nothing routed; peak
+   launched through its latency kernel (``LATENCY_LAUNCHES``) and, past one
+   wave, the panel frame of csrc/cholesky_rank_panel.cu, nothing routed; peak
    memory; the same fit with ``solver='xla'`` (history within 1e-3); on the
    fit's layouts (its layout cache) the bench's timed fit (one warm-up
    sweep, 10 timed: the epoch, history equal to the fit's), a direct RMSE
    of its factors within 1e-3 of the riding history's last, one profiled
-   sweep (device ms, idle share), the dense rows and their TFLOP a sweep;
+   sweep (device ms, B1's device ms, idle share), the dense rows and their
+   TFLOP a sweep;
    and ML-1M at rank 160 (exact SSE) within 1e-3 a sweep of the JAX
    package's f32 CPU history (``REF_ML1M_R160``). (e) The ALS quality probe
    (``probes/quality_parity.py``) at its 3 seeds: the oracle on the host,
@@ -301,7 +305,8 @@ non-zero before the result lines are printed:
    are the main path's, the sharded phase's, the multi-process phase's and
    the bench phase's five train lines (B1's also the 2-D phase's and the
    rank-160 fit's), each in ``launches_by_path``; B1, B2 and B3 have
-   ``wide_orders`` (phase 13a's numbers by k and batch), and
+   ``wide_orders`` (phase 13a's numbers by k and batch, each with its
+   kernel's ``frame`` and ``blocks_per_sm``), and
    ``cholesky_solve_large`` is at k = 656, B = 8 with ``by_order`` (phase
    13b's numbers, each with its ``cluster``), ``multiwave`` (the launch
    past one wave) and its launches from phase 13b's paths. B4, B5a, B5b
@@ -2943,12 +2948,30 @@ def wide_numbers(torch, fn, library, b, timed_host):
                                                    max(2, reps // 8)))
 
 
+def regime_blocks_per_sm(torch, dev, ch, frame, resident, k):
+    """Blocks an SM of the kernel that a launch in ``frame``
+    (``ops.cholesky.solve_frame``) takes at order k: the latency kernel's
+    ``resident`` blocks, or the panel frame's (B4 (1, 1)'s kernel,
+    ``variant_resident``), over the SM count; None for a throughput
+    kernel, whose residency its library does not report."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if frame == "latency":
+        return resident / sms
+    if frame == "panel":
+        return ch.variant_resident("cholesky_solve_rank1", k, 1, 1) / sms
+    return None
+
+
 def phase_wide_kernels(torch, dev):
     """13a: B1, B2 (C = the reference's cap, 24 and 16) and B3 (both grams
     summed) at k = 136 and 160, at 256 rows and 65,536: each against its
     plain version and repeated bitwise; device ms, event ms, host µs (256
-    rows: the enqueue does not depend on the batch), the bound and the
-    library solve's device ms. Returns {kernel: {k: {batch: numbers}}}."""
+    rows: the enqueue does not depend on the batch), the plain version's
+    ms (256 rows), the bound and the library solve's device ms, with the
+    kernel's ``frame`` (``ops.cholesky.solve_frame``: B1 past kp = 128
+    takes the panel frame of csrc/cholesky_rank_panel.cu beyond two waves,
+    and at k = 160 beyond one) and its ``blocks_per_sm``. Returns
+    {kernel: {k: {batch: numbers}}}."""
     from recommendation_models_tpu_torch.ops import cholesky as ch
     from recommendation_models_tpu_torch.probes.solve_latency import (
         hot_slab, random_systems)
@@ -2999,11 +3022,17 @@ def phase_wide_kernels(torch, dev):
                           f" B={b} (max abs err {err:.3e})")
                 check(torch.equal(x, fn(*args)),
                       f"{name} is not bitwise repeatable at k={k} B={b}")
-                lat, resident = ch.solve_regime(
+                _, resident = ch.solve_regime(
                     name, b, k, c if name == "cholesky_solve_hot" else 0)
+                frame = ch.solve_frame(name, b, k, resident)
                 nums = wide_numbers(torch, lambda: fn(*args),
                                     lambda: lib(*args), b,
                                     timed_host=b == min(WIDE_BATCHES))
+                # the plain version's ms, at the 256-row batch (a Python
+                # loop over k columns)
+                nums["plain_ms"] = (time_ms(torch, lambda: plain(*args), 1,
+                                            warm=1)
+                                    if b == min(WIDE_BATCHES) else None)
                 n_bytes, n_flops = solve_bytes(b, k), solve_flops(b, k)
                 if name == "cholesky_solve_2g":
                     n_bytes += 4.0 * b * k * (k + 1) / 2
@@ -3015,12 +3044,15 @@ def phase_wide_kernels(torch, dev):
                 bound_ms, bound_by = bound(n_bytes, n_flops)
                 nums.update(max_abs_err=err, bound_ms=bound_ms,
                             bound_by=bound_by, resident=resident,
-                            regime="latency" if lat else "throughput")
+                            frame=frame, blocks_per_sm=regime_blocks_per_sm(
+                                torch, dev, ch, frame, resident, k))
                 out[name][str(k)][str(b)] = nums
-                log(f"# 13a {name} k={k} B={b} ({nums['regime']}, resident "
+                log(f"# 13a {name} k={k} B={b} ({frame}, "
+                    f"{nums['blocks_per_sm']} blocks an SM, resident "
                     f"{resident}{f', C={c}' if 'hot' in name else ''}): "
                     f"max_abs_err={err:.3e} device_ms={nums['device_ms']} "
                     f"ms={nums['ms']:.5f} host_us={nums['host_us']} "
+                    f"plain_ms={nums['plain_ms']} "
                     f"library_device_ms={nums['library_device_ms']} "
                     f"bound_ms={bound_ms:.5f} ({bound_by})")
         del G, G2, rhs, reg, hv
@@ -3243,12 +3275,15 @@ def phase_rank160(torch, dev, coo):
     policy: no hot columns, dense threshold 3,200, growth 1.25, a 4,096 MB
     gather budget, the riding SSE), 10 sweeps from the bench's warm start,
     the launch counts set to 0 just before and read just after: B1 launched
-    in both regimes, nothing routed. The same fit with ``solver='xla'``
+    in both regimes (its latency kernel to one wave, the panel frame past
+    it), nothing routed. The same fit with ``solver='xla'``
     (history within 1e-3); on the fit's layouts (its layout cache) the
     bench's timed fit, one warm-up sweep and 10 timed (epoch, history
     equal to the fit's), a direct RMSE of its factors against the riding
-    history's last (1e-3), one profiled sweep; then ML-1M at rank 160
-    (exact SSE) against the JAX package's CPU history (1e-3 a sweep).
+    history's last (1e-3), one profiled sweep after a warm-up sweep (its
+    device ms, and B1's kernels' among them, from a trace that recorded
+    every B1 launch of its sweep); then ML-1M at rank 160 (exact SSE)
+    against the JAX package's CPU history (1e-3 a sweep).
     Returns (launches, record)."""
     import shutil as _shutil
     import numpy as np
@@ -3259,9 +3294,10 @@ def phase_rank160(torch, dev, coo):
     from recommendation_models_tpu_torch.data.synthetic import (
         synthetic_ratings)
     from recommendation_models_tpu_torch.ops import cholesky as ch
-    from recommendation_models_tpu_torch.probes import SCALES
+    from recommendation_models_tpu_torch.probes import (
+        PROFILE_TRIES, SCALES, step_rows)
     from recommendation_models_tpu_torch.probes.epoch_profile import (
-        profile_sweep, scanned_fits, time_fit, warm_start)
+        scanned_fits, time_fit, warm_start)
     from recommendation_models_tpu_torch.solver.als_sweep import masked_sse
     t_phase = time.perf_counter()
     u, i, r = coo
@@ -3313,11 +3349,37 @@ def phase_rank160(torch, dev, coo):
     direct = float(np.sqrt(max(float(masked_sse(
         U, V, fits.user_buckets, chunk=fits.cfg.chunk,
         gather_budget_mb=fits.cfg.gather_budget_mb)), 0.0) / nnz))
-    try:
-        prof = profile_sweep(fits.one, U, V, epoch_s)
-    except RuntimeError as exc:   # the profiler recorded no device time
-        log(f"# {exc}: the rank-160 sweep's device time not measured")
-        prof = {"device_ms_per_sweep": None, "idle_share": None, "top": []}
+    # one profiled sweep, traced after a warm-up sweep (a trace begun at
+    # the call loses its first kernels), taken again where its B1 rows
+    # miss one of the sweep's B1 launches
+    prof = {"device_ms_per_sweep": None, "idle_share": None, "top": []}
+    b1_rows = []
+    for _ in range(PROFILE_TRIES):
+        ch.reset_counts()
+        rows = step_rows(lambda: fits.one(U, V))
+        if not rows:
+            continue
+        # step_rows runs three sweeps and traces the last
+        per_sweep = ch.LAUNCHES["cholesky_solve_batched"] // 3
+        device_ms = sum(r[0] for r in rows) / 1e3
+        prof = {"device_ms_per_sweep": device_ms,
+                "idle_share": 1.0 - device_ms / (epoch_s * 1e3),
+                "top": [{"name": n, "ms": t / 1e3, "calls": c}
+                        for t, c, n in rows]}
+        # B1's kernels (the fit launches no other solve kernel): the
+        # latency kernel of csrc/cholesky_solve.cu and past one wave the
+        # panel frame of csrc/cholesky_rank_panel.cu
+        b1_rows = [r for r in prof["top"]
+                   if "chol_solve_kernel" in r["name"]
+                   or "rank_panel_kernel" in r["name"]]
+        recorded = sum(r["calls"] for r in b1_rows)
+        if recorded == per_sweep:
+            break
+        log(f"# 13d profile: {recorded} of the sweep's {per_sweep} B1 "
+            f"launches recorded")
+        b1_rows = []
+    # None where no profile recorded every B1 launch of its sweep
+    b1_ms = sum(r["ms"] for r in b1_rows) if b1_rows else None
     check(n_done == SWEEPS and rel_fit <= HISTORY_RTOL,
           f"the timed rank-160 fit does not reproduce ALS.fit: {rel_fit}")
     check(abs(thist[-1] - direct) <= HISTORY_RTOL * direct,
@@ -3328,6 +3390,9 @@ def phase_rank160(torch, dev, coo):
     record = dict(fit_seconds=fit_s, xla_fit_seconds=xla_s,
                   epoch_seconds=epoch_s,
                   device_ms_per_sweep=prof["device_ms_per_sweep"],
+                  b1_device_ms_per_sweep=b1_ms,
+                  b1_kernels=[(r["name"], r["ms"], r["calls"])
+                              for r in b1_rows],
                   idle_share=prof["idle_share"], top=prof["top"][:8],
                   max_memory_allocated=peak, history=hist,
                   xla_history=xhist, rel_diff_xla=rel_xla,
@@ -3352,8 +3417,8 @@ def phase_rank160(torch, dev, coo):
     log(json.dumps({"rank160": record}))
     log(f"# 13d ALS(rank={R160}).fit ML-25M: fit {fit_s:.1f}s (layouts, "
         f"cache write, upload), epoch_seconds={epoch_s:.4f} device_ms/sweep="
-        f"{prof['device_ms_per_sweep']} idle={prof['idle_share']} "
-        f"peak={peak} dense={dense} "
+        f"{prof['device_ms_per_sweep']} (B1 {b1_ms}) "
+        f"idle={prof['idle_share']} peak={peak} dense={dense} "
         f"({record['dense_tflop_per_sweep']:.3f} TFLOP a sweep) B1 "
         f"launches={launches['cholesky_solve_batched']} (latency "
         f"{latency['cholesky_solve_batched']}) routed={routed}; history "
@@ -3501,7 +3566,8 @@ def phase_variant_range(torch, dev):
     and route counts equal to what ``kernel_supported`` predicts (the
     one-block kernel, ``LARGE_LAUNCHES``, past k = 160; nothing routed);
     zero and identity systems exactly 0 at k = 160 and 656; past kp = 128
-    B4's three forms and B5c bitwise equal; a batch one past
+    B4's three forms and B5c bitwise equal, and B5b's two srows (the panel
+    frame in Schur's order); a batch one past
     the block at k = 168 (Schur 176) routed and counted; ``block_batch(k)``
     systems there past one wave of clusters (``multiwave_cluster``),
     bitwise equal to the rule's launch. (2) Times: at k =
@@ -3581,6 +3647,12 @@ def phase_variant_range(torch, dev):
                   if name in VARIANT_NARROW_KINDS]
             check(all(torch.equal(xs[0], x) for x in xs[1:]),
                   f"B4's forms and B5c differ bitwise at k={k}")
+        if (k <= ch.VARIANT_KMAX and k % 16 == 0
+                and ch.variant_frame("cholesky_solve_schur", k) == "panel"):
+            # B5b in the panel frame: a two-row round's arithmetic is two
+            # one-row rounds', so both srows give one result
+            xs = [ch.cholesky_solve_schur(G, rhs, reg, s) for s in (1, 2)]
+            check(torch.equal(*xs), f"B5b's srows differ bitwise at k={k}")
         del G, rhs, reg
     for label, name, fn, plain in insts:
         k = variant_orders(name, (168,))[0]

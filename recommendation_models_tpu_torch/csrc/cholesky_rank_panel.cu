@@ -14,6 +14,9 @@
 //       _factor_body_schur :429), k % 16 == 0
 //   cholesky_solve_dual                <- _cholesky_solve_kernel_dual (:675;
 //       _factor_body_pair_multi :554, _substitutions_pair_multi :605)
+//   cholesky_solve_batched_panel       <- _cholesky_solve_kernel_pair (:226)
+//       past kp = 128, where its batches beyond the latency kernel take
+//       this source's panel frame (csrc/cholesky_solve.cu has the rest)
 //
 // Contract (as csrc/cholesky_solve.cu): f32 throughout, no TF32 and no
 // tensor cores; the ridge is added on load (A = G + reg_b I); pivots are
@@ -86,9 +89,10 @@
 //   tiles. L reaches the packed L once. Not built: a lookahead that starts
 //   the next panel's diagonal block during the update (its three tiles have
 //   three owners, so it needs a barrier of its own).
-// - Schur (B5b): the old kernel ran its three phases in turn, with a block
-//   barrier between phase 1 (rank-2 steps over [0, h), h = k / 2, left
-//   tiles only) and phase 2 (A22 -= L21 L21^T in groups of 8 columns),
+// - Schur (B5b) to kp = 128: the old kernel ran its three phases in turn,
+//   with a block barrier between phase 1 (rank-2 steps over [0, h), h = k
+//   / 2, left tiles only) and phase 2 (A22 -= L21 L21^T in groups of 8
+//   columns),
 //   and phase 2 ran on A22's tiles alone, a quarter of the block, while
 //   the rest waited. Here phase 2 rides phase 1: after step j's barrier
 //   L's columns < j are complete in the slot, so A22's owners apply group
@@ -141,6 +145,29 @@
 //   (2,1) and B5c keep their old bits (the rank-2 step took the same
 //   terms, rounded the same way); B4 (1,1) and (1,2) now round each term
 //   as L_ip L_lp, where the rank-1 step formed (A_ip / L_pp^2) A_lp.
+// - Past kp = 128 B5b runs the panel frame too (SCHUR_PANEL), in Schur's
+//   order of terms. In the rank frame it took 80 rank-2 step barriers a
+//   system at kp = 160, one block an SM with nothing to hide them, and
+//   kept its groups' sums: 25.2-29.4 ms at 65,536 rows and k = 144 / 160
+//   on an H100, where B5a took 14.4-16.7. Here h = k / 2 is a multiple of
+//   8, so each panel left of h holds exactly the columns of one of
+//   Schur's groups: its trailing update takes each term alone on the
+//   tiles left of h (phase 1's rank-2 steps, which skip A22) and the
+//   group's sum on A22's tiles (the grouped update B5a takes everywhere,
+//   as schur_group summed it), right after the panel's own barrier, where
+//   the steps' frame had to wait a step for a group; the panels from h on
+//   take each term alone (phase 3). Each element takes the same terms in
+//   the same order, rounded alike, so the bits are the rank frame's. Every
+//   factor thread takes part in every panel's barriers, so A22's owners
+//   need no exit rule, and a panel's buffer is not rewritten before every
+//   thread has passed the next panel's first barrier, which a thread
+//   reaches only after its group. The two-row rounds take selects.
+// - Past kp = 128 B1 (cholesky_solve_batched) takes this source's one-row
+//   panel frame at the batches that ops/cholesky.py::solve_frame gives
+//   it (cholesky_solve_batched_panel); its old throughput kernel there
+//   (csrc/cholesky_solve.cu, one barrier a column, 160 a system at kp =
+//   160) took 17.8 / 25.5 ms at 65,536 rows and k = 136 / 160. Its plain
+//   version is B4's (1, 1), which has the same bits in this frame.
 //
 // The factors' arithmetic is the old kernels': the rank-1 and rank-2 steps
 // of the reference's column schedules (to kp = 128); the panel's column jj
@@ -163,15 +190,16 @@ using chol::pick4;
 
 constexpr int PW = 8;                 // panel width; the Schur groups' too
 // the factor schedules; RANK1 .. DUAL are also the kernels' codes in
-// cholesky_rank_panel_resident. ALONE is no export's: it is the frame that
-// RANK1, PAIR and DUAL take past kp = 128 (frame_config 3), the panel
-// factor with every term alone (see the header).
+// cholesky_rank_panel_resident. ALONE and SCHUR_PANEL are no export's:
+// they are the frames that RANK1, PAIR and DUAL, and SCHUR, take past kp =
+// 128 (frame_config 3), the panel factor with every term alone, and with
+// Schur's grouped A22 update (see the header).
 enum Sched { RANK1 = 1, PAIR = 2, PANEL = 8, SCHUR = 16, DUAL = 32,
-             ALONE = 64 };
+             ALONE = 64, SCHUR_PANEL = 128 };
 
 // the schedules that factor in panels (factor_panel)
 __host__ __device__ constexpr bool panel_frame(int sched) {
-    return sched == PANEL || sched == ALONE;
+    return sched == PANEL || sched == ALONE || sched == SCHUR_PANEL;
 }
 
 // systems a block carries (DUAL, to kp = 128: two, each with its own
@@ -289,8 +317,9 @@ __host__ __device__ inline Layout layout(int kp, int sched) {
 // spills. On an H100 at k = 128, <224, 3> (9 warps, the same cap, three
 // tiles) spilled 204 bytes, and <192, 3> (8 warps, 214 registers) ran
 // 19.0 ms against 15.6 (PERF.md). Past k = 128 every schedule is one
-// system a block at <224, 4>, and RANK1, PAIR and DUAL run the panel frame
-// (ALONE, see the header): a column or pair step a barrier there left one
+// system a block at <224, 4>, and every one runs the panel frame (RANK1,
+// PAIR and DUAL as ALONE, SCHUR as SCHUR_PANEL; see the header): a column
+// or pair step a barrier there left one
 // block an SM (shared memory allows no more) idle at 160 or 80 barriers a
 // system. (Before, DUAL took <288, 3>, 864 tiles, with three tiles of
 // each of its two systems a thread; 168 registers and 268 bytes of
@@ -314,9 +343,9 @@ int frame_config(int kp) {
 // above, one block (its shared memory allows no more at k = 128). Schur at
 // k <= 68: 3 blocks, at 96 registers without spills, ran 18% slower. Past
 // k = 128 (the NQ = 5 configurations) the target is 1 at every kp: shared
-// memory allows one block of Schur (164 KB at kp = 160) and of the panel
-// frame with two slots (124.3-169.2 KB), and a thread of four tiles is not
-// held to 128 registers (the panel frame takes 217-231). Two blocks of the
+// memory allows one block of the panel frame with two slots (124.3-169.2
+// KB), and a thread of four tiles is not held to 128 registers (the panel
+// frame takes 217-231). Two blocks of the
 // panel frame with one slot each, which fit to kp = 156, are held to 128
 // registers and spilled 368 bytes; on an H100 at 65,536 rows they ran
 // 29-32% slower at k = 129-153 with one-row substitutions (17.5 ms against
@@ -619,11 +648,18 @@ __device__ __forceinline__ void schur_group(Tiles<NT>& s, const float* L,
 // The rank-8 panel factor (see the header). The panel goes to one of two
 // buffers by panel parity (a panel's publish must not overwrite the last
 // panel's while slower threads still update from it), column-major: column
-// c of the panel at R + c ps, row i at [i].
-template <int NTH, int NT, bool ALONE_TERMS>
+// c of the panel at R + c ps, row i at [i]. SCHED is the order of the
+// trailing update's terms: PANEL sums a panel's eight terms and subtracts
+// the sum, ALONE subtracts each term in turn, and SCHUR_PANEL (k % 16 ==
+// 0, h = k / 2 = 4 ht) takes Schur's order: a panel left of h updates the
+// tiles left of h term by term and A22's tiles (tl >= ht, untouched by
+// the panels before) by its grouped sum, the group of L's columns j0 ..
+// j0 + 7 that the reference defers to its phase 2; a panel from h on
+// updates term by term.
+template <int NTH, int NT, int SCHED>
 __device__ __forceinline__ void factor_panel(Tiles<NT>& s, const Out& o,
                                              float* work, int ps, int tid) {
-    const int kp = o.kp;
+    const int kp = o.kp, h = kp >> 1, ht = h >> 2;
     for (int j0 = 0; j0 < kp; j0 += PW) {
         float* R = work + ((j0 / PW) & 1) * PW * ps;
         // a panel narrower than PW (kp % 8 == 4) is the last; its missing
@@ -700,7 +736,10 @@ __device__ __forceinline__ void factor_panel(Tiles<NT>& s, const Out& o,
         for (int n = 0; n < NT; ++n) {
             if (!s.live[n] || s.tl[n] * 4 < j0 + PW) continue;
             const int i0 = s.ti[n] * 4, l0 = s.tl[n] * 4;
-            if constexpr (ALONE_TERMS) {
+            const bool grouped = SCHED == PANEL
+                                 || (SCHED == SCHUR_PANEL && j0 < h
+                                     && s.tl[n] >= ht);
+            if (!grouped) {
                 // each of the eight terms subtracted in turn, in p order
 #pragma unroll
                 for (int p = 0; p < PW; ++p) {
@@ -921,7 +960,8 @@ rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
             float* slot = smem + q.slot0 + (s * NS + w) * q.slot_floats;
             bar_sync(BAR_FULL + s, HAND);
             if (NS == 1 || b < B)
-                substitute<SROWS, NQ, SCHED == ALONE>(
+                substitute<SROWS, NQ,
+                           SCHED == ALONE || SCHED == SCHUR_PANEL>(
                     slot, slot + q.lsz + kp, slot + q.lsz,
                     out + (size_t)b * k, k, lane);
             // the factor threads wait for the slot only if they use it again
@@ -994,8 +1034,7 @@ rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
         const int bs = q.ps, bar = s ? BAR_FACTOR_ODD : BAR_FACTOR;
         float* cb = work + s * NS * 4 * bs;
         if constexpr (panel_frame(SCHED)) {
-            factor_panel<NTH, NT, SCHED == ALONE>(t[0], o[0], work, q.ps,
-                                                  tid);
+            factor_panel<NTH, NT, SCHED>(t[0], o[0], work, q.ps, tid);
         } else if constexpr (SCHED == SCHUR) {
             // k % 16 == 0, so kp == k; h = k / 2 = 4 ht. Phase 1 (rank-2
             // steps over [0, h), left tiles only) carries phase 2: after
@@ -1093,9 +1132,11 @@ cudaError_t dispatch(const void* G, const void* rhs, const void* reg,
             return launch<224, 3, 4, SCHED, SROWS>(g, r, rg, o, B, k, kp,
                                                    vec, s, resident);
         default: {
-            // past kp = 128 RANK1 and PAIR take the panel frame (ALONE)
+            // past kp = 128 RANK1 and PAIR take the panel frame (ALONE),
+            // SCHUR the panel frame in its own order (SCHUR_PANEL)
             constexpr int sched = SCHED == RANK1 || SCHED == PAIR ? ALONE
-                                                                  : SCHED;
+                                  : SCHED == SCHUR ? SCHUR_PANEL
+                                                   : SCHED;
             return launch<224, 4, 5, sched, SROWS>(g, r, rg, o, B, k, kp,
                                                    vec, s, resident);
         }
@@ -1165,6 +1206,18 @@ int cholesky_solve_schur(const void* G, const void* rhs, const void* reg,
     const int kind = kind_of(SCHUR, srows);
     if (kind < 0) return (int)cudaErrorInvalidValue;
     return (int)by_kind(kind, G, rhs, reg, out, B, k, stream, nullptr);
+}
+
+// cholesky_solve_batched's solve (B1, csrc/cholesky_solve.cu) past kp =
+// 128 at a batch that its rule gives the panel frame
+// (ops/cholesky.py::solve_frame): the factor in panels with every term
+// alone and one-row substitutions, the kernel of cholesky_solve_rank1
+// (1, 1) there (the same bits). 128 < kp, k <= 160, any B.
+int cholesky_solve_batched_panel(const void* G, const void* rhs,
+                                 const void* reg, void* out, int B, int k,
+                                 void* stream) {
+    if (frame_config((k + 3) & ~3) != 3) return (int)cudaErrorInvalidValue;
+    return (int)by_kind(0, G, rhs, reg, out, B, k, stream, nullptr);
 }
 
 // The same solve with the rank-2 factor and two-row substitutions: to

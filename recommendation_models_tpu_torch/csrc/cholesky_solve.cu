@@ -47,7 +47,11 @@
 // _hot / _2g: throughput; the same names with _lat: latency), both taking
 // any B. The caller picks one by the batch against the latency kernel's
 // resident blocks, which cholesky_solve_resident reports
-// (ops/cholesky.py::latency_regime is the rule):
+// (ops/cholesky.py::solve_frame is the rule; past kp = 128 it gives B1's
+// batches beyond two waves, or one past kp = 152, to the panel frame of
+// csrc/cholesky_rank_panel.cu, which took 0.64-0.83x this throughput
+// kernel's time there on an H100, so B1's throughput kernel is not built
+// past kp = 152):
 //
 // - Throughput (B above one wave: the 4,201-row dense block, B = 65,536):
 //   a persistent grid of resident blocks loops over systems, so barriers are
@@ -751,10 +755,17 @@ template <int NTH, int NT, bool HOT, bool TWO_G, int NQ>
 cudaError_t run(const Args& p, cudaStream_t stream, Mode mode,
                 long long* resident) {
     const int hc = HOT ? p.C : 0;
-    if (mode == THROUGHPUT)
+    // past kp = 152 (NT 4) B1's batches beyond the latency kernel take the
+    // panel frame of csrc/cholesky_rank_panel.cu
+    // (cholesky_solve_batched_panel; ops/cholesky.py::solve_frame), so its
+    // throughput kernel is not built there
+    if constexpr (!HOT && !TWO_G && NT == 4) {
+        if (mode == THROUGHPUT) return cudaErrorInvalidValue;
+    } else if (mode == THROUGHPUT) {
         return chol::launch_persistent(
             chol_solve_kernel<NTH, NT, HOT, TWO_G, false, NQ>, NTH,
             smem_bytes(p.kp, hc, NTH / 32, false), p.B, stream, p);
+    }
     const size_t smem = smem_bytes(p.kp, hc, NTH / 32, true);
     const auto kern = chol_solve_kernel<NTH, NT, HOT, TWO_G, true, NQ>;
     if (mode == LATENCY)
@@ -818,7 +829,9 @@ cudaError_t dispatch(const void* G, const void* G2, const void* rhs,
 extern "C" {
 
 // x (B, k) = (G + diag(reg))^-1 rhs for G (B, k, k), rhs (B, k), reg (B,),
-// all f32, contiguous, batch-major. 1 <= k <= 160. The throughput kernel;
+// all f32, contiguous, batch-major. 1 <= k <= 160. The throughput kernel,
+// to kp = 152 (past it B1's larger batches take the panel frame,
+// cholesky_solve_batched_panel in csrc/cholesky_rank_panel.cu);
 // cholesky_solve_batched_lat, of the same arguments, the latency kernel.
 int cholesky_solve_batched(const void* G, const void* rhs, const void* reg,
                            void* out, int B, int k, void* stream) {

@@ -44,7 +44,11 @@ Past kp = 128 ``cholesky_solve_rank1`` (every fcols, srows) and
 ``cholesky_solve_dual`` factor in 8-column panels with every term taken
 alone (``variant_frame``): the rank-1 and rank-2 schedules give each
 element its terms in the same order, so there the four give the same bits,
-as their plain versions do everywhere.
+as their plain versions do everywhere. ``cholesky_solve_schur`` takes the
+same panels there in Schur's order of terms (each A22 group rides the
+left panel that holds its columns), and ``cholesky_solve_batched`` takes
+B4 (1, 1)'s kernel (``cholesky_solve_batched_panel``) beyond its latency
+kernel's wave, or two waves up to kp = 152 (``solve_frame``).
 
 The last four take k <= 160 at any batch in ``csrc/cholesky_rank_panel.cu``
 and, past it, the reference's one-block regime (160 < kp <= 656, a batch
@@ -69,11 +73,12 @@ reg (B,), hot slab hv (B, C) bf16, hot factor rows vh (C, k) f32.
 
 ``cholesky_solve_batched``, ``cholesky_solve_hot`` and
 ``cholesky_solve_2g`` each have two kernels, one per regime, and the
-wrapper picks one per launch (``latency_regime`` is the rule): a batch of
+wrapper picks one per launch (``solve_frame`` is the rule): a batch of
 at most the latency kernel's resident blocks (one wave, as the sweep's
 256-row blocks are) is solved one system per block in 4-column panels; a
-larger one by the persistent throughput kernel. ``forced_regime`` takes
-one kernel at every batch, to measure each on the other's ground.
+larger one by the persistent throughput kernel, or for B1 past kp = 128
+mostly by the panel frame above. ``forced_regime`` takes one kernel at
+every batch, to measure each on the other's ground.
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version for CPU tensors, and raises for anything else. The routing is the
@@ -135,7 +140,12 @@ PANEL_WIDTH = 8         # the panel width and the Schur phase's group
                         # (csrc/cholesky_rank_panel.cu PW)
 RANK1_SCHEDULES = ((1, 1), (1, 2), (2, 1))   # (fcols, srows) of the kernel
 RANK_FRAME_KPMAX = 128  # csrc/cholesky_rank_panel.cu frame_config: past this
-                        # padded order B4 and B5c factor in panels
+                        # padded order B4, B5b and B5c factor in panels, and
+                        # so does B1 at most batches (solve_frame)
+B1_TWO_WAVE_KPMAX = 152  # the largest padded order at which B1 keeps its
+                         # throughput kernel for a batch of at most two
+                         # latency waves (csrc/cholesky_solve.cu's <256, 3>
+                         # tile configuration)
 
 
 def reset_counts() -> None:
@@ -275,8 +285,34 @@ def latency_regime(batch: int, resident: int) -> bool:
     launch: a batch of at most ``resident`` systems, the latency kernel's
     resident blocks on the card, fits in one wave and is solved one system
     per block by the latency kernel; a larger batch goes to the persistent
-    throughput kernel."""
+    throughput kernel (``solve_frame`` has B1's exception past kp = 128)."""
     return batch <= resident
+
+
+def solve_frame(name: str, batch: int, k: int, resident: int) -> str:
+    """The kernel a launch of ``name`` (one of ``REGIME_KINDS``) takes for
+    ``batch`` systems of order k <= ``KMAX``, given the latency kernel's
+    ``resident`` blocks on the card (``forced_regime`` aside): "latency"
+    or "throughput" by ``latency_regime``, both kernels of
+    ``csrc/cholesky_solve.cu``; except that past kp = ``RANK_FRAME_KPMAX``
+    ``cholesky_solve_batched`` (B1) takes "panel", the panel frame of
+    ``csrc/cholesky_rank_panel.cu`` (``cholesky_solve_batched_panel``, B4
+    (1, 1)'s kernel there), at every batch beyond the latency kernel's,
+    but a batch of at most two of its waves up to kp =
+    ``B1_TWO_WAVE_KPMAX``, which keeps the throughput kernel. Measured on
+    an H100 at k = 129-160 (``PERF.md``): the latency kernel took
+    0.79-0.92x the panel frame's time to one wave; at 133-256 rows the
+    throughput kernel 0.94-0.95x at k = 129-144 and 1.13-1.16x at 153 and
+    160; at 4,097 rows the panel frame 0.66-0.82x the throughput kernel's
+    time."""
+    latency = latency_regime(batch, resident)
+    if latency or name != "cholesky_solve_batched":
+        return "latency" if latency else "throughput"
+    kp = (k + 3) // 4 * 4
+    if kp <= RANK_FRAME_KPMAX or (kp <= B1_TWO_WAVE_KPMAX
+                                  and batch <= 2 * resident):
+        return "throughput"
+    return "panel"
 
 
 def hot_smem_bytes(k: int, c: int, latency: bool = False) -> int:
@@ -565,6 +601,7 @@ SOURCES = {
         "cholesky_solve_panel": [_P, _P, _P, _P, _I, _I, _P],
         "cholesky_solve_schur": [_P, _P, _P, _P, _I, _I, _I, _P],
         "cholesky_solve_dual": [_P, _P, _P, _P, _I, _I, _P],
+        "cholesky_solve_batched_panel": [_P, _P, _P, _P, _I, _I, _P],
         "cholesky_rank_panel_resident": [_I, _I, _I,
                                          ctypes.POINTER(ctypes.c_longlong)],
     },
@@ -658,15 +695,14 @@ def _variant_resident(sched: int, srows: int, k: int, device: int) -> int:
 def variant_frame(name: str, k: int) -> str:
     """The factor frame of a ``csrc/cholesky_rank_panel.cu`` kernel at
     order k (1 <= k <= ``VARIANT_KMAX``): "panel" (8-column panels; B5a at
-    every order, B4 and B5c past kp = ``RANK_FRAME_KPMAX``, each term
-    alone), "rank" (column or column-pair steps: B4 and B5c to kp = 128) or
-    "schur" (B5b)."""
-    if name == "cholesky_solve_schur":
-        return "schur"
+    every order, B4 and B5c past kp = ``RANK_FRAME_KPMAX`` with each term
+    alone, B5b there in Schur's order of terms), "rank" (column or
+    column-pair steps: B4 and B5c to kp = 128) or "schur" (B5b's rank-2
+    steps with its A22 groups riding them, to kp = 128)."""
     if (name == "cholesky_solve_panel"
             or (k + 3) // 4 * 4 > RANK_FRAME_KPMAX):
         return "panel"
-    return "rank"
+    return "schur" if name == "cholesky_solve_schur" else "rank"
 
 
 def variant_block_systems(name: str, k: int) -> int:
@@ -703,25 +739,42 @@ def variant_resident(name: str, k: int, fcols: int = 1,
 def solve_regime(name: str, batch: int, k: int, c: int = 0):
     """(latency?, resident) of a launch of ``name`` (one of
     ``REGIME_KINDS``) at (batch, k, C) on the current card: the latency
-    kernel's resident blocks, and whether ``latency_regime`` puts the batch
-    under them (``forced_regime`` aside). Launches nothing."""
+    kernel's resident blocks, and whether ``solve_frame`` gives the batch
+    the latency kernel (``forced_regime`` aside). Launches nothing."""
     resident = _resident(name, k, c, torch.cuda.current_device())
-    return latency_regime(batch, resident), resident
+    return solve_frame(name, batch, k, resident) == "latency", resident
+
+
+# the C exports of the REGIME_KINDS launches that are not in
+# csrc/cholesky_solve.cu
+EXPORT_SOURCE = {"cholesky_solve_batched_panel": "cholesky_rank_panel"}
 
 
 def _pick(name: str, batch: int, k: int, c: int, device: int) -> str:
-    """The C export a launch takes: ``name`` (throughput) or
-    ``name + "_lat"``."""
-    lat = _forced
-    if lat is None:
-        lat = latency_regime(batch, _resident(name, k, c, device))
-    return name + "_lat" if lat else name
+    """The C export a launch takes: ``name`` (throughput), ``name +
+    "_lat"``, or past kp = 128 for B1 ``cholesky_solve_batched_panel`` (of
+    ``csrc/cholesky_rank_panel.cu``, ``EXPORT_SOURCE``), by ``solve_frame``
+    or ``forced_regime``."""
+    if _forced:
+        frame = "latency"
+    elif _forced is None or (name == "cholesky_solve_batched" and
+                             (k + 3) // 4 * 4 > RANK_FRAME_KPMAX):
+        resident = _resident(name, k, c, device)
+        # forced off the latency kernel: the kernel of a batch past its wave
+        frame = solve_frame(name, batch if _forced is None
+                            else max(batch, resident + 1), k, resident)
+    else:
+        frame = "throughput"
+    return {"latency": name + "_lat", "throughput": name,
+            "panel": name + "_panel"}[frame]
 
 
 @contextlib.contextmanager
 def forced_regime(latency: bool):
     """Inside the block every launch of a ``REGIME_KINDS`` kernel takes the
-    latency (True) or the throughput (False) kernel, whatever its batch:
+    latency (True) or the throughput (False) kernel, whatever its batch
+    (False for B1 past kp = 128: the kernel ``solve_frame`` gives the batch,
+    or a batch one past the latency kernel's wave, whichever is larger):
     both take any batch, so each can be timed on the other's ground."""
     global _forced
     _forced = bool(latency)
@@ -866,8 +919,8 @@ def _launch_solve(name, source, G, rhs, reg, G2=None, ints=()):
         return out
     grams = (G.data_ptr(),) if G2 is None else (G.data_ptr(), G2.data_ptr())
     stream = _stream(dev)
-    lib = _lib(source)
     fn = _pick(name, b, k, 0, dev.index) if name in REGIME_KINDS else name
+    lib = _lib(EXPORT_SOURCE.get(fn, source))
     err = getattr(lib, fn)(*grams, rhs.data_ptr(), reg.data_ptr(),
                            out.data_ptr(), b, k, *ints, stream)
     _raise_on(err, name, lib)
@@ -1087,7 +1140,7 @@ __all__ = ["cholesky_solve_batched", "cholesky_solve_hot",
            "cluster_smem_bytes", "forced_cluster", "active_clusters",
            "multiwave_cluster",
            "hot_kernel_supported", "hot_smem_bytes", "hot_cols_cap",
-           "hot_cols_auto", "latency_regime", "solve_regime",
+           "hot_cols_auto", "latency_regime", "solve_frame", "solve_regime",
            "variant_resident", "variant_frame", "variant_block_systems",
            "forced_regime", "REGIME_KINDS", "VARIANT_KINDS", "KERNELS",
            "RANK1_SCHEDULES", "LAUNCHES", "ROUTED", "LATENCY_LAUNCHES",

@@ -10,7 +10,9 @@ For B1 ``cholesky_solve_batched`` and B2 ``cholesky_solve_hot`` (a random
 bf16 hot slab, 28% nonzero as the ML-25M main path's) at each batch, one
 JSON line with:
 
-- ``regime``: the kernel that ``latency_regime`` picks at this batch, and
+- ``regime``: the kernel that the checkout's rule picks at this batch
+  (``solve_frame``: "latency", "throughput" or, for B1 past kp = 128,
+  "panel"; ``latency_regime`` in a checkout without it), and
   ``resident``, the latency kernel's resident blocks it is picked against;
 - ``device_ms``: device time per call from ``torch.profiler`` (every device
   kernel of the window summed, over ``reps`` calls), so that the host's
@@ -25,7 +27,8 @@ JSON line with:
 - ``max_abs_err``: the kernel against its plain version on the first
   ``min(B, 4096)`` systems;
 - with ``--regimes``, ``latency_device_ms`` and ``throughput_device_ms``:
-  the device time of each regime's kernel at this batch (``forced_regime``),
+  the device time of each regime's kernel at this batch (``forced_regime``;
+  for B1 past kp = 128 the second is the panel frame's),
   both checked against the plain version, to place the crossover.
 
 Past k = 160 (``--k 168`` to ``656``) the batch wrappers take the
@@ -101,8 +104,11 @@ def measure(name, fn, plain, library, b, k, c=0, regimes=False):
     reps = reps_for(b)
     rows = device_rows(fn, reps)
     lat, resident = ch.solve_regime(name, b, k, c)
+    frame = getattr(ch, "solve_frame", None)
     row = dict(kernel=name, batch=b,
-               regime="latency" if lat else "throughput", resident=resident,
+               regime=(frame(name, b, k, resident) if frame
+                       else "latency" if lat else "throughput"),
+               resident=resident,
                device_ms=sum(r[0] for r in rows) / 1e3 / reps,
                event_ms=time_ms(fn, reps, warm=1), host_us=host_us(fn),
                library_ms=profiled_ms(library, max(2, reps // 4)),

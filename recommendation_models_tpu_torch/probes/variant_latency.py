@@ -9,11 +9,13 @@ For each shape ``k:B`` and each kernel instantiation (``rank1_11``,
 ``rank1_12``, ``rank1_21``: ``cholesky_solve_rank1`` with (fcols, srows);
 ``panel``; ``schur_1``, ``schur_2``; ``dual``; and B1
 ``cholesky_solve_batched`` as ``batched``, the yardstick of the same
-solve), one JSON line with ``device_ms`` (device time per call from
-``torch.profiler``, so host gaps do not count; null where the profiler
-did not record every call, as it drops some calls milliseconds long),
-``event_ms`` (CUDA events around the same calls; with the stream kept
-full, the device time of such calls),
+solve, and as ``batched_lat`` its latency kernel at every batch,
+``forced_regime(True)``; not in ``all``), one JSON line with
+``device_ms`` (device time per call from ``torch.profiler``, so host gaps
+do not count; null where the profiler did not record every call, as it
+drops some calls milliseconds long), ``event_ms`` (CUDA events around
+the same calls; with the stream kept full, the device time of such
+calls),
 ``max_abs_err`` and ``agrees`` (the kernel against its plain version on
 the first ``min(B, 1024)`` systems, within 5e-4·scale + 5e-4·|x|),
 ``bound_ms`` (the lower triangle of G, rhs, reg and x once over 3.35 TB/s,
@@ -24,7 +26,10 @@ checkout's ``ops.cholesky`` has ``cluster_size``: the CTAs of a system's
 cluster in the one-block kernel), ``blocks_per_sm`` and ``frame`` (to k =
 160, a ``csrc/cholesky_rank_panel.cu`` kernel's resident blocks an SM and
 its factor frame, ``ops.cholesky.variant_frame``: "rank", "panel" or
-"schur"; null for B1 and where the checkout has no such query) and, with
+"schur"; null for B1 and where the checkout has no such query), for B1
+to k = 160 ``regime`` (its kernel by the checkout's rule,
+``solve_frame``: "latency", "throughput" or "panel") and ``resident``
+(the latency kernel's resident blocks) and, with
 ``--plain``, ``plain_ms`` (CUDA events, one call). Any order 1 <= k <= 160
 is taken, the narrow-last-panel orders (kp % 8 == 4: 129, 147, 153) too.
 Past k = 160 the shapes are the one-block kernels' (``--shapes
@@ -69,6 +74,7 @@ PEAK_F32_FLOPS = 67e12
 N_CHECK = 1024
 ALL = ("rank1_11", "rank1_12", "rank1_21", "panel", "schur_1", "schur_2",
        "dual", "batched")
+KNOWN = ALL + ("batched_lat",)
 # each instantiation's wrapper and residency query arguments (the
 # cholesky_rank_panel.cu kernels; B1 ``batched`` has none here)
 RESIDENCY = {"rank1_11": ("cholesky_solve_rank1", 1, 1),
@@ -95,6 +101,11 @@ def kernels(ch):
             lambda G, r, g, s=s: ch.cholesky_solve_schur_plain(G, r, g, s))
     out["dual"] = (ch.cholesky_solve_dual, ch.cholesky_solve_dual_plain)
     out["batched"] = (ch.cholesky_solve_batched, ch.cholesky_solve_plain)
+
+    def latency(G, r, g):
+        with ch.forced_regime(True):
+            return ch.cholesky_solve_batched(G, r, g)
+    out["batched_lat"] = (latency, ch.cholesky_solve_plain)
     return out
 
 
@@ -199,6 +210,18 @@ def run(shapes, names, plain=False, save=None, against=None):
                        library_event_ms=lib_ev)
             if plain:
                 row["plain_ms"] = time_ms(lambda: pl(G, rhs, reg), 1, warm=0)
+            if name.startswith("batched") and k <= ch.KMAX:
+                # B1's kernel at this batch (the checkout's rule,
+                # ``solve_frame`` where it has one), and the latency
+                # kernel's resident blocks
+                lat, row["resident"] = ch.solve_regime(
+                    "cholesky_solve_batched", b, k)
+                rule = getattr(ch, "solve_frame", None)
+                row["regime"] = (
+                    "latency" if name == "batched_lat"
+                    else rule("cholesky_solve_batched", b, k,
+                              row["resident"]) if rule
+                    else "latency" if lat else "throughput")
             rows.append(row)
             print(json.dumps(row), flush=True)
         del G, rhs, reg
@@ -312,9 +335,9 @@ def main(argv=None) -> int:
         for row in ptxas(src):
             print(json.dumps(dict(source=src, **row)), flush=True)
     names = ALL if args.kernels == "all" else args.kernels.split(",")
-    unknown = [n for n in names if n not in ALL]
+    unknown = [n for n in names if n not in KNOWN]
     if unknown:
-        raise SystemExit(f"unknown kernels {unknown}; known: {ALL}")
+        raise SystemExit(f"unknown kernels {unknown}; known: {KNOWN}")
     shapes = [tuple(int(v) for v in s.split(":"))
               for s in args.shapes.split(",")]
     rows = run(shapes, names, args.plain, args.save, args.against)

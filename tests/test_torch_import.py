@@ -58,6 +58,7 @@ _PROBE = textwrap.dedent("""
     import recommendation_models_tpu_torch.probes.gather_rates
     import recommendation_models_tpu_torch.probes.imc
     import recommendation_models_tpu_torch.probes.multiprocess
+    import recommendation_models_tpu_torch.probes.panel_trace
     import recommendation_models_tpu_torch.probes.exchange
     import recommendation_models_tpu_torch.probes.fuzz_kernel_shapes
     import recommendation_models_tpu_torch.probes.parser

@@ -69,6 +69,72 @@ def test_kernel_supported_matches_pallas_supported(two_operand):
         assert got == want, k
 
 
+# B1's kernel by order at batches 1, r, r + 1, 2 r, 2 r + 1, 4,097 and
+# 65,536, for the latency kernel's r resident blocks (132 on an H100 at
+# k = 129-160): to kp = 128 latency or throughput; past it the throughput
+# kernel only to two waves up to kp = 152, else the panel frame
+_L, _T, _P = "latency", "throughput", "panel"
+B1_FRAMES = {
+    128: (_L, _L, _T, _T, _T, _T, _T),
+    129: (_L, _L, _T, _T, _P, _P, _P),
+    136: (_L, _L, _T, _T, _P, _P, _P),
+    144: (_L, _L, _T, _T, _P, _P, _P),
+    152: (_L, _L, _T, _T, _P, _P, _P),
+    153: (_L, _L, _P, _P, _P, _P, _P),
+    160: (_L, _L, _P, _P, _P, _P, _P),
+}
+
+
+@pytest.mark.parametrize("k", sorted(B1_FRAMES))
+@pytest.mark.parametrize("resident", [132, 264])
+def test_b1_frame_by_order_and_batch(k, resident):
+    """``solve_frame``, the one rule of the regime kernels' launches: B1
+    past kp = 128 keeps its latency kernel to one wave and its throughput
+    kernel to two up to kp = 152, and takes the panel frame of csrc/
+    cholesky_rank_panel.cu beyond; B2 and B3 keep ``latency_regime``."""
+    r = resident
+    batches = (1, r, r + 1, 2 * r, 2 * r + 1, 4_097, 65_536)
+    got = tuple(pchol.solve_frame("cholesky_solve_batched", b, k, r)
+                for b in batches)
+    assert got == B1_FRAMES[k]
+    for name in ("cholesky_solve_hot", "cholesky_solve_2g"):
+        assert tuple(pchol.solve_frame(name, b, k, r) for b in batches) == \
+            (_L, _L, _T, _T, _T, _T, _T)
+
+
+def test_b1_launch_takes_the_export_of_its_frame(monkeypatch):
+    """The export each frame names (a card's 132 resident blocks assumed),
+    and its library: the panel frame's lives in csrc/cholesky_rank_panel.cu;
+    ``forced_regime(False)`` takes the kernel of a batch past the latency
+    kernel's wave (at two waves or fewer the throughput kernel to kp =
+    152, else the panel frame)."""
+    monkeypatch.setattr(pchol, "_resident", lambda name, k, c, dev: 132)
+    pick = pchol._pick
+    assert pick("cholesky_solve_batched", 132, 160, 0, 0) == \
+        "cholesky_solve_batched_lat"
+    assert pick("cholesky_solve_batched", 264, 136, 0, 0) == \
+        "cholesky_solve_batched"
+    for b, k in ((133, 153), (265, 129), (65_536, 160)):
+        fn = pick("cholesky_solve_batched", b, k, 0, 0)
+        assert fn == "cholesky_solve_batched_panel"
+        assert pchol.EXPORT_SOURCE[fn] == "cholesky_rank_panel"
+        assert fn in pchol.SOURCES["cholesky_rank_panel"]
+    assert pick("cholesky_solve_2g", 65_536, 160, 0, 0) == \
+        "cholesky_solve_2g"
+    with pchol.forced_regime(False):
+        assert pick("cholesky_solve_batched", 1, 136, 0, 0) == \
+            "cholesky_solve_batched"
+        assert pick("cholesky_solve_batched", 265, 136, 0, 0) == \
+            "cholesky_solve_batched_panel"
+        assert pick("cholesky_solve_batched", 1, 160, 0, 0) == \
+            "cholesky_solve_batched_panel"
+        assert pick("cholesky_solve_batched", 1, 128, 0, 0) == \
+            "cholesky_solve_batched"
+    with pchol.forced_regime(True):
+        assert pick("cholesky_solve_batched", 65_536, 160, 0, 0) == \
+            "cholesky_solve_batched_lat"
+
+
 CTA_SMEM = 232_448     # an H100 CTA's largest dynamic shared memory
 H100_SMS = 132
 
@@ -370,3 +436,56 @@ def test_cuda_kernels_match_plain_versions_at_new_orders():
     _gpu_close(pchol.cholesky_solve_batched(G, rhs, reg),
                pchol.anchor_solve(G, rhs, reg))
     assert pchol.ROUTED["cholesky_solve_batched"] == 1
+
+
+def _b1_batches(resident):
+    return sorted({1, 255, 256, 257, resident - 1, resident, resident + 1,
+                   2 * resident - 1, 2 * resident, 2 * resident + 1, 4_097,
+                   65_536})
+
+
+@pytest.mark.gpu
+def test_cuda_b1_past_kp128_takes_its_frame_at_every_batch():
+    """B1 past kp = 128 on the card at k = 129, 136, 153 and 160 and B = 1,
+    255-257, the latency kernel's resident blocks +- 1, twice them +- 1,
+    4,097 and 65,536 (the first 4,096 systems compared): the kernel
+    ``solve_frame`` names, one launch counted (in ``LATENCY_LAUNCHES`` for
+    the latency kernel), against the plain version, repeated bitwise;
+    where it takes the panel frame, bitwise equal to B4 (1, 1) and (2, 1),
+    whose kernel that is; zero and identity systems solve to exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    name = "cholesky_solve_batched"
+    frames = set()
+    for k in (129, 136, 153, 160):
+        _, resident = pchol.solve_regime(name, 1, k)
+        for b in _b1_batches(resident):
+            G, rhs, reg = _gpu_systems(gen, b, k, dev)
+            frame = pchol.solve_frame(name, b, k, resident)
+            frames.add(frame)
+            pchol.reset_counts()
+            x = pchol.cholesky_solve_batched(G, rhs, reg)
+            torch.cuda.synchronize()
+            assert pchol.LAUNCHES[name] == 1 and not any(
+                pchol.ROUTED.values()), (k, b)
+            assert pchol.LATENCY_LAUNCHES[name] == (frame == "latency")
+            n = min(b, 4_096)
+            _gpu_close(x[:n], pchol.cholesky_solve_plain(G[:n], rhs[:n],
+                                                         reg[:n]))
+            assert torch.equal(x, pchol.cholesky_solve_batched(G, rhs, reg))
+            if frame == "panel":
+                for fcols in (1, 2):
+                    assert torch.equal(x, pchol.cholesky_solve_rank1(
+                        G, rhs, reg, fcols, 1)), (k, b, fcols)
+            del G, rhs, reg, x
+        z = torch.zeros(9, k, k, device=dev)
+        z[4:] = torch.eye(k, device=dev)
+        for b in (9, resident + 1, 2 * resident + 1):
+            zb = z.repeat(-(-b // 9), 1, 1)[:b].contiguous()
+            out = pchol.cholesky_solve_batched(
+                zb, torch.zeros(b, k, device=dev), torch.zeros(b, device=dev))
+            assert torch.equal(out, torch.zeros_like(out)), (k, b)
+    assert frames == {"latency", "throughput", "panel"}
+    torch.cuda.empty_cache()

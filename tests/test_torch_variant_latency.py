@@ -3,8 +3,11 @@ register counts allow, its reading of an ``nvcc -Xptxas -v`` log, and the
 bound it states beside each kernel."""
 
 import pytest
+import torch
 
 from recommendation_models_tpu_torch.probes import variant_latency as vl
+
+torch.set_num_threads(2)
 
 # the shape of ptxas's report for two kernels (trimmed)
 LOG = """\
@@ -60,6 +63,36 @@ def test_parse_ptxas_reads_the_panel_frame_of_the_rank_schedules():
                                                                        256)
 
 
+def test_parse_ptxas_reads_the_schur_panel_frame():
+    """Past kp = 128 B5b runs the panel frame in Schur's order
+    (``SCHUR_PANEL``, schedule code 128), one substitution warp a block at
+    <224, 4>, srows 1 and 2: 256 threads."""
+    for srows in (1, 2):
+        log = LOG.replace("ILi160ELi1ELi3ELi1ELi1E",
+                          f"ILi224ELi4ELi5ELi128ELi{srows}E")
+        rows = vl.parse_ptxas(log)
+        assert rows[0]["threads"] == 256
+        assert rows[0]["resident_by_registers"] == \
+            vl.resident_by_registers(48, 256)
+
+
+def test_probe_knows_each_kernel_it_times():
+    """Every name the probe takes has a kernel and a plain call, B1's
+    latency kernel forced at every batch (``batched_lat``) among them, and
+    ``all`` leaves that one out."""
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    table = vl.kernels(ch)
+    assert set(table) == set(vl.KNOWN)
+    assert "batched_lat" not in vl.ALL
+    G = torch.eye(8)[None].repeat(2, 1, 1)
+    rhs = torch.ones(2, 8)
+    reg = torch.zeros(2)
+    for name, (fn, plain) in table.items():
+        if name.startswith("schur"):
+            continue    # k % 16 == 0 only; the rest run here at k = 8
+        assert torch.equal(fn(G, rhs, reg), plain(G, rhs, reg)), name
+
+
 def test_parse_ptxas_reads_the_one_block_variant_kernels():
     """``clu::cluster_solve_kernel<SCHED, SROWS, TWO_G>`` (csrc/
     cholesky_cluster.cuh, instantiated in cholesky_large_variants.cu and
@@ -108,3 +141,27 @@ def test_device_ms_is_null_without_device_time(monkeypatch):
         raise RuntimeError("torch.profiler recorded no device time")
     monkeypatch.setattr(vl, "device_rows", no_rows)
     assert vl.device_ms(lambda: None, 3) is None
+
+
+def test_panel_trace_finds_every_place_once():
+    """``probes/panel_trace.py`` instruments csrc/cholesky_rank_panel.cu at
+    fixed places: each is in the source exactly once, and the copy gains
+    the counters and their readers."""
+    from recommendation_models_tpu_torch.ops import build
+    from recommendation_models_tpu_torch.probes import panel_trace
+    source = (build.CSRC / "cholesky_rank_panel.cu").read_text()
+    hooked = panel_trace.instrumented(source)
+    for place, _ in panel_trace._PLACES:
+        assert source.count(place) == 1, place
+    assert "panel_trace_read" in hooked and "panel_trace_clear" in hooked
+    for i in range(6):
+        assert f"PT({i});" in hooked
+    with pytest.raises(RuntimeError, match="not one"):
+        panel_trace.instrumented(source.replace("namespace {\n", ""))
+
+
+def test_panel_trace_needs_a_card(monkeypatch, capsys):
+    from recommendation_models_tpu_torch.probes import panel_trace
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert panel_trace.main([]) == 2
+    assert "needs a CUDA card" in capsys.readouterr().err

@@ -200,16 +200,70 @@ def test_frame_and_dual_systems_a_block_by_order(k, frame, dual_systems):
     """``variant_frame`` and ``variant_block_systems`` mirror csrc/
     cholesky_rank_panel.cu: B4 and B5c take the rank frame to kp = 128 (the
     dual's block two systems) and the panel frame past it (one system a
-    block); B5a is a panel frame and B5b a Schur frame at every order."""
+    block); B5a is a panel frame at every order, and B5b a Schur frame to
+    kp = 128 and a panel frame past it."""
     for name in ("cholesky_solve_rank1", "cholesky_solve_dual"):
         assert pchol.variant_frame(name, k) == frame
     assert pchol.variant_frame("cholesky_solve_panel", k) == "panel"
-    assert pchol.variant_frame("cholesky_solve_schur", k) == "schur"
+    assert pchol.variant_frame("cholesky_solve_schur", k) == (
+        "schur" if frame == "rank" else "panel")
     assert pchol.variant_block_systems("cholesky_solve_dual", k) == \
         dual_systems
     for name in ("cholesky_solve_rank1", "cholesky_solve_panel",
                  "cholesky_solve_schur"):
         assert pchol.variant_block_systems(name, k) == 1
+
+
+def _schur_in_panel_order(G, rhs, reg, srows):
+    """B5b's factor in the order csrc/cholesky_rank_panel.cu's panel frame
+    takes it past kp = 128 (``SCHUR_PANEL``), in torch: 8-column panels,
+    each factored left-looking; a panel left of h = k / 2 updates the
+    columns left of h (the rows below h too) term by term and A22 by the
+    sum of its eight terms, the group that the reference defers to its
+    phase 2; a panel from h on updates term by term. Then the plain
+    substitutions."""
+    b, k, _ = G.shape
+    h, pw = k // 2, pchol.PANEL_WIDTH
+    A = G.float().clone()
+    A.diagonal(dim1=1, dim2=2).add_(reg.float()[:, None])
+    Ld = torch.empty((b, k), dtype=torch.float32)
+    for j0 in range(0, k, pw):
+        P = A[:, j0:, j0:j0 + pw]          # a view: factored in place
+        for jj in range(pw):
+            d = P[:, jj, jj].clone()
+            for p in range(jj):
+                d -= P[:, jj, p] * P[:, jj, p]
+            inv = torch.rsqrt(torch.clamp_min(d, pchol.PIVOT_FLOOR))
+            v = P[:, jj + 1:, jj].clone()
+            for p in range(jj):
+                v -= P[:, jj + 1:, p] * P[:, jj, p][:, None]
+            P[:, jj + 1:, jj] = v * inv[:, None]
+            Ld[:, j0 + jj] = d * inv
+        r0 = j0 + pw
+        end = h if j0 < h else k           # the columns each term reaches
+        for p in range(j0, r0):
+            c = A[:, r0:, p]
+            A[:, r0:, r0:end] -= c[:, :, None] * c[:, None, :end - r0]
+        if j0 < h:
+            group = torch.zeros_like(A[:, h:, h:])
+            for p in range(j0, r0):
+                group += A[:, h:, p, None] * A[:, None, h:, p]
+            A[:, h:, h:] -= group
+    return pchol._substitute_plain(A, Ld, rhs, srows)
+
+
+@pytest.mark.parametrize("k,srows", [(k, s) for k in (48, 144, 160)
+                                     for s in (1, 2)])
+def test_schur_panel_order_is_the_plain_schur_order(k, srows):
+    """Past kp = 128 B5b's kernel factors in 8-column panels, its A22
+    groups riding the left panels: in torch that order of terms gives
+    ``cholesky_solve_schur_plain`` bit for bit (which the reference's
+    Schur variant in interpret mode holds above), since h = k / 2 is a
+    multiple of 8 and each element takes the same terms, rounded alike,
+    in the same order."""
+    G, rhs, reg = (_t(a) for a in _inputs(k, 3, k + srows))
+    assert torch.equal(_schur_in_panel_order(G, rhs, reg, srows),
+                       pchol.cholesky_solve_schur_plain(G, rhs, reg, srows))
 
 
 # ------------------------------------------- the public entries' contract
@@ -343,6 +397,43 @@ def test_cuda_variants_over_the_reference_range(label):
     x = fn(G, rhs, reg)
     assert pchol.ROUTED[name] == 1 and pchol.LAUNCHES[name] == 0
     _close(x.cpu().numpy(), plain(G, rhs, reg).cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", SCHUR)
+def test_cuda_schur_in_the_panel_frame_at_every_batch(label):
+    """B5b past kp = 128 (the panel frame in Schur's order) on the card at
+    k = 144 and 160 and B = 1, 255, 256, 257, its resident blocks and
+    that count +- 1, 4,097 and 65,536 (the first 4,096 systems compared):
+    against its plain version, repeated bitwise, one launch and nothing
+    routed, the two srows bitwise equal; zero and identity systems with
+    rhs 0 solve to exactly 0."""
+    dev = _card()
+    name, fn, plain = KERNELS[label]
+    srows = 1 if label == "schur_s1" else 2
+    for k in WIDE_SCHUR:
+        assert pchol.variant_frame(name, k) == "panel"
+        r = pchol.variant_resident(name, k, srows=srows)
+        for b in sorted({1, 255, 256, 257, r - 1, r, r + 1, 4_097, 65_536}):
+            G, rhs, reg = _systems_on(dev, b, k, 1000 * k + b)
+            pchol.reset_counts()
+            x = fn(G, rhs, reg)
+            torch.cuda.synchronize()
+            assert pchol.LAUNCHES[name] == 1 and not any(
+                pchol.ROUTED.values()), (label, k, b)
+            n = min(b, 4_096)
+            _close(x[:n].cpu().numpy(),
+                   plain(G[:n], rhs[:n], reg[:n]).cpu().numpy())
+            assert torch.equal(x, fn(G, rhs, reg)), (label, k, b)
+            if label == "schur":
+                # a two-row round's arithmetic is two one-row rounds'
+                assert torch.equal(x, KERNELS["schur_s1"][1](G, rhs, reg))
+            del G, rhs, reg, x
+        z = torch.zeros(9, k, k, device=dev)
+        z[4:] = torch.eye(k, device=dev)
+        out = fn(z, torch.zeros(9, k, device=dev), torch.zeros(9, device=dev))
+        assert torch.equal(out, torch.zeros_like(out)), (label, k)
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.gpu
