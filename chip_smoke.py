@@ -226,9 +226,14 @@ non-zero before the result lines are printed:
    against its plain version, repeated bitwise; device ms
    (``torch.profiler``), event ms, host µs and plain ms at 256 rows, the
    bound and ``torch.linalg.cholesky`` + ``cholesky_solve`` as the
-   library's device ms, and the kernel's frame and blocks an SM (B1 past kp = 128 takes the
-   panel frame of ``csrc/cholesky_rank_panel.cu`` past two waves, at k =
-   160 past one: ``ops.cholesky.solve_frame``). (b) The one-block kernel
+   library's device ms, and the kernel's frame and blocks an SM (B1, B2
+   and B3 past kp = 128 take the panel frame of
+   ``csrc/cholesky_rank_panel.cu`` past two waves, at k = 160 past one:
+   ``ops.cholesky.solve_frame``); where B3 takes it, bitwise equal to B1's
+   panel-frame kernel on the f32 sum G + G2, and where B2 takes it, with
+   an all-zero hot slab bitwise equal to that kernel on G; and B3's entry
+   ``ops.solve.solve_spd_t(Gt2=)`` at k = 160, 65,536 rows, counted (one
+   panel-frame launch), bitwise equal to the wrapper. (b) The one-block kernel
    ``cholesky_solve_large`` (``csrc/cholesky_large.cu``, a thread-block
    cluster a system, ``ops.cholesky.cluster_size`` CTAs) at k = 168, 256,
    512 and 656, B = 1 and ``block_batch(k)`` (with two grams: 1 and the
@@ -259,7 +264,15 @@ non-zero before the result lines are printed:
    sweep (device ms, B1's device ms, idle share), the dense rows and their
    TFLOP a sweep;
    and ML-1M at rank 160 (exact SSE) within 1e-3 a sweep of the JAX
-   package's f32 CPU history (``REF_ML1M_R160``). (e) The ALS quality probe
+   package's f32 CPU history (``REF_ML1M_R160``). (g, run after d)
+   ``ALS(rank=160, hot_cols=16).fit`` on the same ratings and warm start
+   (C = ``hot_cols_cap(160)``, the auto policy otherwise), 3 sweeps, the
+   counts set to 0 just before and read just after: B2 launched in its
+   panel frame (``PANEL_LAUNCHES``; its latency launches counted), nothing
+   routed; the same fit with ``solver='xla'`` on the same layout cache
+   (history within 1e-3); on those layouts one timed fit (the epoch) and
+   B2's and B1's device ms a sweep from a trace of the last of three
+   sweeps that recorded every launch of its sweep (else null). (e) The ALS quality probe
    (``probes/quality_parity.py``) at its 3 seeds: the oracle on the host,
    ``ALS`` on the card, test RMSE within max(1e-3, 0.1 x the oracle's
    band) and recall@10 / NDCG@10 within 0.01 per seed; then the IMC
@@ -689,6 +702,12 @@ SOURCE = {
     "gather_rows_sum": _CSRC + "gather.cu",
     "cholesky_solve_large": _CSRC + "cholesky_large.cu",
 }
+# B1-B3's C exports, each with its source: the throughput kernel, the
+# latency kernel and past kp = 128 the panel frame (ops.cholesky._pick)
+EXPORTS = {name: {name: SOURCE[name], name + "_lat": SOURCE[name],
+                  name + "_panel": _CSRC + "cholesky_rank_panel.cu"}
+           for name in ("cholesky_solve_batched", "cholesky_solve_hot",
+                        "cholesky_solve_2g")}
 MAIN_PATH = "ALS(rank=64).fit, ML-25M shape"
 SHARDED_PATH = (f"ShardedALSProgram(S={SHARDED_S}, allgather).make_fit on "
                 f"one card, ML-25M shape")
@@ -704,8 +723,10 @@ PATH = {
                                f"{MP_PATH}; {BENCH_PATH} {BENCH_PATH_R128}; "
                                f"ALS(rank=160).fit, ML-25M shape"),
     "cholesky_solve_hot": (f"{MAIN_PATH}; {SHARDED_PATH}; {MP_PATH}; "
-                           f"{BENCH_PATH}"),
-    "cholesky_solve_2g": "ops.solve.solve_spd_t(Gt2=), k=64, B=65,536",
+                           f"{BENCH_PATH}; ALS(rank=160, hot_cols=16).fit, "
+                           f"ML-25M shape"),
+    "cholesky_solve_2g": ("ops.solve.solve_spd_t(Gt2=), k=64 and k=160, "
+                          "B=65,536"),
     **dict.fromkeys(("cholesky_solve_rank1", "cholesky_solve_panel",
                      "cholesky_solve_schur", "cholesky_solve_dual"),
                     "probes.solve_variants at k=128, B=65,536; k=160, "
@@ -2865,6 +2886,7 @@ LARGE_KS = (168, 256, 512, 656)  # the one-block kernel's orders
 MULTIWAVE_K = 168                 # block_batch(k) systems past one wave
 FUZZ_TRIALS, FUZZ_SEED = 25, 0
 R160 = 160
+R160_HOT_SWEEPS = 3   # 13g's sweeps (B2 at rank 160 in the panel frame)
 LARGE_FIT_RANK = 256            # the estimator path of the one-block kernel
 QP_IMC_SEEDS = (0, 1, 2)
 QP_TIMEOUT = 900                # seconds a child oracle may take
@@ -2948,17 +2970,17 @@ def wide_numbers(torch, fn, library, b, timed_host):
                                                    max(2, reps // 8)))
 
 
-def regime_blocks_per_sm(torch, dev, ch, frame, resident, k):
-    """Blocks an SM of the kernel that a launch in ``frame``
-    (``ops.cholesky.solve_frame``) takes at order k: the latency kernel's
-    ``resident`` blocks, or the panel frame's (B4 (1, 1)'s kernel,
-    ``variant_resident``), over the SM count; None for a throughput
-    kernel, whose residency its library does not report."""
+def regime_blocks_per_sm(torch, dev, ch, name, frame, resident, k, c=0):
+    """Blocks an SM of the kernel of ``name`` that a launch in ``frame``
+    (``ops.cholesky.solve_frame``) takes at order k (B2 at hot width c):
+    the latency kernel's ``resident`` blocks, or the panel frame's
+    (``panel_resident``), over the SM count; None for a throughput kernel,
+    whose residency its library does not report."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if frame == "latency":
         return resident / sms
     if frame == "panel":
-        return ch.variant_resident("cholesky_solve_rank1", k, 1, 1) / sms
+        return ch.panel_resident(name, k, c) / sms
     return None
 
 
@@ -2968,11 +2990,19 @@ def phase_wide_kernels(torch, dev):
     plain version and repeated bitwise; device ms, event ms, host µs (256
     rows: the enqueue does not depend on the batch), the plain version's
     ms (256 rows), the bound and the library solve's device ms, with the
-    kernel's ``frame`` (``ops.cholesky.solve_frame``: B1 past kp = 128
-    takes the panel frame of csrc/cholesky_rank_panel.cu beyond two waves,
-    and at k = 160 beyond one) and its ``blocks_per_sm``. Returns
-    {kernel: {k: {batch: numbers}}}."""
+    kernel's ``frame`` (``ops.cholesky.solve_frame``: B1-B3 past kp = 128
+    take the panel frame of csrc/cholesky_rank_panel.cu beyond two waves,
+    and at k = 160 beyond one) and its ``blocks_per_sm``. Where B3 takes
+    the panel frame its result equals B1's panel-frame kernel (B4 (1, 1)'s
+    there) on the f32 sum G + G2, and where B2 does, its result with an
+    all-zero hot slab equals that kernel on G, bit for bit
+    (``bitwise_b1_panel``).
+    Then B3's public entry ``solve_spd_t(Gt2=)`` at k = 160, 65,536 rows,
+    counted: one panel-frame launch, bitwise equal to the wrapper's
+    result. Returns ({kernel: {k: {batch: numbers}}}, B3's launches
+    there)."""
     from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.ops.solve import solve_spd_t
     from recommendation_models_tpu_torch.probes.solve_latency import (
         hot_slab, random_systems)
     out = {n: {} for n in ch.REGIME_KINDS}
@@ -3022,9 +3052,25 @@ def phase_wide_kernels(torch, dev):
                           f" B={b} (max abs err {err:.3e})")
                 check(torch.equal(x, fn(*args)),
                       f"{name} is not bitwise repeatable at k={k} B={b}")
-                _, resident = ch.solve_regime(
-                    name, b, k, c if name == "cholesky_solve_hot" else 0)
+                hot_c = c if name == "cholesky_solve_hot" else 0
+                _, resident = ch.solve_regime(name, b, k, hot_c)
                 frame = ch.solve_frame(name, b, k, resident)
+                bitwise = None
+                if frame == "panel" and name != "cholesky_solve_batched":
+                    # B3 on G + G2, and B2 with no hot entry, are B1's
+                    # panel-frame kernel's solve, bit for bit
+                    if name == "cholesky_solve_2g":
+                        same = (args[0] + args[1], args[2], args[3])
+                        got = x
+                    else:
+                        same = args[:3]
+                        got = fn(*args[:3], torch.zeros_like(args[3]),
+                                 args[4])
+                    bitwise = torch.equal(got, ch.cholesky_solve_rank1(
+                        *same, 1, 1))
+                    check(bitwise, f"{name} at k={k} B={b} differs from "
+                                   f"B1's panel frame (bitwise)")
+                    del got, same
                 nums = wide_numbers(torch, lambda: fn(*args),
                                     lambda: lib(*args), b,
                                     timed_host=b == min(WIDE_BATCHES))
@@ -3044,10 +3090,13 @@ def phase_wide_kernels(torch, dev):
                 bound_ms, bound_by = bound(n_bytes, n_flops)
                 nums.update(max_abs_err=err, bound_ms=bound_ms,
                             bound_by=bound_by, resident=resident,
-                            frame=frame, blocks_per_sm=regime_blocks_per_sm(
-                                torch, dev, ch, frame, resident, k))
+                            frame=frame, bitwise_b1_panel=bitwise,
+                            blocks_per_sm=regime_blocks_per_sm(
+                                torch, dev, ch, name, frame, resident, k,
+                                hot_c))
                 out[name][str(k)][str(b)] = nums
-                log(f"# 13a {name} k={k} B={b} ({frame}, "
+                log(f"# 13a {name} k={k} B={b} ({frame}, bitwise to B1's "
+                    f"panel frame {bitwise}, "
                     f"{nums['blocks_per_sm']} blocks an SM, resident "
                     f"{resident}{f', C={c}' if 'hot' in name else ''}): "
                     f"max_abs_err={err:.3e} device_ms={nums['device_ms']} "
@@ -3055,10 +3104,29 @@ def phase_wide_kernels(torch, dev):
                     f"plain_ms={nums['plain_ms']} "
                     f"library_device_ms={nums['library_device_ms']} "
                     f"bound_ms={bound_ms:.5f} ({bound_by})")
+        if k == max(WIDE_KS):
+            # B3's public entry, batch-minor views as its callers hold them
+            n = max(WIDE_BATCHES)
+            torch.cuda.synchronize()
+            ch.reset_counts()
+            x = solve_spd_t(G.permute(1, 2, 0), rhs.t(), "auto", reg_vec=reg,
+                            Gt2=G2.permute(1, 2, 0)).t()
+            torch.cuda.synchronize()
+            path = dict(ch.LAUNCHES)
+            check(path["cholesky_solve_2g"] == 1
+                  and ch.PANEL_LAUNCHES["cholesky_solve_2g"] == 1
+                  and not any(ch.ROUTED.values()),
+                  f"solve_spd_t(Gt2=) at k={k} B={n} did not take B3's "
+                  f"panel frame: {path} {ch.PANEL_LAUNCHES} {ch.ROUTED}")
+            check(torch.equal(x, ch.cholesky_solve_2g(G, G2, rhs, reg)),
+                  "solve_spd_t(Gt2=) differs from cholesky_solve_2g")
+            log(f"# 13a solve_spd_t(Gt2=) k={k} B={n}: one panel-frame "
+                f"launch of B3, bitwise equal to cholesky_solve_2g")
+            del x
         del G, G2, rhs, reg, hv
         torch.cuda.empty_cache()
     log(f"# 13a: {time.perf_counter() - t0:.1f}s")
-    return out
+    return out, path["cholesky_solve_2g"]
 
 
 def phase_large_kernel(torch, dev):
@@ -3428,6 +3496,106 @@ def phase_rank160(torch, dev, coo):
     check(max(rel1) <= HISTORY_RTOL,
           f"the ML-1M rank-160 history differs from the JAX package's: "
           f"{rel1}")
+    return launches, record
+
+
+def phase_rank160_hot(torch, dev, coo):
+    """13g: ``ALS(rank=160, hot_cols=16).fit`` on phase 5's ML-25M-shaped
+    ratings and the bench's warm start (C = ``hot_cols_cap(160)``; the auto
+    policy otherwise), ``R160_HOT_SWEEPS`` sweeps, the launch counts set to
+    0 just before and read just after: B2 launched in its panel frame
+    (``PANEL_LAUNCHES``, latency launches counted), nothing routed. The
+    same fit with ``solver='xla'`` on the same layout cache (history within
+    1e-3); on those layouts one timed fit (the epoch, its history within
+    1e-3 of the fit's) and B2's and B1's device ms a sweep, from a trace of
+    the last of three sweeps that recorded every launch of its sweep (else
+    null). Returns (launches, record)."""
+    import shutil as _shutil
+    import numpy as np
+    import scipy.sparse as sp
+    from recommendation_models_tpu_torch import ALS
+    from recommendation_models_tpu_torch.data.layout import csr_arrays
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.probes import PROFILE_TRIES, SCALES
+    from recommendation_models_tpu_torch.probes.epoch_profile import (
+        scanned_fits, solve_ms_per_sweep, time_fit, warm_start)
+    t_phase = time.perf_counter()
+    u, i, r = coo
+    n_users, n_items = SCALES["ml25m"][:2]
+    nnz = r.shape[0]
+    c = ch.hot_cols_cap(R160)
+    R = sp.csr_matrix((r, (u, i)), shape=(n_users, n_items))
+    U0, V0 = warm_start(n_users, n_items, R160)
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke", "r160_hot_layouts")
+    _shutil.rmtree(cache, ignore_errors=True)
+    os.makedirs(cache)
+    prefix = os.path.join(cache, "ml25m")
+    kw = dict(rank=R160, reg=0.1, n_sweeps=R160_HOT_SWEEPS, hot_cols=c,
+              layout_cache=prefix)
+    torch.cuda.synchronize()
+    ch.reset_counts()
+    t0 = time.perf_counter()
+    m = ALS(**kw).fit(R, U0=U0, V0=V0)
+    fit_s = time.perf_counter() - t0
+    launches, routed = dict(ch.LAUNCHES), dict(ch.ROUTED)
+    latency, panel = dict(ch.LATENCY_LAUNCHES), dict(ch.PANEL_LAUNCHES)
+    hist = [float(h) for h in m.history_]
+    check(len(hist) == R160_HOT_SWEEPS and np.isfinite(m.U_).all()
+          and np.isfinite(m.V_).all(),
+          "the rank-160 hot fit ran short or is not finite")
+    check(panel["cholesky_solve_hot"] > 0,
+          f"the rank-160 hot fit did not launch B2 in its panel frame: "
+          f"{launches}, panel {panel}, latency {latency}")
+    check(not any(routed.values()), f"the rank-160 hot fit routed: {routed}")
+    x = ALS(**kw, solver="xla").fit(R, U0=U0, V0=V0)
+    xhist = [float(h) for h in x.history_]
+    rel_xla = max(abs(a - b) / b for a, b in zip(hist, xhist))
+    check(rel_xla <= HISTORY_RTOL,
+          f"the rank-160 hot history differs from solver='xla': {rel_xla}")
+    del x
+    indptr, indices, data, nu, ni = csr_arrays(R)
+    ul, il = m._build_layouts(indptr, indices, data, nu, ni,
+                              m._data_config())
+    # the hot block's width on each side (at ML-25M the user side's: the
+    # item side's heavy columns go to its dense block)
+    hot = [0 if lay.hot_ids is None else int(lay.hot_ids.shape[0])
+           for lay in (ul, il)]
+    check(c in hot, f"no hot block {c} wide: {hot}")
+    fits = scanned_fits(ul, il, nnz, dev, R160, sweeps=R160_HOT_SWEEPS)
+    epoch_s, U, V, sse_h, n_done = time_fit(fits.fit, fits.U0, fits.V0)
+    thist = [float(h) for h in np.sqrt(np.maximum(sse_h[:n_done], 0) / nnz)]
+    rel_fit = max(abs(a - b) / b for a, b in zip(thist, hist))
+    check(n_done == R160_HOT_SWEEPS and rel_fit <= HISTORY_RTOL,
+          f"the timed rank-160 hot fit does not reproduce ALS.fit: "
+          f"{rel_fit}")
+    solves = {}
+    for _ in range(PROFILE_TRIES):
+        solves = solve_ms_per_sweep(fits.one, U, V)
+        if all(v["ms"] is not None for v in solves.values()
+               if v["launches"]):
+            break
+        log(f"# 13g profile: {solves}")
+    record = dict(fit_seconds=fit_s, epoch_seconds=epoch_s, hot_cols=c,
+                  hot_widths=hot, history=hist, xla_history=xhist,
+                  rel_diff_xla=rel_xla,
+                  launches=launches, latency_launches=latency,
+                  panel_launches=panel, routed=routed,
+                  solve_device_ms_per_sweep=solves)
+    del fits, U, V, ul, il, m
+    _shutil.rmtree(cache, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(json.dumps({"rank160_hot": record}))
+    b2 = solves.get("cholesky_solve_hot", {})
+    log(f"# 13g ALS(rank={R160}, hot_cols={c}).fit ML-25M: fit {fit_s:.1f}s "
+        f"(layouts, cache write, upload), epoch_seconds={epoch_s:.4f}, B2 "
+        f"device_ms/sweep={b2.get('ms')} in {b2.get('launches')} launches "
+        f"(B1 {solves.get('cholesky_solve_batched')}); B2 launches="
+        f"{launches['cholesky_solve_hot']} (latency "
+        f"{latency['cholesky_solve_hot']}, panel "
+        f"{panel['cholesky_solve_hot']}) routed={routed}; history {hist}; "
+        f"rel diff vs xla {rel_xla:.2e}, timed fit {rel_fit:.2e}; "
+        f"{time.perf_counter() - t_phase:.1f}s")
     return launches, record
 
 
@@ -3876,7 +4044,7 @@ def main(argv) -> int:
                 launches[n] += counts[n]
         torch.cuda.empty_cache()
         t13 = time.perf_counter()
-        wide = phase_wide_kernels(torch, dev)
+        wide, b3_entry = phase_wide_kernels(torch, dev)
         by_order = phase_large_kernel(torch, dev)
         results["cholesky_solve_large"] = large = dict(
             multiwave=by_order.pop("multiwave"), by_order=by_order)
@@ -3886,16 +4054,24 @@ def main(argv) -> int:
         phase_fuzz(torch, dev)
         torch.cuda.empty_cache()
         r160_launches, _ = phase_rank160(torch, dev, coo)
-        del coo
         by_path["cholesky_solve_batched"]["rank160"] = r160_launches[
             "cholesky_solve_batched"]
         launches["cholesky_solve_batched"] += r160_launches[
             "cholesky_solve_batched"]
         torch.cuda.empty_cache()
+        hot_launches, _ = phase_rank160_hot(torch, dev, coo)
+        del coo
+        for n in MAIN_KERNELS:
+            by_path[n]["rank160_hot"] = hot_launches[n]
+            launches[n] += hot_launches[n]
+        torch.cuda.empty_cache()
         phase_quality(torch, dev, children)
     finally:
         stop_children(children)
     torch.cuda.empty_cache()
+    by_path["cholesky_solve_2g"] = {"solve_spd_t_k64": launches[
+        "cholesky_solve_2g"], "solve_spd_t_k160": b3_entry}
+    launches["cholesky_solve_2g"] += b3_entry
     variant_range, variant_paths = phase_variant_range(torch, dev)
     for n, r in variant_range.items():
         results[n]["max_abs_err_all"] = max(results[n]["max_abs_err"],
@@ -3926,6 +4102,7 @@ def main(argv) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "k": r["k"], "batch": r["batch"],
+            **({"exports": EXPORTS[name]} if name in EXPORTS else {}),
             **{f: r[f] for f in ("resident", "resident_by_instantiation",
                                  "regime_by_batch", "by_batch") if f in r},
             **({"instantiations": r["instantiations"]}

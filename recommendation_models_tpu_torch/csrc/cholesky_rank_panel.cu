@@ -17,6 +17,9 @@
 //   cholesky_solve_batched_panel       <- _cholesky_solve_kernel_pair (:226)
 //       past kp = 128, where its batches beyond the latency kernel take
 //       this source's panel frame (csrc/cholesky_solve.cu has the rest)
+//   cholesky_solve_2g_panel            <- _cholesky_solve_kernel_2g (:239)
+//   cholesky_solve_hot_panel           <- _cholesky_solve_kernel_hot (:286)
+//       past kp = 128, the same way (B3 and B2)
 //
 // Contract (as csrc/cholesky_solve.cu): f32 throughout, no TF32 and no
 // tensor cores; the ridge is added on load (A = G + reg_b I); pivots are
@@ -168,6 +171,34 @@
 //   (csrc/cholesky_solve.cu, one barrier a column, 160 a system at kp =
 //   160) took 17.8 / 25.5 ms at 65,536 rows and k = 136 / 160. Its plain
 //   version is B4's (1, 1), which has the same bits in this frame.
+// - B3 (cholesky_solve_2g_panel) and B2 (cholesky_solve_hot_panel) take
+//   B1's panel-frame kernel past kp = 128 at the batches solve_frame gives
+//   them, with what each adds on load (FUSE). Their old throughput kernels
+//   there (csrc/cholesky_solve.cu) took 20.1 / 26.3 ms (B3) and 18.8 / 46.4
+//   ms (B2) at 65,536 rows and k = 136 / 160 on an H100, where B1's panel
+//   frame took 13.4 / 16.5: one barrier a column, and 128 registers with
+//   68-448 bytes of spills; B2's block at k = 160 (vh in 116,096 bytes of
+//   shared memory) left one block an SM with nothing to hide the barriers.
+//   B3 stages G2's tiles beside G's with the same cp.async copies, one
+//   system ahead, and sums them in take (v = G, v += G2, then the ridge),
+//   so its A is the one B1's kernel loads from the f32 sum G + G2, and its
+//   result that kernel's on it, bit for bit. B2 stages vh (C x kp) once a
+//   block, before the opening barrier, keeps a system's hv row one system
+//   ahead in a register of lanes < C (C <= 24 past kp = 128: one ballot
+//   covers the row), and after take each factor warp compacts the row's
+//   nonzero entries by itself with that ballot (no barrier, so the
+//   substitution warp, which waits on FULL only, takes no part) and adds
+//   w v v^T to its live tiles and wr v to its rhs entry, entry by entry in
+//   column order, the old hot kernel's arithmetic, before the first panel.
+//   With no nonzero entry nothing is added: the result is B1's kernel's.
+//   Measured (probes/panel_trace.py, an H100, k = 160, 65,536 rows):
+//   81.1 K cycles a system for B2 and 83.3 K for B3 against B1's 77.0 K,
+//   the hot terms and the second stage in the next system's start (+3.1 K
+//   and +4.5 K) and a slower substitution warp (+1.0 K and +3.5 K). G2's
+//   tiles loaded into the tile registers after a system's hand-over (no
+//   second stage) and the hot terms taken two entries a round were no
+//   faster (83.5 K and 80.9 K cycles, 18.41 and 17.63 ms against 18.12 and
+//   17.58), so neither is built.
 //
 // The factors' arithmetic is the old kernels': the rank-1 and rank-2 steps
 // of the reference's column schedules (to kp = 128); the panel's column jj
@@ -196,6 +227,26 @@ constexpr int PW = 8;                 // panel width; the Schur groups' too
 // Schur's grouped A22 update (see the header).
 enum Sched { RANK1 = 1, PAIR = 2, PANEL = 8, SCHUR = 16, DUAL = 32,
              ALONE = 64, SCHUR_PANEL = 128 };
+
+// What a kernel adds to A = G + reg_b I on load: nothing; a second gram
+// (TWO_G, B3: A = G + G2 + reg_b I); or the hot columns' terms (HOT, B2:
+// A += sum_c wg v_c v_c^T, rhs += sum_c wr v_c). B2 and B3 take the panel
+// frame of ALONE past kp = 128 (see the header).
+enum Fuse { LOAD = 0, TWO_G = 1, HOT = 2 };
+// the widest hot block of the HOT kernel: one warp's ballot covers its row
+// (the reference's cap, hot_cols_cap(k), is at most 24 past kp = 128)
+constexpr int HOT_CMAX = 32;
+
+// The fused operands of a launch (unused by LOAD): G2 (B, k, k) f32; hv
+// (B, C) bf16 bits (0 = unobserved); vh (C, k) f32; has_alpha selects the
+// implicit weights; vec_vh: vh rows take 16-byte copies.
+struct Fused {
+    const float* G2;
+    const unsigned short* hv;
+    const float* vh;
+    int C, has_alpha, vec_vh;
+    float alpha;
+};
 
 // the schedules that factor in panels (factor_panel)
 __host__ __device__ constexpr bool panel_frame(int sched) {
@@ -282,24 +333,35 @@ __device__ __forceinline__ float rsqrt_normal(float x) {
 // 228 KB less 1 KB a block); measured, that lost (see min_blocks).
 constexpr int SMEM_MAX = 227 * 1024;   // an H100 block's dynamic bytes
 
+//
+// B3 (TWO_G) adds a second stage (G2's tiles of the next system) beside the
+// first, and B2 (HOT) vh (C x kp, zero-padded rows) after the barrier
+// counts; both are counted before the slots are: at kp = 136 (C = 24) and
+// 160 (C = 16) B3's block is 158.6 and 216.5 KiB and B2's 134.1 and 175.2
+// KiB (B1's 121.4 and 165.2), two slots each; so at every kp past 128 and
+// every C up to the reference's cap (ops/cholesky.py::panel_smem_bytes).
 struct Layout {
     int ntiles, ps, lsz;
-    int work, slot0, slot_floats, nslot, nbar, total;
+    int work, slot0, slot_floats, nslot, nbar, vh, total;
 };
 
-__host__ __device__ inline Layout layout(int kp, int sched) {
+__host__ __device__ inline Layout layout(int kp, int sched, int fuse = LOAD,
+                                         int c = 0) {
     Layout q;
     const int T = kp / 4, ns = systems(sched);
+    const int vh = fuse == HOT ? c * kp : 0;
     q.ntiles = T * (T + 1) / 2;
     q.ps = kp + 4;
     q.lsz = (tri(kp) + 3) & ~3;
-    q.work = ns * q.ntiles * 16;
+    q.work = ns * q.ntiles * 16 * (fuse == TWO_G ? 2 : 1);
     q.slot0 = q.work + (panel_frame(sched) ? 2 * PW : 8 * ns) * q.ps;
     q.slot_floats = q.lsz + 2 * kp;
     q.nslot = 2;
-    if (4 * (q.slot0 + 2 * ns * q.slot_floats + kp) > SMEM_MAX) q.nslot = 1;
+    if (4 * (q.slot0 + 2 * ns * q.slot_floats + kp + vh) > SMEM_MAX)
+        q.nslot = 1;
     q.nbar = q.slot0 + q.nslot * ns * q.slot_floats;
-    q.total = q.nbar + kp;
+    q.vh = q.nbar + kp;
+    q.total = q.vh + vh;
     return q;
 }
 
@@ -417,11 +479,15 @@ __device__ __forceinline__ void prefetch(const Tiles<NT>& s, float* stage,
 }
 
 // The staged system into the tiles: A = G + rb I, identity on the padding
-// (and G = 0 for a system that is not present: nothing was staged).
-template <int NTH, int NT>
+// (and G = 0 for a system that is not present: nothing was staged). TWO:
+// G2's tiles from stage2 summed in f32 first (v = G, v += G2, then the
+// ridge on the diagonal: the old two-operand kernel's order, so A is the
+// one a launch of the sum G + G2 loads, bit for bit).
+template <int NTH, int NT, bool TWO = false>
 __device__ __forceinline__ void take(Tiles<NT>& s, const float* stage,
                                      int ntiles, int k, float rb,
-                                     bool present, int tid) {
+                                     bool present, int tid,
+                                     const float* stage2 = nullptr) {
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
         const int t = tid + n * NTH, l0 = s.tl[n] * 4;
@@ -429,9 +495,18 @@ __device__ __forceinline__ void take(Tiles<NT>& s, const float* stage,
         for (int r = 0; r < 4; ++r) {
             const int i = s.ti[n] * 4 + r;
             float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (present && s.live[n] && i < k)
+            if (present && s.live[n] && i < k) {
                 v = *reinterpret_cast<const float4*>(
                     stage + ((size_t)r * ntiles + t) * 4);
+                if (TWO) {
+                    const float4 v2 = *reinterpret_cast<const float4*>(
+                        stage2 + ((size_t)r * ntiles + t) * 4);
+                    v.x += v2.x;
+                    v.y += v2.y;
+                    v.z += v2.z;
+                    v.w += v2.w;
+                }
+            }
             const float g[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
@@ -442,6 +517,72 @@ __device__ __forceinline__ void take(Tiles<NT>& s, const float* stage,
             }
         }
     }
+}
+
+// An hv entry (bf16 bits) as f32, exactly.
+__device__ __forceinline__ float bf16_bits(unsigned short h) {
+    return __uint_as_float((unsigned)h << 16);
+}
+
+// vh (C, k) into vh_s (C, kp), rows zero-padded past k, by all the block's
+// nthreads threads, once per persistent block (the caller's barrier
+// publishes it).
+__device__ __forceinline__ void stage_vh(float* vh_s, const Fused& f, int k,
+                                         int kp, int tid, int nthreads) {
+    const int n = f.C * kp;
+    if (f.vec_vh) {
+        // k % 4 == 0: kp == k, one 16-byte copy a chunk
+        for (int e = tid * 4; e < n; e += nthreads * 4)
+            cp_async16(vh_s + e, f.vh + e);
+        cp_async_wait_all();
+    } else {
+        for (int e = tid; e < n; e += nthreads) {
+            const int c = e / kp, i = e - c * kp;
+            vh_s[e] = i < k ? f.vh[(size_t)c * k + i] : 0.f;
+        }
+    }
+}
+
+// The hot columns' terms into the thread's tiles and rhs entry (B2), in the
+// old hot kernel's order: A += w_e v_e v_e^T over the system's nonzero
+// entries e in column order, then rhs_i += sum_e wr_e v_e[i] (summed from
+// 0, then added). h is this lane's entry of the system's hv row (lanes <
+// C; 0 past it), so one ballot gives the warp the row's nonzero columns:
+// every factor warp compacts the row by itself, and no barrier is needed.
+// W false (explicit weights): w_e = 1, no product (the same values,
+// bitwise); wr_e = h. W true: w_e = alpha h, wr_e = 1 + alpha h.
+template <int NT, bool W>
+__device__ __forceinline__ void hot_terms(Tiles<NT>& s, const float* vh_s,
+                                          int kp, float h, float alpha,
+                                          float& bi, int tid, int k) {
+    unsigned m = __ballot_sync(0xffffffffu, h != 0.f);
+    if (!m) return;
+    float acc = 0.f;
+    while (m) {   // warp-uniform
+        const int c = __ffs((int)m) - 1;
+        m &= m - 1;
+        const float hc = __shfl_sync(0xffffffffu, h, c);
+        const float w = W ? alpha * hc : 1.f;
+        const float* vc = vh_s + c * kp;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+            if (!s.live[n]) continue;
+            const float4 qi = *reinterpret_cast<const float4*>(
+                vc + s.ti[n] * 4);
+            const float4 ql = *reinterpret_cast<const float4*>(
+                vc + s.tl[n] * 4);
+            const float vi[4] = {W ? w * qi.x : qi.x, W ? w * qi.y : qi.y,
+                                 W ? w * qi.z : qi.z, W ? w * qi.w : qi.w};
+            const float vl[4] = {ql.x, ql.y, ql.z, ql.w};
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+#pragma unroll
+                for (int c4 = 0; c4 < 4; ++c4)
+                    s.a[n][r][c4] = fmaf(vi[r], vl[c4], s.a[n][r][c4]);
+        }
+        if (tid < k) acc = fmaf(W ? 1.f + alpha * hc : hc, vc[tid], acc);
+    }
+    bi += acc;
 }
 
 // Owners of column j write A[i][j] for rows i > j into buf (0 for rows
@@ -920,18 +1061,21 @@ __device__ __forceinline__ void substitute(const float* L, float* rinv,
 // NTH factor threads with NT tiles each, plus one substitution warp per
 // system (DUAL: two systems a block, b = 2 p and 2 p + 1 for the block's
 // pair p) with NQ rows a lane (kp <= 32 NQ); SCHED the factor schedule,
-// SROWS the substitutions' rows per round.
-template <int NTH, int NT, int NQ, int SCHED, int SROWS>
+// SROWS the substitutions' rows per round; FUSE what the load adds (f).
+template <int NTH, int NT, int NQ, int SCHED, int SROWS, int FUSE = LOAD>
 __global__ void __launch_bounds__(block_threads(NTH, SCHED),
                                   min_blocks(NTH, NQ, SCHED))
 rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
                   const float* __restrict__ reg, float* __restrict__ out,
-                  int B, int k, int kp, int vec) {
+                  int B, int k, int kp, int vec, const Fused f) {
     constexpr int NS = systems(SCHED);
     constexpr int HAND = block_threads(NTH, SCHED);   // FULL / EMPTY count
+    static_assert(FUSE == LOAD || (NS == 1 && panel_frame(SCHED)),
+                  "B2 and B3 take the panel frame, one system a block");
     extern __shared__ __align__(16) float smem[];
-    const Layout q = layout(kp, SCHED);
+    const Layout q = layout(kp, SCHED, FUSE, f.C);
     float* work = smem + q.work;
+    float* vh_s = smem + q.vh;
     const int tid = threadIdx.x;
     // this block's systems (pairs): p = blockIdx.x + it gridDim.x
     const int count = ((B + NS - 1) / NS - (int)blockIdx.x
@@ -947,6 +1091,7 @@ rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
             nbar[j] = 32 * n;
         }
     }
+    if constexpr (FUSE == HOT) stage_vh(vh_s, f, k, kp, tid, HAND);
     __syncthreads();
 
     if (tid >= NTH) {
@@ -987,6 +1132,11 @@ rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
     float* stage[NS];
     bool here[NS];
     float rb[NS], bi[NS];
+    // TWO_G: G2's stage, beside the first; HOT: this lane's entry of the
+    // system's hv row, one system ahead as rhs and reg are
+    float* stage2 = smem + q.ntiles * 16;
+    const int lane = tid & 31;
+    float hv = 0.f;
     int p = blockIdx.x;
 #pragma unroll
     for (int w = 0; w < NS; ++w) {
@@ -995,6 +1145,10 @@ rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
         here[w] = NS == 1 || b < B;
         if (here[w]) prefetch<NTH, NT>(t[w], stage[w], q.ntiles, G, b, k,
                                        vec, tid);
+        if constexpr (FUSE == TWO_G)
+            prefetch<NTH, NT>(t[w], stage2, q.ntiles, f.G2, b, k, vec, tid);
+        if constexpr (FUSE == HOT)
+            hv = lane < f.C ? bf16_bits(f.hv[(size_t)b * f.C + lane]) : 0.f;
         rb[w] = here[w] ? reg[b] : 1.f;
         bi[w] = here[w] && tid < k ? rhs[(size_t)b * k + tid] : 0.f;
     }
@@ -1013,7 +1167,17 @@ rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
         cp_async_wait_all();
 #pragma unroll
         for (int w = 0; w < NS; ++w) {
-            take<NTH, NT>(t[w], stage[w], q.ntiles, k, rb[w], here[w], tid);
+            take<NTH, NT, FUSE == TWO_G>(t[w], stage[w], q.ntiles, k, rb[w],
+                                         here[w], tid, stage2);
+            if constexpr (FUSE == HOT) {
+                // explicit weights are all 1: no product with them
+                if (f.has_alpha)
+                    hot_terms<NT, true>(t[w], vh_s, kp, hv, f.alpha, bi[w],
+                                        tid, k);
+                else
+                    hot_terms<NT, false>(t[w], vh_s, kp, hv, 0.f, bi[w], tid,
+                                         k);
+            }
             if (tid < k) o[w].L[q.lsz + tid] = bi[w];
         }
         if (it + 1 < count) {
@@ -1024,6 +1188,13 @@ rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
                 here[w] = NS == 1 || bn < B;
                 if (here[w]) prefetch<NTH, NT>(t[w], stage[w], q.ntiles, G,
                                                bn, k, vec, tid);
+                if constexpr (FUSE == TWO_G)
+                    prefetch<NTH, NT>(t[w], stage2, q.ntiles, f.G2, bn, k,
+                                      vec, tid);
+                if constexpr (FUSE == HOT)
+                    hv = lane < f.C
+                             ? bf16_bits(f.hv[(size_t)bn * f.C + lane])
+                             : 0.f;
                 rb[w] = here[w] ? reg[bn] : 1.f;
                 bi[w] = here[w] && tid < k ? rhs[(size_t)bn * k + tid] : 0.f;
             }
@@ -1078,18 +1249,20 @@ rank_panel_kernel(const float* __restrict__ G, const float* __restrict__ rhs,
     }
 }
 
-template <int NTH, int NT, int NQ, int SCHED, int SROWS>
+template <int NTH, int NT, int NQ, int SCHED, int SROWS, int FUSE = LOAD>
 cudaError_t launch(const float* G, const float* rhs, const float* reg,
                    float* out, int B, int k, int kp, int vec,
-                   cudaStream_t stream, long long* resident) {
-    const size_t smem = sizeof(float) * layout(kp, SCHED).total;
-    const auto kern = rank_panel_kernel<NTH, NT, NQ, SCHED, SROWS>;
+                   cudaStream_t stream, long long* resident,
+                   const Fused& f = Fused{}) {
+    const size_t smem = sizeof(float) * layout(kp, SCHED, FUSE, f.C).total;
+    const auto kern = rank_panel_kernel<NTH, NT, NQ, SCHED, SROWS, FUSE>;
     constexpr int nth = block_threads(NTH, SCHED), ns = systems(SCHED);
     if (resident)
         return chol::resident_blocks(reinterpret_cast<const void*>(kern),
                                      nth, smem, resident);
     return chol::launch_persistent(kern, nth, smem, (B + ns - 1) / ns,
-                                   stream, G, rhs, reg, out, B, k, kp, vec);
+                                   stream, G, rhs, reg, out, B, k, kp, vec,
+                                   f);
 }
 
 // Launches the kernel of (SCHED, SROWS) at order k, or with resident set
@@ -1142,6 +1315,33 @@ cudaError_t dispatch(const void* G, const void* rhs, const void* reg,
         }
         }
     }
+}
+
+// B2's or B3's solve (FUSE HOT or TWO_G) past kp = 128: the kernel of
+// cholesky_solve_rank1 (1, 1) there (ALONE, <224, 4>, one-row
+// substitutions) with the fused load; refused at kp <= 128 (the kernels of
+// csrc/cholesky_solve.cu take those orders) and for a hot block past
+// HOT_CMAX; with resident set, reports its resident blocks on the current
+// device and launches nothing.
+template <int FUSE>
+cudaError_t dispatch_fused(const void* G, Fused f, const void* rhs,
+                           const void* reg, void* out, int B, int k,
+                           void* stream, long long* resident = nullptr) {
+    if (k < 1 || k > KMAX || B < 0) return cudaErrorInvalidValue;
+    const int kp = (k + 3) & ~3;
+    if (frame_config(kp) != 3) return cudaErrorInvalidValue;
+    if (FUSE == HOT && (f.C < 1 || f.C > HOT_CMAX))
+        return cudaErrorInvalidValue;
+    if (sizeof(float) * layout(kp, ALONE, FUSE, f.C).total > SMEM_MAX)
+        return cudaErrorInvalidValue;
+    if (B == 0 && !resident) return cudaSuccess;
+    const int vec = (k % 4 == 0) && (((uintptr_t)G & 15) == 0)
+                    && (FUSE != TWO_G || ((uintptr_t)f.G2 & 15) == 0);
+    f.vec_vh = (k % 4 == 0) && (((uintptr_t)f.vh & 15) == 0);
+    return launch<224, 4, 5, ALONE, 1, FUSE>(
+        static_cast<const float*>(G), static_cast<const float*>(rhs),
+        static_cast<const float*>(reg), static_cast<float*>(out), B, k, kp,
+        vec, static_cast<cudaStream_t>(stream), resident, f);
 }
 
 // The kernels of this source, by (schedule, srows): the rank-1 schedules
@@ -1220,6 +1420,39 @@ int cholesky_solve_batched_panel(const void* G, const void* rhs,
     return (int)by_kind(0, G, rhs, reg, out, B, k, stream, nullptr);
 }
 
+// cholesky_solve_2g's solve (B3, csrc/cholesky_solve.cu), A = G + G2 +
+// diag(reg), past kp = 128 at a batch that its rule gives the panel frame:
+// B1's panel-frame kernel with G2's tiles staged beside G's and summed on
+// load, so the result is cholesky_solve_batched_panel's on the f32 sum G +
+// G2, bit for bit. 128 < kp, k <= 160, any B.
+int cholesky_solve_2g_panel(const void* G, const void* G2, const void* rhs,
+                            const void* reg, void* out, int B, int k,
+                            void* stream) {
+    Fused f{};
+    f.G2 = static_cast<const float*>(G2);
+    return (int)dispatch_fused<TWO_G>(G, f, rhs, reg, out, B, k, stream);
+}
+
+// cholesky_solve_hot's solve (B2, csrc/cholesky_solve.cu) past kp = 128 at
+// a batch that its rule gives the panel frame: B1's panel-frame kernel with
+// vh (C, k) f32 staged once a block and the hot-column terms of hv (B, C)
+// bf16 (0 = unobserved) folded into the tiles and rhs before the first
+// panel (explicit weights, or with has_alpha the implicit ones). With no
+// nonzero hv entry a system's result is cholesky_solve_batched_panel's,
+// bit for bit. 128 < kp, k <= 160, 1 <= C <= 32, any B.
+int cholesky_solve_hot_panel(const void* G, const void* rhs, const void* reg,
+                             const void* hv, const void* vh, void* out,
+                             int B, int k, int C, int has_alpha, float alpha,
+                             void* stream) {
+    Fused f{};
+    f.hv = static_cast<const unsigned short*>(hv);
+    f.vh = static_cast<const float*>(vh);
+    f.C = C;
+    f.has_alpha = has_alpha;
+    f.alpha = alpha;
+    return (int)dispatch_fused<HOT>(G, f, rhs, reg, out, B, k, stream);
+}
+
 // The same solve with the rank-2 factor and two-row substitutions: to
 // kp = 128 two systems a block, their factors interleaved (an odd B leaves
 // the last block's second system empty); past it one system a block in
@@ -1239,6 +1472,25 @@ int cholesky_rank_panel_resident(int sched, int srows, int k,
     if (kind < 0) return (int)cudaErrorInvalidValue;
     return (int)by_kind(kind, nullptr, nullptr, nullptr, nullptr, 0, k,
                         nullptr, resident);
+}
+
+// *resident = the blocks of B3's (fuse 1) or B2's (fuse 2, hot width C)
+// panel-frame kernel at order k (128 < kp, k <= 160) that the current
+// device holds at once. Launches nothing.
+int cholesky_rank_panel_fused_resident(int fuse, int k, int C,
+                                       long long* resident) {
+    Fused f{};
+    f.C = C;
+    switch (fuse) {
+    case TWO_G:
+        return (int)dispatch_fused<TWO_G>(nullptr, f, nullptr, nullptr,
+                                          nullptr, 0, k, nullptr, resident);
+    case HOT:
+        return (int)dispatch_fused<HOT>(nullptr, f, nullptr, nullptr,
+                                        nullptr, 0, k, nullptr, resident);
+    default:
+        return (int)cudaErrorInvalidValue;
+    }
 }
 
 // (cholesky_kernel_kmax and cholesky_error_string: cholesky_common.cuh)

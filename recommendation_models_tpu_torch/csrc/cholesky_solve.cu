@@ -47,11 +47,12 @@
 // _hot / _2g: throughput; the same names with _lat: latency), both taking
 // any B. The caller picks one by the batch against the latency kernel's
 // resident blocks, which cholesky_solve_resident reports
-// (ops/cholesky.py::solve_frame is the rule; past kp = 128 it gives B1's
+// (ops/cholesky.py::solve_frame is the rule; past kp = 128 it gives the
 // batches beyond two waves, or one past kp = 152, to the panel frame of
-// csrc/cholesky_rank_panel.cu, which took 0.64-0.83x this throughput
-// kernel's time there on an H100, so B1's throughput kernel is not built
-// past kp = 152):
+// csrc/cholesky_rank_panel.cu: cholesky_solve_batched_panel,
+// cholesky_solve_hot_panel and cholesky_solve_2g_panel, which took
+// 0.38-0.83x these throughput kernels' time there on an H100 past two
+// waves, so no throughput kernel is built past kp = 152):
 //
 // - Throughput (B above one wave: the 4,201-row dense block, B = 65,536):
 //   a persistent grid of resident blocks loops over systems, so barriers are
@@ -755,11 +756,11 @@ template <int NTH, int NT, bool HOT, bool TWO_G, int NQ>
 cudaError_t run(const Args& p, cudaStream_t stream, Mode mode,
                 long long* resident) {
     const int hc = HOT ? p.C : 0;
-    // past kp = 152 (NT 4) B1's batches beyond the latency kernel take the
-    // panel frame of csrc/cholesky_rank_panel.cu
-    // (cholesky_solve_batched_panel; ops/cholesky.py::solve_frame), so its
-    // throughput kernel is not built there
-    if constexpr (!HOT && !TWO_G && NT == 4) {
+    // past kp = 152 (NT 4) the batches beyond the latency kernel take the
+    // panel frame of csrc/cholesky_rank_panel.cu (cholesky_solve_batched /
+    // _hot / _2g_panel; ops/cholesky.py::solve_frame), so no throughput
+    // kernel is built there
+    if constexpr (NT == 4) {
         if (mode == THROUGHPUT) return cudaErrorInvalidValue;
     } else if (mode == THROUGHPUT) {
         return chol::launch_persistent(

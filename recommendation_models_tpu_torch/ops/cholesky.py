@@ -48,7 +48,10 @@ as their plain versions do everywhere. ``cholesky_solve_schur`` takes the
 same panels there in Schur's order of terms (each A22 group rides the
 left panel that holds its columns), and ``cholesky_solve_batched`` takes
 B4 (1, 1)'s kernel (``cholesky_solve_batched_panel``) beyond its latency
-kernel's wave, or two waves up to kp = 152 (``solve_frame``).
+kernel's wave, or two waves up to kp = 152 (``solve_frame``);
+``cholesky_solve_hot`` and ``cholesky_solve_2g`` take that kernel with the
+hot terms or the second gram on load (``cholesky_solve_hot_panel``,
+``cholesky_solve_2g_panel``) by the same rule.
 
 The last four take k <= 160 at any batch in ``csrc/cholesky_rank_panel.cu``
 and, past it, the reference's one-block regime (160 < kp <= 656, a batch
@@ -76,9 +79,9 @@ reg (B,), hot slab hv (B, C) bf16, hot factor rows vh (C, k) f32.
 wrapper picks one per launch (``solve_frame`` is the rule): a batch of
 at most the latency kernel's resident blocks (one wave, as the sweep's
 256-row blocks are) is solved one system per block in 4-column panels; a
-larger one by the persistent throughput kernel, or for B1 past kp = 128
-mostly by the panel frame above. ``forced_regime`` takes one kernel at
-every batch, to measure each on the other's ground.
+larger one by the persistent throughput kernel, or past kp = 128 mostly
+by the panel frame above. ``forced_regime`` takes one kernel at every
+batch, to measure each on the other's ground.
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version for CPU tensors, and raises for anything else. The routing is the
@@ -127,10 +130,12 @@ KERNELS = ("cholesky_solve_batched", "cholesky_solve_hot", "cholesky_solve_2g",
            "cholesky_solve_large")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 ROUTED = dict.fromkeys(KERNELS, 0)
-# the launches of LAUNCHES that took a regime kernel's latency kernel
+# the launches of LAUNCHES that took a regime kernel's latency kernel, and
+# those that took its panel frame (past kp = 128)
 LATENCY_LAUNCHES = dict.fromkeys(("cholesky_solve_batched",
                                   "cholesky_solve_hot", "cholesky_solve_2g"),
                                  0)
+PANEL_LAUNCHES = dict.fromkeys(LATENCY_LAUNCHES, 0)
 # the variant kernels, and the launches of LAUNCHES that took their
 # one-block kernel (csrc/cholesky_large_variants.cu) past kp = 160
 VARIANT_KINDS = ("cholesky_solve_rank1", "cholesky_solve_panel",
@@ -141,15 +146,18 @@ PANEL_WIDTH = 8         # the panel width and the Schur phase's group
 RANK1_SCHEDULES = ((1, 1), (1, 2), (2, 1))   # (fcols, srows) of the kernel
 RANK_FRAME_KPMAX = 128  # csrc/cholesky_rank_panel.cu frame_config: past this
                         # padded order B4, B5b and B5c factor in panels, and
-                        # so does B1 at most batches (solve_frame)
-B1_TWO_WAVE_KPMAX = 152  # the largest padded order at which B1 keeps its
-                         # throughput kernel for a batch of at most two
-                         # latency waves (csrc/cholesky_solve.cu's <256, 3>
-                         # tile configuration)
+                        # so do B1-B3 at most batches (solve_frame)
+TWO_WAVE_KPMAX = 152    # the largest padded order at which B1-B3 keep their
+                        # throughput kernels for a batch of at most two
+                        # latency waves (csrc/cholesky_solve.cu's <256, 3>
+                        # tile configuration)
+HOT_PANEL_CMAX = 32     # csrc/cholesky_rank_panel.cu HOT_CMAX: the widest hot
+                        # block of B2's panel frame (one warp's ballot)
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, ROUTED, LATENCY_LAUNCHES, LARGE_LAUNCHES):
+    for d in (LAUNCHES, ROUTED, LATENCY_LAUNCHES, PANEL_LAUNCHES,
+              LARGE_LAUNCHES):
         for key in d:
             d[key] = 0
 
@@ -295,21 +303,23 @@ def solve_frame(name: str, batch: int, k: int, resident: int) -> str:
     ``resident`` blocks on the card (``forced_regime`` aside): "latency"
     or "throughput" by ``latency_regime``, both kernels of
     ``csrc/cholesky_solve.cu``; except that past kp = ``RANK_FRAME_KPMAX``
-    ``cholesky_solve_batched`` (B1) takes "panel", the panel frame of
-    ``csrc/cholesky_rank_panel.cu`` (``cholesky_solve_batched_panel``, B4
-    (1, 1)'s kernel there), at every batch beyond the latency kernel's,
-    but a batch of at most two of its waves up to kp =
-    ``B1_TWO_WAVE_KPMAX``, which keeps the throughput kernel. Measured on
-    an H100 at k = 129-160 (``PERF.md``): the latency kernel took
-    0.79-0.92x the panel frame's time to one wave; at 133-256 rows the
-    throughput kernel 0.94-0.95x at k = 129-144 and 1.13-1.16x at 153 and
-    160; at 4,097 rows the panel frame 0.66-0.82x the throughput kernel's
-    time."""
-    latency = latency_regime(batch, resident)
-    if latency or name != "cholesky_solve_batched":
-        return "latency" if latency else "throughput"
+    a batch beyond the latency kernel's wave takes "panel", the panel frame
+    of ``csrc/cholesky_rank_panel.cu`` (``name + "_panel"``: B1's is B4 (1,
+    1)'s kernel there, B2 and B3 that kernel with the hot terms or the
+    second gram on load), but a batch of at most two of its waves up to kp
+    = ``TWO_WAVE_KPMAX`` keeps the throughput kernel. Measured on an H100
+    at k = 129-160 (``PERF.md``), B1: the latency kernel took 0.79-0.92x
+    the panel frame's time to one wave; at 133-256 rows the throughput
+    kernel 0.94-0.95x at k = 129-144 and 1.13-1.16x at 153 and 160; at
+    4,097 rows the panel frame 0.66-0.82x the throughput kernel's time. B2
+    and B3: at 133-264 rows their throughput kernels 0.92-0.95x and
+    0.95-1.08x the panel frame's time to kp = 152, and the panel frame
+    0.53-0.93x and 0.78-0.94x theirs at 153 and 160; past two waves the
+    panel frame 0.46-0.95x and 0.62-0.83x."""
+    if latency_regime(batch, resident):
+        return "latency"
     kp = (k + 3) // 4 * 4
-    if kp <= RANK_FRAME_KPMAX or (kp <= B1_TWO_WAVE_KPMAX
+    if kp <= RANK_FRAME_KPMAX or (kp <= TWO_WAVE_KPMAX
                                   and batch <= 2 * resident):
         return "throughput"
     return "panel"
@@ -332,16 +342,39 @@ def hot_smem_bytes(k: int, c: int, latency: bool = False) -> int:
         + 4 * ((0 if latency else c) + warps)
 
 
+def panel_smem_bytes(k: int, fused: str = None, c: int = 0) -> int:
+    """Dynamic shared memory of a block of the panel frame past kp = 128
+    (``layout`` in csrc/cholesky_rank_panel.cu) for B1 (``fused`` None),
+    B3 ("2g") or B2 ("hot", C = c): the next system's stage (16 floats a
+    tile; B3 a second for G2's tiles), the two panel buffers of ``PW``
+    columns of kp + 4, two slots of [packed L, rhs, 1 / L_jj] (one where
+    two do not fit in ``SMEM_MAX``), the barrier counts (kp) and B2's vh
+    (C, kp)."""
+    kp = (k + 3) // 4 * 4
+    tiles = (kp // 4) * (kp // 4 + 1) // 2
+    vh = c * kp if fused == "hot" else 0
+    slot0 = tiles * 16 * (2 if fused == "2g" else 1) \
+        + 2 * PANEL_WIDTH * (kp + 4)
+    slot = (kp * (kp + 1) // 2 + 3) // 4 * 4 + 2 * kp
+    slots = 2 if 4 * (slot0 + 2 * slot + kp + vh) <= SMEM_MAX else 1
+    return 4 * (slot0 + slots * slot + kp + vh)
+
+
 @functools.lru_cache(maxsize=None)
 def hot_kernel_supported(k: int, c: int) -> bool:
     """Whether the fused hot kernel takes order k with a C-wide hot block,
     at any batch: the reference's hot gate (a 128-multiple batch block, so
     kp <= 160, and C <= ``hot_cols_cap(k)``), with vh in shared memory (the
     throughput kernel's block; the latency kernel's is never larger where
-    it matters, and the launch takes the throughput kernel when it is)."""
+    it matters) and, past kp = ``RANK_FRAME_KPMAX``, in the panel frame's
+    block, whose hot row one warp's ballot covers (C <= ``HOT_PANEL_CMAX``;
+    the cap is at most 24 there)."""
+    panel = (k + 3) // 4 * 4 > RANK_FRAME_KPMAX
     return (1 <= k and block_batch(k) % 128 == 0
             and 1 <= c <= min(hot_cols_cap(k), HOT_CMAX)
-            and hot_smem_bytes(k, c) <= SMEM_MAX)
+            and hot_smem_bytes(k, c) <= SMEM_MAX
+            and (not panel or (c <= HOT_PANEL_CMAX and panel_smem_bytes(
+                k, "hot", c) <= SMEM_MAX)))
 
 
 def hot_cols_cap(k: int) -> int:
@@ -602,8 +635,13 @@ SOURCES = {
         "cholesky_solve_schur": [_P, _P, _P, _P, _I, _I, _I, _P],
         "cholesky_solve_dual": [_P, _P, _P, _P, _I, _I, _P],
         "cholesky_solve_batched_panel": [_P, _P, _P, _P, _I, _I, _P],
+        "cholesky_solve_2g_panel": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "cholesky_solve_hot_panel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     ctypes.c_float, _P],
         "cholesky_rank_panel_resident": [_I, _I, _I,
                                          ctypes.POINTER(ctypes.c_longlong)],
+        "cholesky_rank_panel_fused_resident": [
+            _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)],
     },
 }
 _LIBS = {}
@@ -662,7 +700,10 @@ def _stream(dev: torch.device) -> int:
 
 REGIME_KINDS = ("cholesky_solve_batched", "cholesky_solve_hot",
                 "cholesky_solve_2g")
-_forced = None       # forced_regime's choice; None: latency_regime picks
+# what forced_regime takes: the latency kernel (True), the kernel of a batch
+# past its wave (False), or past kp = 128 the panel frame ("panel")
+FORCED_FRAMES = (True, False, "panel")
+_forced = None       # forced_regime's choice; None: solve_frame picks
 
 
 @functools.lru_cache(maxsize=None)
@@ -690,6 +731,31 @@ def _variant_resident(sched: int, srows: int, k: int, device: int) -> int:
                                                ctypes.byref(resident)),
               "cholesky_rank_panel_resident", lib)
     return resident.value
+
+
+# csrc/cholesky_rank_panel.cu's codes (enum Fuse) of what B3's and B2's
+# panel-frame kernels add on load
+FUSE_CODE = {"cholesky_solve_2g": 1, "cholesky_solve_hot": 2}
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_resident(name: str, k: int, c: int, device: int) -> int:
+    resident = ctypes.c_longlong(0)
+    lib = _lib("cholesky_rank_panel")
+    _raise_on(lib.cholesky_rank_panel_fused_resident(
+        FUSE_CODE[name], k, c, ctypes.byref(resident)),
+        "cholesky_rank_panel_fused_resident", lib)
+    return resident.value
+
+
+def panel_resident(name: str, k: int, c: int = 0) -> int:
+    """Blocks of the panel-frame kernel of a ``REGIME_KINDS`` solve
+    (``name + "_panel"``; B2 at hot width c) at order k past kp = 128 that
+    the current card holds at once (asked once; launches nothing): B1's is
+    B4 (1, 1)'s kernel there."""
+    if name == "cholesky_solve_batched":
+        return variant_resident("cholesky_solve_rank1", k, 1, 1)
+    return _fused_resident(name, k, c, torch.cuda.current_device())
 
 
 def variant_frame(name: str, k: int) -> str:
@@ -746,19 +812,23 @@ def solve_regime(name: str, batch: int, k: int, c: int = 0):
 
 
 # the C exports of the REGIME_KINDS launches that are not in
-# csrc/cholesky_solve.cu
-EXPORT_SOURCE = {"cholesky_solve_batched_panel": "cholesky_rank_panel"}
+# csrc/cholesky_solve.cu: their panel frames
+EXPORT_SOURCE = {name + "_panel": "cholesky_rank_panel"
+                 for name in ("cholesky_solve_batched", "cholesky_solve_hot",
+                              "cholesky_solve_2g")}
 
 
 def _pick(name: str, batch: int, k: int, c: int, device: int) -> str:
     """The C export a launch takes: ``name`` (throughput), ``name +
-    "_lat"``, or past kp = 128 for B1 ``cholesky_solve_batched_panel`` (of
+    "_lat"``, or past kp = 128 ``name + "_panel"`` (of
     ``csrc/cholesky_rank_panel.cu``, ``EXPORT_SOURCE``), by ``solve_frame``
     or ``forced_regime``."""
-    if _forced:
+    panel = (k + 3) // 4 * 4 > RANK_FRAME_KPMAX
+    if _forced is True:
         frame = "latency"
-    elif _forced is None or (name == "cholesky_solve_batched" and
-                             (k + 3) // 4 * 4 > RANK_FRAME_KPMAX):
+    elif _forced == "panel":
+        frame = "panel" if panel else "throughput"
+    elif _forced is None or panel:
         resident = _resident(name, k, c, device)
         # forced off the latency kernel: the kernel of a batch past its wave
         frame = solve_frame(name, batch if _forced is None
@@ -770,18 +840,33 @@ def _pick(name: str, batch: int, k: int, c: int, device: int) -> str:
 
 
 @contextlib.contextmanager
-def forced_regime(latency: bool):
+def forced_regime(latency):
     """Inside the block every launch of a ``REGIME_KINDS`` kernel takes the
     latency (True) or the throughput (False) kernel, whatever its batch
-    (False for B1 past kp = 128: the kernel ``solve_frame`` gives the batch,
-    or a batch one past the latency kernel's wave, whichever is larger):
-    both take any batch, so each can be timed on the other's ground."""
+    (False past kp = 128: the kernel ``solve_frame`` gives the batch, or a
+    batch one past the latency kernel's wave, whichever is larger, the
+    throughput kernel or the panel frame), or with "panel" past kp = 128
+    the panel frame (the throughput kernel to kp = 128): each takes any
+    batch, so each can be timed on the other's ground."""
     global _forced
-    _forced = bool(latency)
+    if latency not in FORCED_FRAMES:
+        raise ValueError(f"forced_regime takes one of {FORCED_FRAMES}, got "
+                         f"{latency!r}")
+    _forced = latency if latency == "panel" else bool(latency)
     try:
         yield
     finally:
         _forced = None
+
+
+def _count(name: str, fn: str) -> None:
+    """One launch of ``name`` through the C export ``fn``, counted in
+    ``LAUNCHES`` and, for a regime kernel, by its frame."""
+    LAUNCHES[name] += 1
+    if fn.endswith("_lat"):
+        LATENCY_LAUNCHES[name] += 1
+    elif fn.endswith("_panel") and name in PANEL_LAUNCHES:
+        PANEL_LAUNCHES[name] += 1
 
 
 def _raise_on(err: int, name: str, lib) -> None:
@@ -924,9 +1009,7 @@ def _launch_solve(name, source, G, rhs, reg, G2=None, ints=()):
     err = getattr(lib, fn)(*grams, rhs.data_ptr(), reg.data_ptr(),
                            out.data_ptr(), b, k, *ints, stream)
     _raise_on(err, name, lib)
-    LAUNCHES[name] += 1
-    if fn.endswith("_lat"):
-        LATENCY_LAUNCHES[name] += 1
+    _count(name, fn)
     return out
 
 
@@ -970,17 +1053,15 @@ def cholesky_solve_hot(G: torch.Tensor, rhs: torch.Tensor, reg: torch.Tensor,
     if b == 0:
         return out
     stream = _stream(dev)
-    lib = _lib()
     fn = _pick("cholesky_solve_hot", b, k, c, dev.index)
+    lib = _lib(EXPORT_SOURCE.get(fn, "cholesky_solve"))
     err = getattr(lib, fn)(
         G.data_ptr(), rhs.data_ptr(), reg.data_ptr(), hv.data_ptr(),
         vh.data_ptr(), out.data_ptr(), b, k, c,
         0 if alpha is None else 1, 0.0 if alpha is None else float(alpha),
         stream)
     _raise_on(err, "cholesky_solve_hot", lib)
-    LAUNCHES["cholesky_solve_hot"] += 1
-    if fn.endswith("_lat"):
-        LATENCY_LAUNCHES["cholesky_solve_hot"] += 1
+    _count("cholesky_solve_hot", fn)
     return out
 
 
@@ -1139,9 +1220,12 @@ __all__ = ["cholesky_solve_batched", "cholesky_solve_hot",
            "kernel_supported", "cluster_size", "cluster_owner",
            "cluster_smem_bytes", "forced_cluster", "active_clusters",
            "multiwave_cluster",
-           "hot_kernel_supported", "hot_smem_bytes", "hot_cols_cap",
+           "hot_kernel_supported", "hot_smem_bytes", "panel_smem_bytes",
+           "hot_cols_cap",
            "hot_cols_auto", "latency_regime", "solve_frame", "solve_regime",
            "variant_resident", "variant_frame", "variant_block_systems",
-           "forced_regime", "REGIME_KINDS", "VARIANT_KINDS", "KERNELS",
+           "forced_regime", "FORCED_FRAMES", "REGIME_KINDS",
+           "VARIANT_KINDS", "KERNELS",
            "RANK1_SCHEDULES", "LAUNCHES", "ROUTED", "LATENCY_LAUNCHES",
-           "LARGE_LAUNCHES", "reset_counts"]
+           "PANEL_LAUNCHES", "LARGE_LAUNCHES", "panel_resident",
+           "reset_counts"]

@@ -1,9 +1,11 @@
 """Where a system's time goes inside the panel frame of
 ``csrc/cholesky_rank_panel.cu`` (past kp = 128: B1's, B4's and B5c's
-kernel with every term alone, B5a's, and B5b's in Schur's order).
+kernel with every term alone, B2's and B3's with what their load adds,
+B5a's, and B5b's in Schur's order).
 
     python -m recommendation_models_tpu_torch.probes.panel_trace \
-        [--shapes 160:65536,160:1] [--kernels batched_panel,panel,schur]
+        [--shapes 160:65536,160:1] \
+        [--kernels batched_panel,hot_panel,2g_panel,panel,schur]
 
 Builds an instrumented copy of ``csrc/cholesky_rank_panel.cu`` under
 ``build/panel_trace/``: lane 0 of each warp of block 0 adds ``clock64``
@@ -15,7 +17,7 @@ diagonal block in registers, for the warps with rows at or below the
 panel), ``row`` (its rows solved against it, and the rest of the branch),
 ``wait_rows`` (the second barrier), ``update`` (the trailing update) and
 ``start`` (the next system's slot hand-over, its staged tiles' arrival and
-its prefetch); the substitution warp's: ``wait_full`` (for the factor's
+its prefetch, and B2's hot terms); the substitution warp's: ``wait_full`` (for the factor's
 hand-over) and ``substitute`` (both substitutions). Then, for each shape
 ``k:B`` and kernel (``batched_panel``: B1's export past kp = 128, one-row
 substitutions, every term alone; ``panel``: B5a; ``schur``: B5b with
@@ -122,11 +124,25 @@ extern "C" int panel_trace_clear(void) {
 }
 """
 
-# kernel -> (C export, its extra int arguments, the public wrapper's call)
+# kernel -> (C export, its extra int arguments, the public wrapper's call);
+# B2's and B3's exports take their own arguments (``launch``), and their
+# wrappers are forced into the panel frame
+def _forced_panel(call):
+    def run(ch, G, r, g, x):
+        with ch.forced_regime("panel"):
+            return call(ch, G, r, g, x)
+    return run
+
+
 KERNELS = {
     "batched_panel": ("cholesky_solve_batched_panel", (),
                       lambda ch, G, r, g: ch.cholesky_solve_rank1(G, r, g, 1,
                                                                   1)),
+    "hot_panel": ("cholesky_solve_hot_panel", None, _forced_panel(
+        lambda ch, G, r, g, x: ch.cholesky_solve_hot(G, r, g, x["hv"],
+                                                     x["vh"]))),
+    "2g_panel": ("cholesky_solve_2g_panel", None, _forced_panel(
+        lambda ch, G, r, g, x: ch.cholesky_solve_2g(G, x["G2"], r, g))),
     "panel": ("cholesky_solve_panel", (), lambda ch, G, r, g:
               ch.cholesky_solve_panel(G, r, g)),
     "schur": ("cholesky_solve_schur", (2,), lambda ch, G, r, g:
@@ -170,19 +186,40 @@ def trace(lib, name: str, k: int, b: int) -> dict:
     from recommendation_models_tpu_torch.ops import cholesky as ch
     from recommendation_models_tpu_torch.probes.solve_latency import (
         random_systems)
+    from recommendation_models_tpu_torch.probes.variant_latency import (
+        fused_inputs)
     export, ints, wrapper = KERNELS[name]
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = getattr(lib, export)
-    fn.argtypes = [P, P, P, P, I, I, *([I] * len(ints)), P]
     fn.restype = I
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     G, rhs, reg = random_systems(b, k, 48, gen, dev)
     out = torch.empty(b, k, device=dev)
+    if ints is None:
+        # B2 (explicit weights) and B3: what their load adds
+        x = fused_inputs(b, k, dev)
+        c = x["hv"].shape[1]
+        if name == "2g_panel":
+            fn.argtypes = [P, P, P, P, P, I, I, P]
+            args = (G.data_ptr(), x["G2"].data_ptr(), rhs.data_ptr(),
+                    reg.data_ptr(), out.data_ptr(), b, k, None)
+        else:
+            fn.argtypes = [P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P]
+            args = (G.data_ptr(), rhs.data_ptr(), reg.data_ptr(),
+                    x["hv"].data_ptr(), x["vh"].data_ptr(), out.data_ptr(),
+                    b, k, c, 0, 0.0, None)
+        call = wrapper
+
+        def wrapper(ch, G, r, g):
+            return call(ch, G, r, g, x)
+    else:
+        fn.argtypes = [P, P, P, P, I, I, *([I] * len(ints)), P]
+        args = (G.data_ptr(), rhs.data_ptr(), reg.data_ptr(),
+                out.data_ptr(), b, k, *ints, None)
     for _ in range(3):
         lib.panel_trace_clear()
-        err = fn(G.data_ptr(), rhs.data_ptr(), reg.data_ptr(),
-                 out.data_ptr(), b, k, *ints, None)
+        err = fn(*args)
         torch.cuda.synchronize()
         if err:
             raise RuntimeError(f"{export} failed: CUDA error {err}")

@@ -1,18 +1,20 @@
-"""Latency probe of the main path's two solve kernels: device time and host
-cost per call, at the batches the main path launches them with.
+"""Latency probe of the regime solve kernels (the main path's two and B3):
+device time and host cost per call, at the batches the main path launches
+them with.
 
     python -m recommendation_models_tpu_torch.probes.solve_latency \
         [--batches 256,4201,65536] [--k 64] [--hot-cols 128] [--regimes]
     python -m recommendation_models_tpu_torch.probes.solve_latency \
         --k 656 --batches 1,8 [--cluster 16]
 
-For B1 ``cholesky_solve_batched`` and B2 ``cholesky_solve_hot`` (a random
-bf16 hot slab, 28% nonzero as the ML-25M main path's) at each batch, one
-JSON line with:
+For B1 ``cholesky_solve_batched``, B2 ``cholesky_solve_hot`` (a random
+bf16 hot slab, 28% nonzero as the ML-25M main path's) and B3
+``cholesky_solve_2g`` (a second gram of 16 random factor rows) at each
+batch, one JSON line with:
 
 - ``regime``: the kernel that the checkout's rule picks at this batch
-  (``solve_frame``: "latency", "throughput" or, for B1 past kp = 128,
-  "panel"; ``latency_regime`` in a checkout without it), and
+  (``solve_frame``: "latency", "throughput" or, past kp = 128, "panel";
+  ``latency_regime`` in a checkout without it), and
   ``resident``, the latency kernel's resident blocks it is picked against;
 - ``device_ms``: device time per call from ``torch.profiler`` (every device
   kernel of the window summed, over ``reps`` calls), so that the host's
@@ -23,12 +25,13 @@ JSON line with:
   synchronisation inside (the wrapper, its checks and the launch);
 - ``library_ms``: device time per call, from the profiler, of
   ``torch.linalg.cholesky`` + ``cholesky_solve`` on the same systems (B2:
-  after the torch fold of the hot terms);
+  after the torch fold of the hot terms; B3: on G + G2);
 - ``max_abs_err``: the kernel against its plain version on the first
   ``min(B, 4096)`` systems;
 - with ``--regimes``, ``latency_device_ms`` and ``throughput_device_ms``:
   the device time of each regime's kernel at this batch (``forced_regime``;
-  for B1 past kp = 128 the second is the panel frame's),
+  past kp = 128 the second is the kernel of a batch past one wave, the
+  panel frame or, where the rule keeps it, the throughput kernel),
   both checked against the plain version, to place the crossover.
 
 Past k = 160 (``--k 168`` to ``656``) the batch wrappers take the
@@ -224,6 +227,18 @@ def run(batches, k: int = 64, c: int = 128, seed: int = 0, regimes=False,
                 G[:n], rhs[:n], reg[:n], hv[:n].contiguous(), vh),
             library, b, k, c, regimes=regimes))
         del G, rhs, reg, hv, vh
+        G, rhs, reg = random_systems(b, k, 48, gen, dev)
+        G2 = random_systems(b, k, 16, gen, dev)[0]
+        rows.append(measure(
+            "cholesky_solve_2g",
+            lambda: ch.cholesky_solve_2g(G, G2, rhs, reg),
+            lambda n: ch.cholesky_solve_2g_plain(G[:n], G2[:n], rhs[:n],
+                                                 reg[:n]),
+            lambda: torch.cholesky_solve(
+                rhs[:, :, None], torch.linalg.cholesky(
+                    G + G2 + reg[:, None, None] * eye)), b, k,
+            regimes=regimes))
+        del G, G2, rhs, reg
         torch.cuda.empty_cache()
     return rows
 

@@ -72,7 +72,9 @@ def test_kernel_supported_matches_pallas_supported(two_operand):
 # B1's kernel by order at batches 1, r, r + 1, 2 r, 2 r + 1, 4,097 and
 # 65,536, for the latency kernel's r resident blocks (132 on an H100 at
 # k = 129-160): to kp = 128 latency or throughput; past it the throughput
-# kernel only to two waves up to kp = 152, else the panel frame
+# kernel only to two waves up to kp = 152, else the panel frame. B2 and B3
+# take the same frames (the panel frame past kp = 128 since their panel
+# kernels exist).
 _L, _T, _P = "latency", "throughput", "panel"
 B1_FRAMES = {
     128: (_L, _L, _T, _T, _T, _T, _T),
@@ -88,26 +90,23 @@ B1_FRAMES = {
 @pytest.mark.parametrize("k", sorted(B1_FRAMES))
 @pytest.mark.parametrize("resident", [132, 264])
 def test_b1_frame_by_order_and_batch(k, resident):
-    """``solve_frame``, the one rule of the regime kernels' launches: B1
-    past kp = 128 keeps its latency kernel to one wave and its throughput
-    kernel to two up to kp = 152, and takes the panel frame of csrc/
-    cholesky_rank_panel.cu beyond; B2 and B3 keep ``latency_regime``."""
+    """``solve_frame``, the one rule of the regime kernels' launches: B1,
+    B2 and B3 past kp = 128 keep their latency kernel to one wave and their
+    throughput kernel to two up to kp = 152, and take the panel frame of
+    csrc/cholesky_rank_panel.cu beyond."""
     r = resident
     batches = (1, r, r + 1, 2 * r, 2 * r + 1, 4_097, 65_536)
-    got = tuple(pchol.solve_frame("cholesky_solve_batched", b, k, r)
-                for b in batches)
-    assert got == B1_FRAMES[k]
-    for name in ("cholesky_solve_hot", "cholesky_solve_2g"):
-        assert tuple(pchol.solve_frame(name, b, k, r) for b in batches) == \
-            (_L, _L, _T, _T, _T, _T, _T)
+    for name in pchol.REGIME_KINDS:
+        got = tuple(pchol.solve_frame(name, b, k, r) for b in batches)
+        assert got == B1_FRAMES[k], name
 
 
 def test_b1_launch_takes_the_export_of_its_frame(monkeypatch):
     """The export each frame names (a card's 132 resident blocks assumed),
-    and its library: the panel frame's lives in csrc/cholesky_rank_panel.cu;
-    ``forced_regime(False)`` takes the kernel of a batch past the latency
-    kernel's wave (at two waves or fewer the throughput kernel to kp =
-    152, else the panel frame)."""
+    and its library: the panel frames of B1, B2 and B3 live in
+    csrc/cholesky_rank_panel.cu; ``forced_regime(False)`` takes the kernel
+    of a batch past the latency kernel's wave (at two waves or fewer the
+    throughput kernel to kp = 152, else the panel frame)."""
     monkeypatch.setattr(pchol, "_resident", lambda name, k, c, dev: 132)
     pick = pchol._pick
     assert pick("cholesky_solve_batched", 132, 160, 0, 0) == \
@@ -119,8 +118,20 @@ def test_b1_launch_takes_the_export_of_its_frame(monkeypatch):
         assert fn == "cholesky_solve_batched_panel"
         assert pchol.EXPORT_SOURCE[fn] == "cholesky_rank_panel"
         assert fn in pchol.SOURCES["cholesky_rank_panel"]
-    assert pick("cholesky_solve_2g", 65_536, 160, 0, 0) == \
-        "cholesky_solve_2g"
+    for name in ("cholesky_solve_hot", "cholesky_solve_2g"):
+        c = 16 if name == "cholesky_solve_hot" else 0
+        assert pick(name, 132, 160, c, 0) == name + "_lat"
+        assert pick(name, 264, 152, c, 0) == name
+        assert pick(name, 65_536, 128, c, 0) == name
+        for b, k in ((133, 153), (265, 129), (65_536, 160)):
+            fn = pick(name, b, k, c, 0)
+            assert fn == name + "_panel"
+            assert pchol.EXPORT_SOURCE[fn] == "cholesky_rank_panel"
+            assert fn in pchol.SOURCES["cholesky_rank_panel"]
+        with pchol.forced_regime(False):
+            assert pick(name, 1, 160, c, 0) == name + "_panel"
+            assert pick(name, 1, 136, c, 0) == name
+            assert pick(name, 1, 64, c, 0) == name
     with pchol.forced_regime(False):
         assert pick("cholesky_solve_batched", 1, 136, 0, 0) == \
             "cholesky_solve_batched"
@@ -133,6 +144,72 @@ def test_b1_launch_takes_the_export_of_its_frame(monkeypatch):
     with pchol.forced_regime(True):
         assert pick("cholesky_solve_batched", 65_536, 160, 0, 0) == \
             "cholesky_solve_batched_lat"
+
+
+def test_forced_panel_frame_takes_each_panel_export(monkeypatch):
+    """``forced_regime("panel")`` takes the panel frame's export past kp =
+    128 at any batch, for B1, B2 and B3 (the throughput kernel to kp =
+    128), so it can be timed on the other kernels' ground; anything but
+    True, False and "panel" is refused."""
+    monkeypatch.setattr(pchol, "_resident", lambda name, k, c, dev: 132)
+    with pchol.forced_regime("panel"):
+        for name in pchol.REGIME_KINDS:
+            for b in (1, 132, 264, 65_536):
+                assert pchol._pick(name, b, 129, 0, 0) == name + "_panel"
+                assert pchol._pick(name, b, 128, 0, 0) == name
+    assert pchol._forced is None
+    with pytest.raises(ValueError):
+        with pchol.forced_regime("throughput"):
+            pass
+
+
+def _source_constant(name, source="cholesky_rank_panel.cu"):
+    """An integer constant of a CUDA source (``constexpr int NAME = a *
+    b;`` or ``= a;``), read from its text."""
+    import re
+    from recommendation_models_tpu_torch.ops import build
+    text = (build.CSRC / source).read_text()
+    m = re.search(rf"\b{name} = (\d+)(?: \* (\d+))?;", text)
+    assert m, name
+    return int(m.group(1)) * int(m.group(2) or 1)
+
+
+@pytest.mark.parametrize("fused", [None, "2g", "hot"])
+def test_panel_blocks_fit_with_two_slots(fused):
+    """``panel_smem_bytes``, the mirror of csrc/cholesky_rank_panel.cu's
+    ``layout`` past kp = 128, against the source's own constants (its
+    ``SMEM_MAX``, panel width ``PW`` and ``HOT_CMAX``): B1's block, B3's
+    with G2's second stage and B2's with vh (C, kp) hold two slots and fit
+    at every k = 129..160 and every C <= ``hot_cols_cap(k)`` (so at every
+    width the hot gate takes there), and the hot gate takes each such C."""
+    smem_max = _source_constant("SMEM_MAX")
+    assert smem_max == pchol.SMEM_MAX
+    assert _source_constant("PW") == pchol.PANEL_WIDTH
+    assert _source_constant("HOT_CMAX") == pchol.HOT_PANEL_CMAX
+    for k in range(129, 161):
+        kp = (k + 3) // 4 * 4
+        tiles = (kp // 4) * (kp // 4 + 1) // 2
+        stages = 2 if fused == "2g" else 1
+        slot = (kp * (kp + 1) // 2 + 3) // 4 * 4 + 2 * kp
+        caps = range(1, pchol.hot_cols_cap(k) + 1) if fused == "hot" else [0]
+        for c in caps:
+            two_slots = 4 * (16 * tiles * stages + 2 * 8 * (kp + 4)
+                             + 2 * slot + kp + c * kp)
+            assert pchol.panel_smem_bytes(k, fused, c) == two_slots, (k, c)
+            assert two_slots <= smem_max, (k, c)
+            if fused == "hot":
+                assert c <= pchol.HOT_PANEL_CMAX
+                assert pchol.hot_kernel_supported(k, c), (k, c)
+    # the sizes the source's comment states (KiB), and one slot past the
+    # limit
+    assert round(pchol.panel_smem_bytes(136, "2g") / 1024, 1) == 158.6
+    assert round(pchol.panel_smem_bytes(160, "2g") / 1024, 1) == 216.5
+    assert round(pchol.panel_smem_bytes(136) / 1024, 1) == 121.4
+    assert round(pchol.panel_smem_bytes(160) / 1024, 1) == 165.2
+    assert round(pchol.panel_smem_bytes(136, "hot", 24) / 1024, 1) == 134.1
+    assert round(pchol.panel_smem_bytes(160, "hot", 16) / 1024, 1) == 175.2
+    assert pchol.panel_smem_bytes(160, "hot", 400) < 4 * (
+        16 * 820 + 16 * 164 + 2 * (12880 + 320) + 160 + 400 * 160)
 
 
 CTA_SMEM = 232_448     # an H100 CTA's largest dynamic shared memory
@@ -337,6 +414,38 @@ def test_rank160_fit_matches_reference():
     assert got.history_[-1] < got.history_[0]
 
 
+@pytest.mark.parametrize("alpha", [None, 1.0])
+def test_rank160_hot_fit_matches_reference(alpha):
+    """``ALS(rank=160, hot_cols=16, n_sweeps=3)`` on a 300 x 200 problem
+    through both packages from one warm start, explicit and implicit: the
+    port on its plain versions (B2's among them: a 16-wide hot block forms
+    on both sides, C = ``hot_cols_cap(160)``), the JAX package on its CPU
+    path. Exact masked SSE, reg = 1.0 (as the rank-160 fit above)."""
+    from recommendation_models_tpu import ALS as RALS
+    from recommendation_models_tpu_torch import ALS as PALS
+    from recommendation_models_tpu_torch.data.layout import csr_arrays
+    from recommendation_models_tpu_torch.data.synthetic import (
+        synthetic_ratings)
+    n_u, n_i, k, c = 300, 200, 160, 16
+    assert pchol.hot_cols_cap(k) == c
+    u, i, r = synthetic_ratings(n_u, n_i, 12_000, rank=8, seed=0)
+    R = sp.csr_matrix((r, (u, i)), shape=(n_u, n_i))
+    g = np.random.default_rng(0)
+    U0 = (0.01 * g.standard_normal((n_u, k))).astype(np.float32)
+    V0 = (0.01 * g.standard_normal((n_i, k))).astype(np.float32)
+    kw = dict(rank=k, reg=1.0, n_sweeps=3, sse_mode="separate",
+              hot_cols=c, alpha=alpha)
+    ref_m = RALS(**kw, platform="cpu")
+    got_m = PALS(**kw, platform="cpu")
+    for m in (ref_m, got_m):
+        layouts = m._build_layouts(*csr_arrays(R), m._data_config())
+        assert [lay.hot_ids.shape[0] for lay in layouts] == [c, c]
+    ref = ref_m.fit(R, U0=U0, V0=V0)
+    got = got_m.fit(R, U0=U0, V0=V0)
+    np.testing.assert_allclose(got.history_, ref.history_, rtol=1e-5)
+    assert got.history_[-1] < got.history_[0]
+
+
 # ------------------------------------------------------------ on the card
 
 def _gpu_systems(gen, b, k, dev, jitter=0.5):
@@ -487,5 +596,86 @@ def test_cuda_b1_past_kp128_takes_its_frame_at_every_batch():
             out = pchol.cholesky_solve_batched(
                 zb, torch.zeros(b, k, device=dev), torch.zeros(b, device=dev))
             assert torch.equal(out, torch.zeros_like(out)), (k, b)
+    assert frames == {"latency", "throughput", "panel"}
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_cuda_b2_b3_past_kp128_take_their_frame_at_every_batch():
+    """B2 (C = ``hot_cols_cap(k)``, explicit and implicit weights, a slab
+    28% nonzero) and B3 past kp = 128 on the card at k = 129, 136, 144, 153
+    and 160 and B1's batches above (1 to 65,536; the first 4,096 systems
+    compared): the kernel ``solve_frame`` names, one launch counted (in
+    ``LATENCY_LAUNCHES`` for the latency kernel), nothing routed, against
+    the plain version, repeated bitwise. Where the frame is the panel
+    frame, B3 equals B1's panel-frame kernel (B4 (1, 1)'s there) on the f32
+    sum G + G2 and B2 with an all-zero hot slab equals it on G, bit for
+    bit. Zero and identity systems with rhs 0 and no hot entries solve to
+    exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from recommendation_models_tpu_torch.probes.solve_latency import hot_slab
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    frames = set()
+    for k in (129, 136, 144, 153, 160):
+        c = pchol.hot_cols_cap(k)
+        vh = 0.3 * torch.randn(c, k, generator=gen, device=dev)
+        _, res_2g = pchol.solve_regime("cholesky_solve_2g", 1, k)
+        _, res_hot = pchol.solve_regime("cholesky_solve_hot", 1, k, c)
+        for b in sorted(set(_b1_batches(res_2g)) | set(_b1_batches(res_hot))):
+            G, rhs, reg = _gpu_systems(gen, b, k, dev)
+            G2 = _gpu_systems(gen, b, k, dev, jitter=0.1)[0]
+            hv = hot_slab(b, c, gen, dev)
+            n = min(b, 4_096)
+            cases = [("cholesky_solve_2g", res_2g, pchol.cholesky_solve_2g,
+                      pchol.cholesky_solve_2g_plain, (G, G2, rhs, reg), {})]
+            cases += [("cholesky_solve_hot", res_hot,
+                       pchol.cholesky_solve_hot,
+                       pchol.cholesky_solve_hot_plain,
+                       (G, rhs, reg, hv, vh), dict(alpha=alpha))
+                      for alpha in (None, 1.0)]
+            for name, resident, fn, plain, args, kw in cases:
+                frame = pchol.solve_frame(name, b, k, resident)
+                frames.add(frame)
+                pchol.reset_counts()
+                x = fn(*args, **kw)
+                torch.cuda.synchronize()
+                assert pchol.LAUNCHES[name] == 1 and not any(
+                    pchol.ROUTED.values()), (name, k, b)
+                assert pchol.LATENCY_LAUNCHES[name] == (frame == "latency")
+                head = tuple(a[:n].contiguous() if a.shape[0] == b else a
+                             for a in args)
+                _gpu_close(x[:n], plain(*head, **kw))
+                assert torch.equal(x, fn(*args, **kw)), (name, k, b)
+            if pchol.solve_frame("cholesky_solve_2g", b, k, res_2g) == \
+                    "panel":
+                assert torch.equal(
+                    pchol.cholesky_solve_2g(G, G2, rhs, reg),
+                    pchol.cholesky_solve_rank1(G + G2, rhs, reg, 1, 1)), \
+                    (k, b)
+            if pchol.solve_frame("cholesky_solve_hot", b, k, res_hot) == \
+                    "panel":
+                for alpha in (None, 1.0):
+                    assert torch.equal(
+                        pchol.cholesky_solve_hot(G, rhs, reg,
+                                                 torch.zeros_like(hv), vh,
+                                                 alpha),
+                        pchol.cholesky_solve_rank1(G, rhs, reg, 1, 1)), \
+                        (k, b, alpha)
+            del G, G2, rhs, reg, hv
+        z = torch.zeros(9, k, k, device=dev)
+        z[4:] = torch.eye(k, device=dev)
+        for b in (9, res_hot + 1, 2 * res_hot + 1):
+            zb = z.repeat(-(-b // 9), 1, 1)[:b].contiguous()
+            zr = torch.zeros(b, k, device=dev)
+            zg = torch.zeros(b, device=dev)
+            for out in (pchol.cholesky_solve_2g(zb, torch.zeros_like(zb),
+                                                zr, zg),
+                        pchol.cholesky_solve_hot(
+                            zb, zr, zg, torch.zeros(b, c, device=dev,
+                                                    dtype=torch.bfloat16),
+                            vh, 1.0)):
+                assert torch.equal(out, torch.zeros_like(out)), (k, b)
     assert frames == {"latency", "throughput", "panel"}
     torch.cuda.empty_cache()

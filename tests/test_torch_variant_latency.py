@@ -76,14 +76,58 @@ def test_parse_ptxas_reads_the_schur_panel_frame():
             vl.resident_by_registers(48, 256)
 
 
+def test_parse_ptxas_reads_the_fused_panel_frame():
+    """B2's and B3's kernels past kp = 128 are B1's panel frame (``ALONE``,
+    srows 1) with a sixth template argument, what the load adds (FUSE 1:
+    the second gram, 2: the hot terms): 256 threads, read as the rest."""
+    for fuse in (1, 2):
+        log = LOG.replace("ILi160ELi1ELi3ELi1ELi1E",
+                          f"ILi224ELi4ELi5ELi64ELi1ELi{fuse}E")
+        rows = vl.parse_ptxas(log)
+        assert rows[0]["threads"] == 256
+        assert rows[0]["resident_by_registers"] == \
+            vl.resident_by_registers(48, 256)
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("void (anonymous namespace)::rank_panel_kernel<224, 4, 5, 64, 1>(float ",
+     "cholesky_solve_batched"),
+    ("void (anonymous namespace)::rank_panel_kernel<224, 4, 5, 64, 1, 0>(fl",
+     "cholesky_solve_batched"),
+    ("void (anonymous namespace)::rank_panel_kernel<224, 4, 5, 64, 1, 2>(fl",
+     "cholesky_solve_hot"),
+    ("void (anonymous namespace)::rank_panel_kernel<224, 4, 5, 64, 1, 1>(fl",
+     "cholesky_solve_2g"),
+    ("void (anonymous namespace)::chol_solve_kernel<160, 1, true, false, tru",
+     "cholesky_solve_hot"),
+    ("void (anonymous namespace)::chol_solve_kernel<256, 4, false, false, tr",
+     "cholesky_solve_batched"),
+    ("void (anonymous namespace)::chol_solve_kernel<256, 3, false, true, tru",
+     "cholesky_solve_2g"),
+    ("ampere_sgemm_128x64_nn", None),
+])
+def test_solve_kernel_names_the_regime_solve_of_a_profiled_kernel(name,
+                                                                  kind):
+    """``probes.epoch_profile.solve_kernel`` reads a device kernel's name
+    as ``torch.profiler`` gives it (cut at 70 characters) and names the
+    regime solve it belongs to: B1, B2 and B3 in either source, by their
+    template flags."""
+    from recommendation_models_tpu_torch.probes.epoch_profile import (
+        solve_kernel)
+    assert solve_kernel(name) == kind
+
+
 def test_probe_knows_each_kernel_it_times():
     """Every name the probe takes has a kernel and a plain call, B1's
-    latency kernel forced at every batch (``batched_lat``) among them, and
-    ``all`` leaves that one out."""
+    latency kernel forced at every batch (``batched_lat``) and B1-B3's
+    forced regimes among them, and ``all`` leaves those out; B2 and B3 are
+    in ``all``."""
     from recommendation_models_tpu_torch.ops import cholesky as ch
     table = vl.kernels(ch)
     assert set(table) == set(vl.KNOWN)
     assert "batched_lat" not in vl.ALL
+    assert not set(vl.FORCED) & set(vl.ALL)
+    assert {"hot", "hot_implicit", "2g"} <= set(vl.ALL)
     G = torch.eye(8)[None].repeat(2, 1, 1)
     rhs = torch.ones(2, 8)
     reg = torch.zeros(2)
