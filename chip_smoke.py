@@ -205,9 +205,11 @@ non-zero before the result lines are printed:
    explicit) on phase 5's layouts, rank 128 on phase 5's ratings (its own
    layouts: no hot columns, dense threshold 2,048, growth 1.25, a 4,096 MB
    gather budget, the riding SSE), rank 64 implicit (alpha 1.0) on phase
-   5's layouts; then, phase 5's data freed, synth-100M made once and laid
-   out at rank 64 (a 2 MB budget, riding SSE), then at rank 128 (1,536 MB),
-   each run for the bench's 10 sweeps. Each train line: ``nnz`` and
+   5's layouts; then, phase 5's data freed, synth-100M laid out at rank 64
+   (a 2 MB budget, riding SSE), then at rank 128 (1,536 MB), each run for
+   the bench's 10 sweeps (the ratings made once and both layouts built in
+   a child process on the host beside phase 11, ``start_synth_data``, and
+   loaded through the bench's layout cache). Each train line: ``nnz`` and
    ``gathered_rows_per_epoch`` equal to the JAX package's (``BENCH_LINES``,
    with the command that counted them), train RMSE within
    ``BENCH_RMSE_BAND`` x the JAX bench's TPU record (the implicit line:
@@ -304,7 +306,36 @@ non-zero before the result lines are printed:
    variant, the counts set to 0 just before each run and read just after:
    nothing routed, every variant kernel launched, past k = 160 through its
    one-block kernel;
-14. one JSON line describing every kernel, then the result line. Each
+14. the JAX package's last six scripts as the port's probes, and its four
+   examples (``examples/torch_port/``). On phase 5's ML-25M layouts,
+   before phase 12 frees them: (d) ``probes.profile_half`` on each side
+   at rank 64 (one warm half-sweep, then one under ``torch.profiler``: the
+   device ms by stream and kernel beside the CUDA-event ms of the same
+   half-sweep, flagged past 10% apart; B2 launched in the user half, B1
+   in the item half, nothing routed; the Chrome traces under
+   ``build/chip_smoke/profile_half/``) and
+   (f) ``probes.ablate_gram_layout`` on the user side (``gram_rhs_t``
+   against ``gram_rhs`` over every gathered row block, their sums equal,
+   their times and ``aten::copy_`` events). After phase 13: (g) the four
+   examples started at once in subprocesses on the card (each exit 0,
+   within ``EXAMPLE_TIMEOUT``); beside them (b) ``probes.sharded_hot``
+   (a 1-shard ``ShardedALSProgram`` with 16 hot columns and
+   ``solver='pallas'``, the counts set to 0 just before and read just
+   after: B2 launched, nothing routed; its ``make_fit(2)`` history within
+   rtol 1e-3 of ``ALS(solver='xla')``) and (c)
+   ``probes.serving_quality`` at ML-1M (its 1,000,000 ratings), rank 64,
+   8 sweeps, seeds 0, 1 and 2 (each model path within 5e-4 of its frozen
+   f64 path and within 0.005 of the JAX package's CPU value,
+   ``REF_SERVING_SEEDS_ML1M``; seed 0 again through ``NPZ_OUT`` ->
+   ``NPZ_IN``, its record equal); then, timed, (a)
+   ``probes.sharded_scan`` at ML-1M, rank 64, 10 sweeps, one shard, with
+   ``FASTPATHS`` 0 and 1 (stepwise against scanned within the script's
+   rtol; ``SCAN_WINDOWS`` timed windows a side, alternating, their
+   seconds and ms a sweep; the probe's launch counts, some 35 s of
+   profiling, are left to the probe alone) and (e) ``probes.split_gather`` at bf16
+   and f32 (the three lines' ms a pass and M rows/s, the split pass's sum
+   within 1e-4 of the baseline's);
+15. one JSON line describing every kernel, then the result line. Each
    entry's numbers are at its ``k`` and ``batch``; B4, B5a, B5b and B5c
    have ``resident`` (their kernel's resident blocks at k=64; B4 and B5b
    per instantiation in ``resident_by_instantiation``); B1, B2 and B3 also have
@@ -317,7 +348,8 @@ non-zero before the result lines are printed:
    ``at_row_block`` (a row block of each half). B1's and B2's ``launches``
    are the main path's, the sharded phase's, the multi-process phase's and
    the bench phase's five train lines (B1's also the 2-D phase's and the
-   rank-160 fit's), each in ``launches_by_path``; B1, B2 and B3 have
+   rank-160 fit's, B2's also the sharded hot smoke's), each in
+   ``launches_by_path``; B1, B2 and B3 have
    ``wide_orders`` (phase 13a's numbers by k and batch, each with its
    kernel's ``frame`` and ``blocks_per_sm``), and
    ``cholesky_solve_large`` is at k = 656, B = 8 with ``by_order`` (phase
@@ -718,13 +750,16 @@ MP_PATH = (f"ShardedALSProgram(S={MP_P}, allgather) across {MP_P} processes "
 BENCH_PATH = ("recommendation_models_tpu_torch.bench train mode: ML-25M rank "
               "64 explicit and implicit, synth-100M rank 64")
 BENCH_PATH_R128 = "and ML-25M and synth-100M rank 128"
+SHARDED_HOT_PATH = ("ShardedALSProgram(S=1, hot_cols=16, solver='pallas')"
+                    ".make_fit on one card, 4,000 x 3,000 "
+                    "(probes.sharded_hot)")
 PATH = {
     "cholesky_solve_batched": (f"{MAIN_PATH}; {SHARDED_PATH}; {HYBRID_PATH}; "
                                f"{MP_PATH}; {BENCH_PATH} {BENCH_PATH_R128}; "
                                f"ALS(rank=160).fit, ML-25M shape"),
     "cholesky_solve_hot": (f"{MAIN_PATH}; {SHARDED_PATH}; {MP_PATH}; "
                            f"{BENCH_PATH}; ALS(rank=160, hot_cols=16).fit, "
-                           f"ML-25M shape"),
+                           f"ML-25M shape; {SHARDED_HOT_PATH}"),
     "cholesky_solve_2g": ("ops.solve.solve_spd_t(Gt2=), k=64 and k=160, "
                           "B=65,536"),
     **dict.fromkeys(("cholesky_solve_rank1", "cholesky_solve_panel",
@@ -2798,20 +2833,19 @@ def bench_train_line(torch, dev, name, cfg, anchor, band, gathered, kernels,
     return launches
 
 
-def phase_bench(torch, dev, main_data):
+def phase_bench(torch, dev, main_data, synth):
     """The port's bench (``recommendation_models_tpu_torch.bench``) in the
     process, one JSON line per run: ML-25M rank 64 explicit on phase 5's
     layouts, rank 128 on phase 5's ratings, rank 64 implicit on phase 5's
     layouts; synth-100M (made once) at rank 64, then 128; the serving mode
     (ML-25M, rank 64) and the IMC mode (ML-1M, rank 64 capped to 32).
     ``main_data`` is a list [coo, ul, il] of phase 5's ratings and layouts,
-    emptied here so that they are freed before synth-100M is made. Returns
-    the launches of each train line."""
+    emptied here so that they are freed before synth-100M is loaded;
+    ``synth`` is ``start_synth_data``'s child, which made its ratings and
+    layouts. Returns the launches of each train line."""
+    import dataclasses
     import gc
     from recommendation_models_tpu_torch import bench
-    from recommendation_models_tpu_torch.data.synthetic import (
-        synthetic_ratings)
-    from recommendation_models_tpu_torch.probes import SCALES
     t_phase = time.perf_counter()
     coo, ul, il = main_data
     main_data.clear()
@@ -2833,16 +2867,17 @@ def phase_bench(torch, dev, main_data):
         torch.cuda.empty_cache()
     del coo, ul, il
     gc.collect()
-    t0 = time.perf_counter()
-    coo = synthetic_ratings(*SCALES["synth100m"], rank=16, seed=0)
-    log(f"# synth-100M data: {coo[2].shape[0]} obs in "
-        f"{time.perf_counter() - t0:.1f}s")
+    coo = load_synth_data(synth)
     for name in ("bench_100m_r64", "bench_100m_r128"):
         over, anchor, band, gathered, kernels = lines[name]
         cfg = bench.BenchConfig(**over)
         t0 = time.perf_counter()
-        _, bul, bil = bench.train_layouts(cfg, coo)
-        log(f"# {name}: layouts in {time.perf_counter() - t0:.1f}s")
+        cache = synth_layout_dir(synth[2], cfg)
+        _, bul, bil = bench.train_layouts(
+            dataclasses.replace(cfg, layout_cache=cache), coo)
+        log(f"# {name}: layouts loaded from the child's cache in "
+            f"{time.perf_counter() - t0:.1f}s")
+        shutil.rmtree(cache)
         by_line[name] = bench_train_line(torch, dev, name, cfg, anchor,
                                          band, gathered, kernels, coo, bul,
                                          bil)
@@ -2890,6 +2925,7 @@ R160_HOT_SWEEPS = 3   # 13g's sweeps (B2 at rank 160 in the panel frame)
 LARGE_FIT_RANK = 256            # the estimator path of the one-block kernel
 QP_IMC_SEEDS = (0, 1, 2)
 QP_TIMEOUT = 900                # seconds a child oracle may take
+SYNTH_TIMEOUT = 900             # seconds the synth-100M data child may take
 
 # ML-1M-shaped rank-160 train-RMSE history (the exact masked SSE) of the JAX
 # package, recorded on a CPU (gather_budget_mb=256 bounds the host memory;
@@ -2936,6 +2972,93 @@ def start_imc_oracles(seeds=QP_IMC_SEEDS):
                 cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=err),
                 path))
     return children
+
+
+def synth_layout_dir(cache, cfg):
+    """The layout cache directory of one bench configuration's lines."""
+    return os.path.join(cache, f"rank{cfg.rank}")
+
+
+def make_synth_data(path, scale, configs):
+    """The work of ``start_synth_data``'s child: the ratings of ``scale``
+    (``synthetic_ratings(*SCALES[scale], rank=16, seed=0)``) saved to
+    ``path``, then both layouts of each bench configuration in ``configs``
+    (``BenchConfig`` fields) built into the bench's layout cache,
+    ``synth_layout_dir(<path without .npz>_layouts, cfg)``."""
+    import dataclasses
+    import numpy as np
+    from recommendation_models_tpu_torch import bench
+    from recommendation_models_tpu_torch.data.synthetic import (
+        synthetic_ratings)
+    from recommendation_models_tpu_torch.probes import SCALES
+    coo = synthetic_ratings(*SCALES[scale], rank=16, seed=0)
+    part = path[:-4] + ".part.npz"
+    np.savez(part, u=coo[0], i=coo[1], r=coo[2])
+    os.replace(part, path)
+    for over in configs:
+        cfg = bench.BenchConfig(**over)
+        bench.train_layouts(dataclasses.replace(
+            cfg, layout_cache=synth_layout_dir(path[:-4] + "_layouts", cfg)),
+            coo)
+
+
+def start_synth_data(scale="synth100m", configs=None):
+    """Phase 12's synth-100M ratings and both layouts of its two lines
+    (``configs``, by default theirs in ``BENCH_LINES``; about 160 s of one
+    core) made in a child process on the host (one thread, no card,
+    ``make_synth_data``) while the parent runs phase 11, into
+    ``build/chip_smoke/<scale>.npz`` and ``<scale>_layouts/``: (process,
+    data path, layout cache directory, start time)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"{scale}.npz")
+    cache = path[:-4] + "_layouts"
+    shutil.rmtree(cache, ignore_errors=True)
+    if os.path.exists(path):
+        os.remove(path)
+    if configs is None:
+        configs = [over for name, over, *_ in BENCH_LINES
+                   if over.get("scale") == scale]
+    env = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1",
+               MKL_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    code = ("import json, sys; import chip_smoke; "
+            "chip_smoke.make_synth_data(sys.argv[1], sys.argv[2], "
+            "json.loads(sys.argv[3]))")
+    with open(path + ".err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code, path, scale, json.dumps(configs)],
+            cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=err)
+    return proc, path, cache, time.perf_counter()
+
+
+def load_synth_data(synth, timeout=SYNTH_TIMEOUT):
+    """Waits for ``start_synth_data``'s child and loads its ratings:
+    (users, items, ratings), its file removed. Its layouts load through
+    the bench's cache (``BenchConfig(layout_cache=synth_layout_dir(
+    synth[2], cfg))``)."""
+    import numpy as np
+    proc, path, _, t_start = synth
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=max(1.0, timeout - (t0 - t_start)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise Failed(f"the synth-100M data child ran past {timeout} s")
+    waited = time.perf_counter() - t0
+    if rc != 0:
+        with open(path + ".err") as f:
+            raise Failed(f"the synth-100M data child exited {rc}: "
+                         f"{f.read()[-3000:]}")
+    with np.load(path) as z:
+        coo = (z["u"], z["i"], z["r"])
+    os.remove(path)
+    log(f"# synth-100M data and layouts: {coo[2].shape[0]} obs, made beside "
+        f"phase 11 in {t0 + waited - t_start:.1f}s (waited {waited:.1f}s, "
+        f"the data loaded in {time.perf_counter() - t0 - waited:.1f}s)")
+    return coo
 
 
 def stop_children(children):
@@ -3960,6 +4083,197 @@ def phase_variant_range(torch, dev):
     return out, by_path
 
 
+# ------------------------------------- phase 14: the scripts' probes and
+# the examples (the JAX package's last six scripts and its four examples)
+
+SCAN_SCALE, SCAN_SWEEPS = "ml1m", 10
+SCAN_WINDOWS = 5             # timed windows a side, alternating
+SQ_SCALE, SQ_SWEEPS, SQ_SEEDS = "ml1m", 8, (0, 1, 2)
+SQ_FROZEN_BAND = 5e-4        # the model path against the frozen path
+SQ_REF_BAND = 0.005          # against the JAX package, as phase 6's band
+# recall@10 and NDCG@10 of the JAX package's scripts/serving_quality_probe.py
+# at ML-1M (its 1,000,000 ratings), rank 64, 8 sweeps, on a CPU, by seed:
+#   JAX_PLATFORMS=cpu SEED=<seed> SCALE=ml1m RANK=64 \
+#       python scripts/serving_quality_probe.py
+# (seed 0 is also docs/measurements/r5/serving_probe_head_cpu_ml1m.txt:1)
+REF_SERVING_SEEDS_ML1M = {0: (0.18783, 0.12502), 1: (0.18891, 0.12533),
+                          2: (0.18891, 0.12745)}
+SPLIT_GATHER_RTOL = 1e-4     # the split pass's sum against the baseline's
+EXAMPLES = ("als_quickstart", "imc_cold_start", "serving_quality",
+            "als_implicit_sharded")
+EXAMPLE_TIMEOUT = 300
+
+
+def phase_layout_probes(torch, dev, ul, il):
+    """14d and 14f, on phase 5's ML-25M layouts at rank 64: ``profile_half``
+    on each side (the table beside the CUDA-event time; B2 launched in
+    the user half, B1 in the item half, nothing routed) and
+    ``ablate_gram_layout`` on the user side (both layouts' sums equal,
+    their times and ``aten::copy_`` events)."""
+    from recommendation_models_tpu_torch.ops import cholesky as ch
+    from recommendation_models_tpu_torch.probes import (
+        ablate_gram_layout, profile_half)
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    prof_dir = os.path.join(root, "build", "chip_smoke", "profile_half")
+    # the main path's solves by half: the user buckets all carry hot
+    # columns (B2); the item half has the dense block and no hot columns
+    for side, lay, n_opp, kinds in (
+            ("user", ul, il.n_rows, ("cholesky_solve_hot",)),
+            ("item", il, ul.n_rows, ("cholesky_solve_batched",))):
+        rec = profile_half.run(lay, side, n_opp, RANK, dev, prof_dir)
+        routed = {n: v for n, v in ch.ROUTED.items() if v}
+        log(f"# 14d profile_half {side}: table {rec['total_ms']:.3f} device "
+            f"ms against {rec['event_ms']:.3f} event ms (share "
+            f"{rec['table_share']:.3f}, flagged {rec['flagged']}); solve "
+            f"launches {rec['solve_launches']} recorded "
+            f"{rec['solve_recorded']}; routed {routed}; lanes "
+            f"{[(x['lane'], round(x['ms'], 3)) for x in rec['lanes']]}")
+        check(rec["total_ms"] > 0 and rec["event_ms"] > 0,
+              f"14d: no device time for the {side} half-sweep")
+        check(all(rec["solve_launches"].get(n, 0) > 0 for n in kinds)
+              and not routed,
+              f"14d: the {side} half-sweep did not launch {kinds}: "
+              f"{rec['solve_launches']} routed {routed}")
+    rec = ablate_gram_layout.run(ul, "user", il.n_rows, RANK, ABL_ITERS, dev)
+    log(f"# 14f ablate_gram_layout user: {json.dumps(rec)}")
+    check(rec["klb"]["sum"] == rec["bkl"]["sum"]
+          and rec["klb"]["ms"] > 0 and rec["bkl"]["ms"] > 0,
+          f"14f: the two gram layouts disagree or were not timed: {rec}")
+    log(f"# 14d + 14f: {time.perf_counter() - t0:.1f}s")
+
+
+def start_examples(torch):
+    """14g: the port's four examples (``examples/torch_port/``) started at
+    once in subprocesses on the card (no ``--platform``), their temporary
+    files under ``build/chip_smoke/``: [(name, process, log path)]."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "build", "chip_smoke", "examples")
+    os.makedirs(os.path.join(out, "tmp"), exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=root, TMPDIR=os.path.join(out, "tmp"))
+    procs = []
+    for name in EXAMPLES:
+        path = os.path.join(out, f"{name}.log")
+        with open(path, "w") as f:
+            procs.append((name, subprocess.Popen(
+                [sys.executable, os.path.join(root, "examples", "torch_port",
+                                              f"{name}.py")],
+                cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT),
+                path))
+    return procs
+
+
+def finish_examples(procs, t0):
+    """Waits for ``start_examples``' processes (each killed past
+    ``EXAMPLE_TIMEOUT`` s from ``t0``); each must exit 0."""
+    for name, proc, path in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, EXAMPLE_TIMEOUT
+                                       - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed at the time limit"
+        with open(path) as f:
+            text = f.read()
+        tail = " | ".join(text.strip().splitlines()[-3:])
+        log(f"# 14g example {name}: exit {rc}; {tail[:600]}")
+        check(rc == 0, f"14g: the example {name} exited {rc}: {text[-3000:]}")
+    log(f"# 14g: the four examples in {time.perf_counter() - t0:.1f}s")
+
+
+def phase_probes(torch, dev):
+    """14a, 14b, 14c, 14e and 14g. The examples (14g) run in subprocesses
+    beside the untimed 14b and 14c; 14a and 14e, which time, run after
+    them. Returns the sharded hot smoke's launches."""
+    import numpy as np
+    from recommendation_models_tpu_torch.data.synthetic import (
+        synthetic_ratings)
+    from recommendation_models_tpu_torch.probes import SCALES
+    from recommendation_models_tpu_torch.probes import serving_quality as sq
+    from recommendation_models_tpu_torch.probes import (
+        sharded_hot, sharded_scan, split_gather)
+    t_phase = time.perf_counter()
+    procs = start_examples(torch)
+    try:
+        # 14b: the sharded hot smoke, counted
+        t0 = time.perf_counter()
+        try:
+            hot = sharded_hot.run()
+        except AssertionError as exc:
+            raise Failed(f"14b: the sharded hot smoke failed: {exc}")
+        log(f"# 14b sharded hot smoke: {json.dumps(hot)}; "
+            f"{time.perf_counter() - t0:.1f}s")
+        check(hot["launches"]["cholesky_solve_hot"] > 0 and not hot["routed"],
+              f"14b: B2 not launched or calls routed: {hot}")
+        hot_launches = dict(hot["launches"])
+
+        # 14c: serving quality at three seeds, and an NPZ round trip
+        t0 = time.perf_counter()
+        data = sq.serving_data(SQ_SCALE)
+        npz = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke", "serving_quality_seed0.npz")
+        recs = {}
+        for seed in SQ_SEEDS:
+            rec = sq.run(SQ_SCALE, RANK, SQ_SWEEPS, seed, data=data,
+                         npz_out=npz if seed == 0 else None)
+            recs[seed] = rec
+            log(f"# 14c serving quality seed {seed}: {json.dumps(rec)}")
+            check(rec["platform"] == "cuda", f"14c: not on the card: {rec}")
+            for m, want in zip(("recall", "ndcg"),
+                               REF_SERVING_SEEDS_ML1M[seed]):
+                got = rec[f"{m}_model_path"]
+                check(abs(got - rec[f"{m}_frozen_path"]) <= SQ_FROZEN_BAND,
+                      f"14c seed {seed}: the model path's {m} {got} is not "
+                      f"within {SQ_FROZEN_BAND} of the frozen path's")
+                check(abs(got - want) <= SQ_REF_BAND,
+                      f"14c seed {seed}: {m} {got} is not within "
+                      f"{SQ_REF_BAND} of the JAX package's {want}")
+        again = sq.run(SQ_SCALE, RANK, SQ_SWEEPS, 0, npz_in=npz, data=data)
+        log(f"# 14c NPZ_OUT -> NPZ_IN seed 0: {json.dumps(again)}")
+        check(again == {**recs[0], "fit": "loaded"},
+              f"14c: the NPZ round trip changed the record: {again}")
+        log(f"# 14c: {time.perf_counter() - t0:.1f}s")
+    finally:
+        finish_examples(procs, t_phase)
+
+    # 14a: the sharded scan, stepwise against scanned, both layouts
+    t0 = time.perf_counter()
+    coo = synthetic_ratings(*SCALES[SCAN_SCALE], rank=16, seed=0)
+    for fastpaths in (False, True):
+        try:
+            rec = sharded_scan.run(SCAN_SCALE, RANK, SCAN_SWEEPS, 1,
+                                   fastpaths, coo=coo, windows=SCAN_WINDOWS,
+                                   counts=False)
+        except AssertionError as exc:
+            raise Failed(f"14a: stepwise and scanned histories disagree "
+                         f"(FASTPATHS={int(fastpaths)}): {exc}")
+        log(f"# 14a sharded scan FASTPATHS={int(fastpaths)}: "
+            f"{json.dumps(rec)}")
+        check(all(s > 0 for side in rec["windows_s"].values() for s in side)
+              and all(np.isfinite(rec["history_scanned"])),
+              f"14a: no time measured or a history not finite: {rec}")
+    del coo
+    log(f"# 14a: {time.perf_counter() - t0:.1f}s")
+
+    # 14e: the split gather at bf16 and f32
+    t0 = time.perf_counter()
+    for dtype in ("bfloat16", "float32"):
+        rec = split_gather.run(dtype)
+        log(f"# 14e split gather {dtype}: {json.dumps(rec)}")
+        lines = [rec[k] for k in ("baseline", "split", "reference")]
+        check(all(x["ms_per_pass"] > 0 and np.isfinite(x["sum"])
+                  for x in lines),
+              f"14e: a line was not timed or is not finite: {rec}")
+        check(abs(rec["split"]["sum"] - rec["baseline"]["sum"])
+              <= SPLIT_GATHER_RTOL * abs(rec["baseline"]["sum"]),
+              f"14e: the split pass's sum is not the baseline's: {rec}")
+        torch.cuda.empty_cache()
+    log(f"# 14e: {time.perf_counter() - t0:.1f}s")
+    log(f"# 14a-c, e, g: {time.perf_counter() - t_phase:.1f}s")
+    return hot_launches
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4026,19 +4340,31 @@ def main(argv) -> int:
     cli_hist = [x["train_rmse"] for x in read_jsonl(os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
         "ml25m.jsonl"))[:-1]]
-    mp_launches = phase_multiprocess(torch, dev, coo, cli_hist,
-                                     sharded_sweep_s, imc)
-    for n in MAIN_KERNELS:
-        by_path[n]["multiprocess"] = mp_launches[n]
-        launches[n] += mp_launches[n]
-    torch.cuda.empty_cache()
-    main_data = [coo, ul, il]
-    del ul, il          # phase 13 keeps the ratings (about 400 MB)
-    # phase 13's IMC quality probe: its oracle fits (host only, one core
-    # each, about 150 s) run in child processes beside phases 12 and 13
-    children = start_imc_oracles()
+    # phase 12's synth-100M ratings and layouts are made in a child
+    # process on the host beside phase 11, whose own processes leave cores
+    # idle
+    synth = start_synth_data()
+    children = [(None, synth[0], synth[1])]
     try:
-        for line, counts in phase_bench(torch, dev, main_data).items():
+        mp_launches = phase_multiprocess(torch, dev, coo, cli_hist,
+                                         sharded_sweep_s, imc)
+        for n in MAIN_KERNELS:
+            by_path[n]["multiprocess"] = mp_launches[n]
+            launches[n] += mp_launches[n]
+        torch.cuda.empty_cache()
+        t14 = time.perf_counter()
+        phase_layout_probes(torch, dev, ul, il)
+        t14 = time.perf_counter() - t14
+        torch.cuda.empty_cache()
+        main_data = [coo, ul, il]
+        del ul, il          # phase 13 keeps the ratings (about 400 MB)
+        # phase 13's IMC quality probe: its oracle fits (host only, one
+        # core each, about 150 s) run in child processes beside phases 12
+        # and 13
+        oracles = start_imc_oracles()
+        children += oracles
+        for line, counts in phase_bench(torch, dev, main_data,
+                                        synth).items():
             for n in MAIN_KERNELS:
                 by_path[n][line] = counts[n]
                 launches[n] += counts[n]
@@ -4065,7 +4391,7 @@ def main(argv) -> int:
             by_path[n]["rank160_hot"] = hot_launches[n]
             launches[n] += hot_launches[n]
         torch.cuda.empty_cache()
-        phase_quality(torch, dev, children)
+        phase_quality(torch, dev, oracles)
     finally:
         stop_children(children)
     torch.cuda.empty_cache()
@@ -4080,6 +4406,13 @@ def main(argv) -> int:
         by_path[n] = {"probe_k128": launches[n], **variant_paths[n]}
         launches[n] += sum(variant_paths[n].values())
     log(f"# phase 13: {time.perf_counter() - t13:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hot_launches = phase_probes(torch, dev)
+    for n in MAIN_KERNELS:
+        by_path[n]["sharded_hot"] = hot_launches[n]
+        launches[n] += hot_launches[n]
+    log(f"# phase 14: {t14 + time.perf_counter() - t0:.1f}s")
     head = large["by_order"][str(max(LARGE_KS))][
         f"g_{ch.block_batch(max(LARGE_KS))}"]
     large.update({f: head[f] for f in ("max_abs_err", "ms", "plain_ms",

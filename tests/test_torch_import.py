@@ -66,6 +66,12 @@ _PROBE = textwrap.dedent("""
     import recommendation_models_tpu_torch.probes.quality_parity
     import recommendation_models_tpu_torch.probes.quality_parity_imc
     import recommendation_models_tpu_torch.probes.serving
+    import recommendation_models_tpu_torch.probes.serving_quality
+    import recommendation_models_tpu_torch.probes.sharded_hot
+    import recommendation_models_tpu_torch.probes.sharded_scan
+    import recommendation_models_tpu_torch.probes.split_gather
+    import recommendation_models_tpu_torch.probes.profile_half
+    import recommendation_models_tpu_torch.probes.ablate_gram_layout
     import recommendation_models_tpu_torch.probes.solve_latency
     import recommendation_models_tpu_torch.probes.solve_variants
     import recommendation_models_tpu_torch.solver.als_sweep
@@ -75,6 +81,7 @@ _PROBE = textwrap.dedent("""
     import recommendation_models_tpu_torch.utils.logging
     import recommendation_models_tpu_torch.utils.profiling
     from recommendation_models_tpu_torch import ALS, IMC
+    # EXAMPLE_IMPORTS
     print("EXPORTS", sorted(recommendation_models_tpu_torch.__all__))
     new = set(sys.modules) - before
     # exact-key checks: "recommendation_models_tpu" is a prefix of the
@@ -88,9 +95,34 @@ _PROBE = textwrap.dedent("""
 """)
 
 
+EXAMPLES = os.path.join(REPO, "examples", "torch_port")
+
+
+def _example_imports(path):
+    """The module-level import lines of one of the port's examples."""
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return [ast.unparse(node) for node in tree.body
+            if isinstance(node, (ast.Import, ast.ImportFrom))]
+
+
+def _all_example_imports():
+    lines = []
+    for name in sorted(os.listdir(EXAMPLES)):
+        if name.endswith(".py"):
+            lines += _example_imports(os.path.join(EXAMPLES, name))
+    return "\n".join(dict.fromkeys(lines))
+
+
 def test_port_imports_without_jax_reference_or_triton():
+    """The port's modules, its probes and every import line of its examples
+    (``examples/torch_port/``) import neither JAX, the JAX package nor
+    triton."""
     env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+    probe = _PROBE.replace("# EXAMPLE_IMPORTS", _all_example_imports())
+    assert "from recommendation_models_tpu_torch import IMC" in probe
+    res = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
@@ -109,6 +141,40 @@ def test_fit_without_platform_raises_without_card(monkeypatch):
     m2 = port.ALS(rank=4, n_sweeps=1, platform="cpu").fit(
         tiny_problem(12, 10, seed=3))
     assert np.isfinite(m2.U_).all()
+
+
+_EXAMPLE_RUN = textwrap.dedent("""
+    import importlib.abc, sys
+
+    class _Block(importlib.abc.MetaPathFinder):
+        # JAX, the JAX package and triton
+        def find_spec(self, name, path, target=None):
+            if (name in ("jax", "jaxlib", "recommendation_models_tpu",
+                         "triton")
+                    or name.startswith(("jax.", "jaxlib.", "triton.",
+                                        "recommendation_models_tpu."))):
+                raise ImportError(name + " is blocked for this check")
+            return None
+
+    sys.meta_path.insert(0, _Block())
+    {imports}
+    print("IMPORTED")
+""")
+
+
+@pytest.mark.parametrize("name", ["als_quickstart", "imc_cold_start",
+                                  "serving_quality", "als_implicit_sharded"])
+def test_example_import_lines_run_without_jax(name):
+    """Each of the port's examples imports what it needs with JAX, the JAX
+    package and triton blocked from import."""
+    lines = _example_imports(os.path.join(EXAMPLES, f"{name}.py"))
+    assert any("recommendation_models_tpu_torch" in ln for ln in lines)
+    code = _EXAMPLE_RUN.replace("{imports}", "\n".join(lines))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "IMPORTED" in res.stdout
 
 
 @pytest.mark.parametrize("platform,expect", [
