@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from recommendation_models_tpu_torch.config import DataConfig
+from recommendation_models_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -308,18 +309,20 @@ def layout_from_coo(
     transpose: bool = False,
 ) -> PaddedLayout:
     """Build a layout from COO triplets (optionally of the transpose, for
-    the item half-sweep). Sorts into CSR internally."""
-    rows = np.asarray(rows)
-    cols = np.asarray(cols)
-    vals = np.asarray(vals, dtype=np.float32)
-    if transpose:
-        rows, cols = cols, rows
-        n_rows, n_cols = n_cols, n_rows
-    order = np.argsort(rows, kind="stable")
-    rows_s, cols_s, vals_s = rows[order], cols[order], vals[order]
-    counts = np.bincount(rows_s, minlength=n_rows)
-    indptr = np.concatenate([[0], np.cumsum(counts)])
-    return build_layout(indptr, cols_s, vals_s, n_rows, n_cols, config)
+    the item half-sweep). Sorts into CSR internally. One ``layout.build``
+    span (``utils.profiling``)."""
+    with span("layout.build"):
+        rows = np.asarray(rows)
+        cols = np.asarray(cols)
+        vals = np.asarray(vals, dtype=np.float32)
+        if transpose:
+            rows, cols = cols, rows
+            n_rows, n_cols = n_cols, n_rows
+        order = np.argsort(rows, kind="stable")
+        rows_s, cols_s, vals_s = rows[order], cols[order], vals[order]
+        counts = np.bincount(rows_s, minlength=n_rows)
+        indptr = np.concatenate([[0], np.cumsum(counts)])
+        return build_layout(indptr, cols_s, vals_s, n_rows, n_cols, config)
 
 
 def csr_arrays(R) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int, int]:

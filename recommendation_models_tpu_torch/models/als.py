@@ -76,6 +76,7 @@ from recommendation_models_tpu_torch.solver.als_sweep import (
 from recommendation_models_tpu_torch.utils.checkpoint import (
     load_latest, save_checkpoint, wait_pending,
 )
+from recommendation_models_tpu_torch.utils.profiling import count, span
 
 
 class ALS(BaseEstimator):
@@ -680,7 +681,14 @@ class ALS(BaseEstimator):
         Selection is exact for every ``method`` ('auto', 'exact' or
         'approx'; ``recall_target`` is accepted for the reference's
         signature). With ``exclude_seen`` each user's training items are
-        dropped (``ops.topk.grouped_exclusion_topk``)."""
+        dropped (``ops.topk.grouped_exclusion_topk``). A call is one
+        ``serve.recommend`` span (``utils.profiling``) and counts its users
+        in ``serve.users``."""
+        with span("serve.recommend", call=True):
+            return self._recommend(user_ids, n, exclude_seen, method,
+                                   recall_target)
+
+    def _recommend(self, user_ids, n, exclude_seen, method, recall_target):
         self._check_fitted()
         user_ids = np.atleast_1d(np.asarray(user_ids, np.int64))
         if user_ids.size and (user_ids.min() < 0
@@ -688,6 +696,7 @@ class ALS(BaseEstimator):
             raise ValueError(
                 f"user ids must be in [0, {self.n_users_}); got "
                 f"[{user_ids.min()}, {user_ids.max()}]")
+        count("serve.users", user_ids.shape[0])
         n = min(n, self.n_items_)    # never ask top_k for more than exists
         query_rows, topk = self._topk_backend(method, recall_target)
         if exclude_seen and not hasattr(self, "_train_indptr"):
@@ -735,7 +744,8 @@ class ALS(BaseEstimator):
         V_local = self._vdev_cache[1]
 
         def query_rows(ids):
-            return torch.as_tensor(self.U_[ids], device=device)
+            # host rows: topk_scores uploads them
+            return self.U_[ids]
 
         def topk(Uq, k, excl):
             return topk_scores(Uq, V_local, k, excl, method=method,

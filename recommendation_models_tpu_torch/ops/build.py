@@ -7,7 +7,8 @@ library name carries a hash of the source, the shared headers
 processes never load a half-written file (the build writes to a temporary
 name and renames it into place). Libraries go to ``build/kernels/`` at the
 root of the checkout. ``build`` takes several sources and starts their
-``nvcc`` runs together.
+``nvcc`` runs together, in one ``kernels.build`` span, and counts the
+sources it compiled in ``kernels.built`` (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict
+
+from recommendation_models_tpu_torch.utils.profiling import count, span
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -62,21 +65,24 @@ def build(*names: str) -> None:
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    runs = []
-    for name, out in todo:
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        runs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    failed = []
-    for name, out, tmp, proc in runs:
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu "
-                          f"(exit {proc.returncode}):\n{log}")
-        else:
-            os.replace(tmp, out)
+    with span("kernels.build"):
+        runs = []
+        for name, out in todo:
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            runs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for name, out, tmp, proc in runs:
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu "
+                              f"(exit {proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, out)
+                count("kernels.built")
     if failed:
         raise RuntimeError("\n".join(failed))
 

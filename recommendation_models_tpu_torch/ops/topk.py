@@ -27,6 +27,14 @@ Exclusion of seen items overfetches ``k + E`` candidates and filters them
 ``k + E``. The filter sorts each exclusion row and looks every candidate up
 with ``searchsorted``, so its memory is O(B·(overfetch + E)), never the
 (B, overfetch, E) comparison.
+
+Spans (``utils.profiling``) of the serving path: ``serve.exclusions``
+(each level's exclusion lists, and their map to serving rows),
+``serve.upload`` (the queries and exclusion lists to the device),
+``serve.select`` (the product and selection; ``_top_k``'s ``nonzero``
+waits for the device there) and ``serve.readback`` (the results to the
+host);
+``serve.exclusion_ids`` counts the exclusion ids built.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import numpy as np
 import torch
 
 from recommendation_models_tpu_torch.ops.gram import check_full_f32
+from recommendation_models_tpu_torch.utils.profiling import count, span
 
 # Item-axis block of the chunked exact selection.
 _EXACT_BLOCK = 16_384
@@ -170,10 +179,13 @@ def topk_scores(
             f"k must be in [1, n_items={V.shape[0]}], got {k} — a short "
             "(B, <k) result would break shape-(B, k) consumers silently")
     _resolve_method(method, V.shape[0], k)
-    U_rows = torch.as_tensor(U_rows, dtype=torch.float32, device=V.device)
-    if exclude is not None:
-        exclude = torch.as_tensor(exclude, device=V.device)
-    return _topk_unseen(U_rows, V, k, exclude)
+    with span("serve.upload"):
+        U_rows = torch.as_tensor(U_rows, dtype=torch.float32,
+                                 device=V.device)
+        if exclude is not None:
+            exclude = torch.as_tensor(exclude, device=V.device)
+    with span("serve.select"):
+        return _topk_unseen(U_rows, V, k, exclude)
 
 
 _PERM_SEED = 0x5EED
@@ -211,14 +223,15 @@ def permuted_topk(topk, perm_back, perm_fwd):
 
     def wrapped(Uq, k, excl):
         if excl is not None:
-            e = np.asarray(excl)
-            excl = np.where(e >= 0, perm_fwd[np.maximum(e, 0)], -1
-                            ).astype(np.int32)
+            with span("serve.exclusions"):
+                e = np.asarray(excl)
+                excl = np.where(e >= 0, perm_fwd[np.maximum(e, 0)], -1
+                                ).astype(np.int32)
         sc, it = topk(Uq, k, excl)
-        it = _host(it)
+        with span("serve.readback"):
+            it, sc = _host(it), _host(sc)
         inside = (it >= 0) & (it < n)
-        return _host(sc), np.where(inside, perm_back[np.where(inside, it, 0)],
-                                   -1)
+        return sc, np.where(inside, perm_back[np.where(inside, it, 0)], -1)
     return wrapped
 
 
@@ -262,16 +275,19 @@ def grouped_exclusion_topk(user_ids, n, indptr, indices, query_rows, topk,
         # fixed widths, at most 4x padding
         width = level
         start = cut
-        lo = indptr[user_ids[grp]]
-        gdeg = degs[grp]
-        cols = np.arange(width, dtype=np.int64)[None, :]
-        valid = cols < gdeg[:, None]
-        pos = np.where(valid, lo[:, None] + cols, 0)
-        # indices may be EMPTY (every requested user has zero training
-        # degree): fancy-indexing an empty array raises, so use zeros
-        # (masked to -1 anyway)
-        gathered = indices[pos] if indices.size else np.zeros_like(pos)
-        excl = np.where(valid, gathered, -1).astype(np.int32)
+        with span("serve.exclusions"):
+            lo = indptr[user_ids[grp]]
+            gdeg = degs[grp]
+            cols = np.arange(width, dtype=np.int64)[None, :]
+            valid = cols < gdeg[:, None]
+            pos = np.where(valid, lo[:, None] + cols, 0)
+            # indices may be EMPTY (every requested user has zero training
+            # degree): fancy-indexing an empty array raises, so use zeros
+            # (masked to -1 anyway)
+            gathered = indices[pos] if indices.size else np.zeros_like(pos)
+            excl = np.where(valid, gathered, -1).astype(np.int32)
+        # a group's degrees are at most its level: every id is kept
+        count("serve.exclusion_ids", int(gdeg.sum()))
         for q in range(0, grp.shape[0], query_chunk):
             sl = slice(q, q + query_chunk)
             # the host block goes to the backend: the permutation wrapper

@@ -12,6 +12,14 @@ system.
 The sweeps run eagerly: a Python loop over sweeps, buckets and row blocks
 that only enqueues device work. The training SSE of each sweep stays a
 device tensor; a fit with ``tol == 0`` reads the history back once.
+
+Spans (``utils.profiling``): ``als.fit`` (a call of the whole-fit
+function), ``als.sweep``, ``als.half_sweep``, ``als.dense`` (the dense
+block's grams, solve and scatter) and ``als.sse`` (the separate SSE pass);
+marks, written only under a profiler, around each row block's grams
+(``als.grams``) and its solve and scatter (``als.solves``); counters of
+the gather slots each half-sweep walks (``als.gather_slots``, padded rows
+times P) and the real ratings among them (``als.gather_ratings``).
 """
 
 from __future__ import annotations
@@ -37,9 +45,11 @@ from recommendation_models_tpu_torch.ops.solve import (
     resolve_compute_dtype, solve_spd_batched, solve_spd_batched_hot,
     solve_spd_flat, torch_dtype,
 )
+from recommendation_models_tpu_torch.utils.profiling import count, mark, span
 
 # A device bucket is a dict: row_ids (B,) int64, indices (B, P) int32,
-# values (B, P) f32, mask (B, P) f32 and optionally hot_vals (B, C) bf16.
+# values (B, P) f32, mask (B, P) f32, optionally hot_vals (B, C) bf16, and
+# from device_buckets n_ratings, the int count of its real (mask 1) slots.
 # The dense block is {dense_ids, dense_vals}, the hot ids {hot_ids}.
 DeviceBuckets = Tuple[Dict[str, torch.Tensor], ...]
 
@@ -77,7 +87,8 @@ def device_buckets(layout: PaddedLayout, row_multiple: int = 1,
                 hv = np.concatenate(
                     [hv, np.zeros((pad, hv.shape[1]), hv.dtype)])
         d = dict(row_ids=put(rid, torch.int64), indices=put(idx),
-                 values=put(val), mask=put(msk))
+                 values=put(val), mask=put(msk),
+                 n_ratings=int(np.count_nonzero(b.mask)))
         if hv is not None:
             # (B, C) batch-major, bf16 on the device like the reference
             # (the host slab is f16; both are exact for half-star ratings)
@@ -181,32 +192,35 @@ def solve_all_buckets(V, buckets, n_rows: int, cfg: SolveConfig, g0,
     xr = torch.zeros((), dtype=torch.float32, device=dev)
     xx = torch.zeros((), dtype=torch.float32, device=dev)
     if dense is not None:
-        G, rhs, ddeg, dr2 = dense_gram_rhs(V, dense["dense_vals"], cfg.alpha,
-                                           dtype)
-        if g0 is not None:
-            G += g0.reshape(-1).float()
-        if cfg.reg_by_degree:
-            reg_vec = cfg.reg * torch.clamp_min(ddeg, 1.0)
-        else:
-            reg_vec = torch.full((G.shape[0],), cfg.reg, dtype=torch.float32,
-                                 device=dev)
-        x = solve_spd_flat(G, rhs, k, cfg.solver, reg_vec=reg_vec)
-        if dtype != torch.float32:
-            # bf16 outer products inside dense_gram_rhs are not an exact
-            # gram, so a near-degenerate whale gram can dip below the ridge:
-            # re-solve NaN rows (and the huge-but-finite rows the pivot clamp
-            # can produce) with a trace-proportional jitter
-            diag_ix = torch.arange(k, device=dev) * (k + 1)
-            tr = torch.clamp_min(G[:, diag_ix].mean(-1), 0.0)
-            x_safe = solve_spd_flat(G, rhs, k, cfg.solver,
-                                    reg_vec=reg_vec + 0.02 * tr)
-            bad = (torch.isnan(x) | (x.abs() > 1e12)).any(-1, keepdim=True)
-            x = torch.where(bad, x_safe, x)
-        U[dense["dense_ids"]] = x
-        if with_sse:
-            r2 = r2 + dr2
-            xr = xr + (x * rhs).sum()
-            xx = xx + (reg_vec[:, None] * x * x).sum()
+        with span("als.dense"):
+            G, rhs, ddeg, dr2 = dense_gram_rhs(V, dense["dense_vals"],
+                                               cfg.alpha, dtype)
+            if g0 is not None:
+                G += g0.reshape(-1).float()
+            if cfg.reg_by_degree:
+                reg_vec = cfg.reg * torch.clamp_min(ddeg, 1.0)
+            else:
+                reg_vec = torch.full((G.shape[0],), cfg.reg,
+                                     dtype=torch.float32, device=dev)
+            x = solve_spd_flat(G, rhs, k, cfg.solver, reg_vec=reg_vec)
+            if dtype != torch.float32:
+                # bf16 outer products inside dense_gram_rhs are not an
+                # exact gram, so a near-degenerate whale gram can dip below
+                # the ridge: re-solve NaN rows (and the huge-but-finite rows
+                # the pivot clamp can produce) with a trace-proportional
+                # jitter
+                diag_ix = torch.arange(k, device=dev) * (k + 1)
+                tr = torch.clamp_min(G[:, diag_ix].mean(-1), 0.0)
+                x_safe = solve_spd_flat(G, rhs, k, cfg.solver,
+                                        reg_vec=reg_vec + 0.02 * tr)
+                bad = (torch.isnan(x) | (x.abs() > 1e12)).any(-1,
+                                                              keepdim=True)
+                x = torch.where(bad, x_safe, x)
+            U[dense["dense_ids"]] = x
+            if with_sse:
+                r2 = r2 + dr2
+                xr = xr + (x * rhs).sum()
+                xx = xx + (reg_vec[:, None] * x * x).sum()
     g0_b = None if g0 is None else g0.float()[None]
     for bucket in buckets:
         values, mask = bucket["values"], bucket["mask"]
@@ -215,6 +229,9 @@ def solve_all_buckets(V, buckets, n_rows: int, cfg: SolveConfig, g0,
         idx = bucket["indices"]
         hv = bucket.get("hot_vals") if hot_vh is not None else None  # (B, C)
         b, p = idx.shape
+        if "n_ratings" in bucket:
+            count("als.gather_slots", b * p)
+            count("als.gather_ratings", bucket["n_ratings"])
         chunk = widen_chunk(cfg.chunk, b, p)
         hot_deg = None
         if hv is not None and (cfg.reg_by_degree or cfg.reg == 0):
@@ -240,18 +257,21 @@ def solve_all_buckets(V, buckets, n_rows: int, cfg: SolveConfig, g0,
                  // (p * k * dtype.itemsize) // block * block)
         for s in range(0, b, bb):
             e = min(s + bb, b)
-            G, rt = gram_rhs(V, idx[s:e], wg[s:e], wr[s:e], chunk=chunk,
-                             compute_dtype=dtype)
-            if g0_b is not None:
-                G += g0_b
+            with mark("als.grams"):
+                G, rt = gram_rhs(V, idx[s:e], wg[s:e], wr[s:e], chunk=chunk,
+                                 compute_dtype=dtype)
+                if g0_b is not None:
+                    G += g0_b
             reg_b = reg_row[s:e]
-            if hv is not None:
-                x = solve_spd_batched_hot(G, rt, hv[s:e], hot_vh,
-                                          alpha=cfg.alpha, solver=cfg.solver,
-                                          reg_vec=reg_b)
-            else:
-                x = solve_spd_batched(G, rt, cfg.solver, reg_vec=reg_b)
-            U[rid[s:e]] = x
+            with mark("als.solves"):
+                if hv is not None:
+                    x = solve_spd_batched_hot(G, rt, hv[s:e], hot_vh,
+                                              alpha=cfg.alpha,
+                                              solver=cfg.solver,
+                                              reg_vec=reg_b)
+                else:
+                    x = solve_spd_batched(G, rt, cfg.solver, reg_vec=reg_b)
+                U[rid[s:e]] = x
             if with_sse:
                 if hv is not None:
                     # the identity needs x · rhs_total: add the hot rhs term
@@ -278,11 +298,13 @@ def half_sweep(V: torch.Tensor, buckets: DeviceBuckets, n_rows: int,
 
     Returns the new (n_rows, k) table, plus (with ``with_sse``) the total
     explicit-objective residual SSE at the post-solve state."""
-    full_f32()
-    g0 = None
-    if cfg.alpha is not None:
-        g0 = V.t() @ V
-    U, sse = solve_all_buckets(V, buckets, n_rows, cfg, g0, with_sse=with_sse)
+    with span("als.half_sweep"):
+        full_f32()
+        g0 = None
+        if cfg.alpha is not None:
+            g0 = V.t() @ V
+        U, sse = solve_all_buckets(V, buckets, n_rows, cfg, g0,
+                                   with_sse=with_sse)
     if with_sse:
         return U, sse
     return U
@@ -313,39 +335,42 @@ def masked_sse(U: torch.Tensor, V: torch.Tensor, buckets: DeviceBuckets,
 
     Big buckets go in row blocks (then degree chunks) so the gathered
     temporary stays bounded; ``gather_budget_mb=0`` is the auto policy."""
-    full_f32()
-    check_full_f32(V)
-    k = V.shape[-1]
-    dev = V.device
-    buckets, dense, hot_ids = _split_special(buckets)
-    gather_budget_mb = resolve_gather_budget(gather_budget_mb, k, buckets,
-                                             for_sse=True)
-    hot_V = None if hot_ids is None else V.index_select(0, hot_ids)
-    # the sentinel id U.shape[0] reads a zero row (the reference's fill mode)
-    Uz = torch.cat([U, torch.zeros((1, k), dtype=U.dtype, device=dev)])
-    total = torch.zeros((), dtype=torch.float32, device=dev)
-    if dense is not None:
-        vals = dense["dense_vals"]
-        Ud = Uz[dense["dense_ids"]]
-        n = vals.shape[1]
-        for s in range(0, n, 16_384):
-            e = min(s + 16_384, n)
-            pred = Ud @ V[s:e].t()
-            v = vals[:, s:e].float()
-            total = total + torch.where(v != 0, (v - pred) ** 2,
-                                        torch.zeros_like(v)).sum()
-    for b in buckets:
-        idx, val, msk, rid = b["indices"], b["values"], b["mask"], b["row_ids"]
-        hv = b.get("hot_vals") if hot_V is not None else None
-        bsz, p = idx.shape
-        chunk_b = widen_chunk(chunk, bsz, p)
-        bb = max(8, (gather_budget_mb * (1 << 20))
-                 // (min(p, chunk_b) * k * 4) // 8 * 8)
-        for s in range(0, bsz, bb):
-            e = min(s + bb, bsz)
-            total = total + _block_sse(
-                Uz, V, hot_V, rid[s:e], idx[s:e], val[s:e], msk[s:e],
-                chunk_b, None if hv is None else hv[s:e])
+    with span("als.sse"):
+        full_f32()
+        check_full_f32(V)
+        k = V.shape[-1]
+        dev = V.device
+        buckets, dense, hot_ids = _split_special(buckets)
+        gather_budget_mb = resolve_gather_budget(gather_budget_mb, k, buckets,
+                                                 for_sse=True)
+        hot_V = None if hot_ids is None else V.index_select(0, hot_ids)
+        # the sentinel id U.shape[0] reads a zero row (the reference's fill
+        # mode)
+        Uz = torch.cat([U, torch.zeros((1, k), dtype=U.dtype, device=dev)])
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        if dense is not None:
+            vals = dense["dense_vals"]
+            Ud = Uz[dense["dense_ids"]]
+            n = vals.shape[1]
+            for s in range(0, n, 16_384):
+                e = min(s + 16_384, n)
+                pred = Ud @ V[s:e].t()
+                v = vals[:, s:e].float()
+                total = total + torch.where(v != 0, (v - pred) ** 2,
+                                            torch.zeros_like(v)).sum()
+        for b in buckets:
+            idx, val, msk, rid = (b["indices"], b["values"], b["mask"],
+                                  b["row_ids"])
+            hv = b.get("hot_vals") if hot_V is not None else None
+            bsz, p = idx.shape
+            chunk_b = widen_chunk(chunk, bsz, p)
+            bb = max(8, (gather_budget_mb * (1 << 20))
+                     // (min(p, chunk_b) * k * 4) // 8 * 8)
+            for s in range(0, bsz, bb):
+                e = min(s + bb, bsz)
+                total = total + _block_sse(
+                    Uz, V, hot_V, rid[s:e], idx[s:e], val[s:e], msk[s:e],
+                    chunk_b, None if hv is None else hv[s:e])
     return total
 
 
@@ -403,20 +428,22 @@ def make_scanned_program_fit(sweep_sse, n_sweeps: int, tol: float, nnz: int,
     differs by less than ``tol``)."""
 
     def fit(U, V):
-        sses = []
-        prev = None
-        for _ in range(n_sweeps):
-            U, V, sse = sweep_sse(U, V, *extra)
-            sses.append(sse)
-            if tol > 0:
-                cur = math.sqrt(max(float(sse), 0.0) / nnz)
-                if prev is not None and abs(prev - cur) < tol:
-                    break
-                prev = cur
-        n_done = len(sses)
-        hist = torch.full((n_sweeps,), -1.0, dtype=torch.float32,
-                          device=sses[0].device)
-        hist[:n_done] = torch.stack(sses)
+        with span("als.fit", call=True):
+            sses = []
+            prev = None
+            for _ in range(n_sweeps):
+                with span("als.sweep"):
+                    U, V, sse = sweep_sse(U, V, *extra)
+                sses.append(sse)
+                if tol > 0:
+                    cur = math.sqrt(max(float(sse), 0.0) / nnz)
+                    if prev is not None and abs(prev - cur) < tol:
+                        break
+                    prev = cur
+            n_done = len(sses)
+            hist = torch.full((n_sweeps,), -1.0, dtype=torch.float32,
+                              device=sses[0].device)
+            hist[:n_done] = torch.stack(sses)
         return U, V, hist, n_done
 
     return fit

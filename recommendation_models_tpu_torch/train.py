@@ -4,7 +4,9 @@ The JAX package's ``train.py`` on PyTorch: the same argument groups,
 options, defaults and choices, the same per-sweep JSONL records and summary,
 for batch jobs. Data selection (MovieLens file or synthetic), estimator
 hyperparameters, checkpointing, metrics (JSONL + TensorBoard), and profiler
-tracing (``torch.profiler``, a Chrome trace in ``--trace-dir``).
+tracing (``torch.profiler``, a Chrome trace in ``--trace-dir`` with the
+port's spans beside it). The summary record carries the port's spans
+(count, total and self ms per name) and counters (``utils.profiling``).
 
 It runs on the CUDA card unless ``--platform cpu``; with no card and no
 ``--platform`` the estimator raises. ``--n-shards S`` fits the 1-D sharded
@@ -171,7 +173,7 @@ def main(argv: Optional[list] = None) -> int:
     from recommendation_models_tpu_torch.evaluate import leave_n_out
     from recommendation_models_tpu_torch.utils.logging import MetricsLogger
     from recommendation_models_tpu_torch.utils.profiling import (
-        Timer, trace_sweeps)
+        Timer, summary_record, trace_sweeps)
 
     users, items, ratings, n_users, n_items = _load_data(args)
     nnz = ratings.shape[0]
@@ -277,7 +279,7 @@ def main(argv: Optional[list] = None) -> int:
         summary["ndcg_at_10"] = round(float(ndcg_at_k(topk, rel_eval)), 4)
         summary["eval_users"] = int(eval_users.shape[0])
         summary["holdout_users"] = int(holdout_users.shape[0])
-    metrics.log(len(model.history_), **summary)
+    metrics.log(len(model.history_), **summary, **summary_record())
     metrics.close()
     if verbose:
         print("[train] " + " ".join(f"{k}={v}" for k, v in summary.items()))

@@ -152,9 +152,10 @@ def test_two_process_compact_exchange(fits, exchange):
 
 def test_two_process_cli_matches_jax_cli(tmp_path):
     """``--synthetic tiny --n-shards 8 --platform cpu`` in 2 processes
-    against the JAX CLI in this process: ``train_rmse`` within 5e-3, the
-    collective bytes equal; bit for bit the port's CLI in one process. Only
-    process 0 writes the JSONL and prints the summary."""
+    against the JAX CLI in this process: the same summary keys beside the
+    port's spans and counters, ``train_rmse`` within 5e-3, the collective
+    bytes equal; bit for bit the port's CLI in one process. Only process 0
+    writes the JSONL and prints the summary."""
     args = ["--synthetic", "tiny", "--rank", "4", "--n-sweeps", "2",
             "--n-shards", "8", "--platform", "cpu", "--sse-mode",
             "separate"]
@@ -175,6 +176,10 @@ def test_two_process_cli_matches_jax_cli(tmp_path):
     assert train.main(args + ["--metrics-jsonl", str(one_path)]) == 0
     want = [json.loads(line) for line in open(want_path)]
     one = [json.loads(line) for line in open(one_path)]
+    # the port's summary also carries its spans and counters
+    for rec in (got[-1], one[-1]):
+        assert isinstance(rec.pop("spans"), dict)
+        assert isinstance(rec.pop("counters"), dict)
     assert sorted(got[-1]) == sorted(want[-1])
     assert got[-1]["train_rmse"] == pytest.approx(want[-1]["train_rmse"],
                                                   rel=5e-3)

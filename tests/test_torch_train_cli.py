@@ -2,8 +2,8 @@
 cases of tests/test_train_cli.py run through both CLIs with ``--platform
 cpu`` and ``--sse-mode separate``, on the same real-format ratings file
 (each CLI on its own copy: both loaders write the same cache name). The
-summaries have the same keys, and ``train_rmse`` and ``test_rmse`` agree
-within rtol 1e-3, as do the per-sweep records; a sharded fit logs the same
+summaries have the same keys (the port's also carry its spans and
+counters), and ``train_rmse`` and ``test_rmse`` agree within rtol 1e-3, as do the per-sweep records; a sharded fit logs the same
 collective bytes, as do the sharded IMC (``--model imc --n-shards``) and
 the 2-D ALS (``--topology obs_parallel``), and a 2-process CLI
 (``--coordinator``, ``--num-processes``, ``--process-id``), whose bootstrap
@@ -58,6 +58,21 @@ def csv_pair(tmp_path):
     return port_csv, ref_csv
 
 
+def _port_records(path):
+    """The port's JSONL records, each summary's ``spans`` and ``counters``
+    (``utils.profiling``) checked and taken out, so that the records
+    compare key for key with the JAX CLI's."""
+    recs = [json.loads(line) for line in open(path)]
+    assert "spans" in recs[-1] and "counters" in recs[-1]
+    for r in recs:
+        if "spans" in r:
+            spans, counters = r.pop("spans"), r.pop("counters")
+            assert all(set(v) == {"count", "total_ms", "self_ms"}
+                       for v in spans.values())
+            assert all(isinstance(v, int) for v in counters.values())
+    return recs
+
+
 def _run_both(args_for, tmp_path):
     """Run both CLIs (``args_for(side)`` gives each its argv); returns the
     JSONL records of each: (port's, JAX package's)."""
@@ -67,7 +82,8 @@ def _run_both(args_for, tmp_path):
         argv = args_for(side) + ["--platform", "cpu", "--sse-mode",
                                  "separate", "--metrics-jsonl", str(jsonl)]
         assert cli.main(argv) == 0
-        out.append([json.loads(line) for line in open(jsonl)])
+        out.append(_port_records(jsonl) if side == "port" else
+                   [json.loads(line) for line in open(jsonl)])
     return out
 
 
@@ -195,7 +211,7 @@ def test_cli_unported_paths_raise_naming_item_13(argv, tmp_path):
             env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
         for rc, out, err in res:
             assert rc == 0, f"rc={rc}\n{out}\n{err[-3000:]}"
-        got = [json.loads(line) for line in open(two)]
+        got = _port_records(two)
         _, want = _run_both(lambda side: base + ["--n-shards", "2"],
                             tmp_path)
     else:
