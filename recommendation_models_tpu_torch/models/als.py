@@ -11,7 +11,9 @@ returns the negative RMSE.
 
 Serving (``recommend``, ``top_n``) runs ``ops.topk`` on the estimator's
 device against a cached copy of the catalog in the serving permutation's
-row order, with exact selection whatever ``method`` says.
+row order, with exact selection whatever ``method`` says. Seen items are
+excluded there by masking, from a cached device copy of the training
+lists in serving-row order (``ops.topk.masked_exclusion_topk``).
 
 Checkpoints: with ``checkpoint_dir`` and ``checkpoint_every``, ``fit``
 saves the factors and the history after every ``checkpoint_every``-th
@@ -64,8 +66,8 @@ from recommendation_models_tpu_torch.ops.cholesky import (
 )
 from recommendation_models_tpu_torch.ops.gram import full_f32
 from recommendation_models_tpu_torch.ops.topk import (
-    grouped_exclusion_topk, permuted_topk, serving_permutation,
-    sharded_topk, topk_scores,
+    grouped_exclusion_topk, masked_exclusion_topk, permuted_topk,
+    seen_lists, serving_permutation, sharded_topk, topk_scores,
 )
 from recommendation_models_tpu_torch.parallel.mesh import (
     get_hybrid_mesh, get_mesh, take_rows, to_host,
@@ -195,7 +197,7 @@ class ALS(BaseEstimator):
         self._drop_serving_caches()
 
     def _drop_serving_caches(self):
-        for key in ("_vdev_cache", "_vserve_cache"):
+        for key in ("_vdev_cache", "_vserve_cache", "_seen_dev_cache"):
             self.__dict__.pop(key, None)
 
     # ------------------------------------------------------------------
@@ -575,15 +577,15 @@ class ALS(BaseEstimator):
         step.
 
         The tables are sliced to the true sizes in the checkpoint's
-        metadata. A previous fit's serving state (its training lists and
-        the device copy of the catalog and a sharded fit's program) is
-        dropped: the training observations are not checkpointed, so
-        ``recommend(exclude_seen=True)`` warns and serves unfiltered until
-        the next ``fit``. A sharded fit's checkpoint holds padded tables;
-        they are sliced here."""
+        metadata. A previous fit's serving state (its training lists, the
+        device copies of the catalog and of those lists, and a sharded
+        fit's program) is dropped: the training observations are not
+        checkpointed, so ``recommend(exclude_seen=True)`` warns and serves
+        unfiltered until the next ``fit``. A sharded fit's checkpoint holds
+        padded tables; they are sliced here."""
         step, state = load_latest(checkpoint_dir or self.checkpoint_dir)
         for key in ("_train_indptr", "_train_indices", "_vdev_cache",
-                    "_vserve_cache", "_sharded_program",
+                    "_vserve_cache", "_seen_dev_cache", "_sharded_program",
                     "exchange_bytes_per_sweep_"):
             self.__dict__.pop(key, None)
         meta = state.get("metadata") or {}
@@ -599,12 +601,13 @@ class ALS(BaseEstimator):
     # ------------------------------------------------------------------
     def __getstate__(self):
         """Picklable fitted estimator: the device copies of the catalog and
-        a sharded fit's program are dropped (serving uploads the catalog
-        again), and a sharded fit's tables are copied to the host first,
-        so a model pickled after a fit on the card unpickles on a host
-        without one."""
+        of the training lists, and a sharded fit's program, are dropped
+        (serving uploads them again), and a sharded fit's tables are
+        copied to the host first, so a model pickled after a fit on the
+        card unpickles on a host without one."""
         state = dict(super().__getstate__())
-        for key in ("_vdev_cache", "_vserve_cache", "_sharded_program"):
+        for key in ("_vdev_cache", "_vserve_cache", "_seen_dev_cache",
+                    "_sharded_program"):
             state.pop(key, None)
         if state.get("_U_dev") is not None:
             state["_U_host"], state["_V_host"] = self.U_, self.V_
@@ -681,7 +684,9 @@ class ALS(BaseEstimator):
         Selection is exact for every ``method`` ('auto', 'exact' or
         'approx'; ``recall_target`` is accepted for the reference's
         signature). With ``exclude_seen`` each user's training items are
-        dropped (``ops.topk.grouped_exclusion_topk``). A call is one
+        dropped: masked on the device on one device
+        (``ops.topk.masked_exclusion_topk``), overfetched and filtered after
+        a sharded fit (``ops.topk.grouped_exclusion_topk``). A call is one
         ``serve.recommend`` span (``utils.profiling``) and counts its users
         in ``serve.users``."""
         with span("serve.recommend", call=True):
@@ -698,7 +703,8 @@ class ALS(BaseEstimator):
                 f"[{user_ids.min()}, {user_ids.max()}]")
         count("serve.users", user_ids.shape[0])
         n = min(n, self.n_items_)    # never ask top_k for more than exists
-        query_rows, topk = self._topk_backend(method, recall_target)
+        query_rows, topk, unseen = self._topk_backend(method,
+                                                      recall_target)
         if exclude_seen and not hasattr(self, "_train_indptr"):
             # an estimator resumed or built from factors alone has no
             # training lists: serving with seen items would break the top_n
@@ -713,21 +719,30 @@ class ALS(BaseEstimator):
                 stacklevel=2)
         if not (exclude_seen and hasattr(self, "_train_indptr")):
             return topk(query_rows(user_ids), n, None)
-        return grouped_exclusion_topk(user_ids, n, self._train_indptr,
-                                      self._train_indices, query_rows, topk)
+
+        def overfetch(ids):
+            return grouped_exclusion_topk(ids, n, self._train_indptr,
+                                          self._train_indices, query_rows,
+                                          topk)
+        if unseen is None:
+            return overfetch(user_ids)
+        return unseen(user_ids, n, overfetch)
 
     def _topk_backend(self, method: str, recall_target: float):
-        """(query_rows, topk) callables for ``recommend``.
+        """(query_rows, topk, unseen) callables for ``recommend``.
 
         After a sharded fit whose tables are still on the mesh: query rows
         gathered from the sharded U onto the first shard's device, and
         ``ops.topk.sharded_topk`` against the sharded V re-gathered once in
         ``serving_permutation`` row order (cached; the padded rows stay
-        last, masked by ``n_valid``). Otherwise: host ``U_`` rows uploaded
-        per chunk, and ``ops.topk.topk_scores`` against the device copy of
-        ``V_`` in ``serving_permutation`` row order, cached on the
-        estimator and keyed on the identity of ``V_`` (and the device);
-        assigning ``V_`` clears both caches."""
+        last, masked by ``n_valid``); ``unseen`` is None (exclusion
+        overfetches). Otherwise: host ``U_`` rows uploaded per chunk, and
+        ``ops.topk.topk_scores`` against the device copy of ``V_`` in
+        ``serving_permutation`` row order, cached on the estimator and
+        keyed on the identity of ``V_`` (and the device); ``unseen(ids, n,
+        fallback)`` serves with the seen items masked
+        (``ops.topk.masked_exclusion_topk``) from the training lists' device
+        copy (``_seen_lists``). Assigning ``V_`` clears the caches."""
         prog = getattr(self, "_sharded_program", None)
         if (prog is not None and self._U_dev is not None
                 and self._V_dev is not None):
@@ -750,7 +765,31 @@ class ALS(BaseEstimator):
         def topk(Uq, k, excl):
             return topk_scores(Uq, V_local, k, excl, method=method,
                                recall_target=recall_target)
-        return query_rows, permuted_topk(topk, perm_back, perm_fwd)
+
+        def select(Uq, k, seen):
+            return topk_scores(Uq, V_local, k, method=method,
+                               recall_target=recall_target, seen=seen)
+
+        def unseen(ids, k, fallback):
+            return masked_exclusion_topk(
+                ids, k, self._train_indptr, self._seen_lists(device, perm_fwd),
+                query_rows, select, perm_back, fallback)
+        return query_rows, permuted_topk(topk, perm_back, perm_fwd), unseen
+
+    def _seen_lists(self, device, perm_fwd):
+        """The training lists on ``device`` with items as serving rows
+        (``ops.topk.seen_lists``), cached on the estimator and keyed on the
+        identity of ``_train_indptr`` and ``_train_indices`` (and the
+        device)."""
+        cache = getattr(self, "_seen_dev_cache", None)
+        if (cache is None or cache[0] is not self._train_indptr
+                or cache[1] is not self._train_indices
+                or cache[2].rows.device.type != device.type):
+            self._seen_dev_cache = (
+                self._train_indptr, self._train_indices,
+                seen_lists(self._train_indptr, self._train_indices, perm_fwd,
+                           device))
+        return self._seen_dev_cache[2]
 
     def _sharded_topk_backend(self, prog, method: str, recall_target: float):
         mesh, n_items = prog.mesh, self.n_items_
@@ -782,7 +821,7 @@ class ALS(BaseEstimator):
             return sharded_topk(Uq, V_serve, k, mesh, axis=prog.axis,
                                 exclude=excl, method=method,
                                 recall_target=recall_target, n_valid=n_items)
-        return query_rows, permuted_topk(topk, perm_back, perm_fwd)
+        return query_rows, permuted_topk(topk, perm_back, perm_fwd), None
 
     def top_n(self, user: int, n: int = 10, exclude_seen: bool = True):
         """Single-user convenience: ranked item ids."""

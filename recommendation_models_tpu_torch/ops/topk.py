@@ -22,24 +22,39 @@ k-th and (k+1)-th values tie is selected again by a stable sort.
 (``parallel.mesh``): a top-k on each shard, then one merge of the
 candidates.
 
-Exclusion of seen items overfetches ``k + E`` candidates and filters them
-(``_filter_seen``): the top-k unseen items are always among the top
-``k + E``. The filter sorts each exclusion row and looks every candidate up
-with ``searchsorted``, so its memory is O(B·(overfetch + E)), never the
-(B, overfetch, E) comparison.
+Exclusion of seen items takes one of two paths, by the backend:
+
+- one device (``ALS``'s single-device backend: ``masked_exclusion_topk``):
+  the training lists stay on the device in serving-row order
+  (``seen_lists``, built once); each call gathers the batch's flat (query
+  row, serving row) pairs there (``seen_pairs``, sized from the host's
+  CSR rows, so nothing is read back), sets those scores to -inf in each
+  item block before its selection (``_mask_seen``) and selects the top k.
+  A user whose degree passes ``n_items - k`` may have fewer than k unseen
+  items; such users take the overfetch path below, which orders their -inf
+  slots;
+- the sharded backends (``sharded_topk``) and ``IMC.recommend``: each
+  user's exclusion list is built on the host (``grouped_exclusion_topk``),
+  ``k + E`` candidates are overfetched and the seen ones filtered
+  (``_filter_seen``): the top-k unseen items are always among the top
+  ``k + E``. The filter sorts each exclusion row and looks every candidate
+  up with ``searchsorted``, so its memory is O(B·(overfetch + E)), never
+  the (B, overfetch, E) comparison.
 
 Spans (``utils.profiling``) of the serving path: ``serve.exclusions``
-(each level's exclusion lists, and their map to serving rows),
-``serve.upload`` (the queries and exclusion lists to the device),
-``serve.select`` (the product and selection; ``_top_k``'s ``nonzero``
-waits for the device there) and ``serve.readback`` (the results to the
-host);
-``serve.exclusion_ids`` counts the exclusion ids built.
+(the batch's degrees and its pairs on the device; on the overfetch path
+each level's exclusion lists, and their map to serving rows),
+``serve.upload`` (the queries, and on the overfetch path the exclusion
+lists, to the device), ``serve.select`` (the product and selection;
+``_top_k``'s ``nonzero`` waits for the device there) and
+``serve.readback`` (the results to the host); ``serve.exclusion_ids``
+counts the exclusion ids built, ``serve.exclusion_fallback_users`` the
+users the masked path sends to the overfetch path.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,16 +111,37 @@ def _top_k(s: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return v, i
 
 
-def _topk_exact_small(u, v, k):
-    return _top_k(_scores(u, v), k)
+def _mask_seen(s, seen, base=0):
+    """Set the scores of the ``seen`` pairs (query rows, serving rows: flat,
+    on s's device) that fall in this block of columns, ``[base, base +
+    width)``, to -inf, in place.
+
+    Every pair is scattered with ``amin``: a pair outside the block lands
+    on a column of its row with +inf, which leaves that score as it is, so
+    no pair is picked out by a size the host would have to read back."""
+    q, j = seen
+    w = s.shape[1]
+    t = j - base
+    val = torch.where((t >= 0) & (t < w), -torch.inf, torch.inf).to(s.dtype)
+    s.view(-1).scatter_reduce_(0, q * w + t.remainder(w), val, reduce="amin")
 
 
-def _topk_exact_chunked(u, v, k, block=_EXACT_BLOCK, n_valid=None):
+def _topk_exact_small(u, v, k, seen=None):
+    s = _scores(u, v)
+    if seen is not None:
+        _mask_seen(s, seen)
+    return _top_k(s, k)
+
+
+def _topk_exact_chunked(u, v, k, block=_EXACT_BLOCK, n_valid=None,
+                        seen=None):
     """Exact top-k by a loop over item blocks with a running merge.
 
     ``n_valid``: candidate rows at or past it score -inf (defaults to v's
     row count). The last block is taken as if padded to ``block`` rows
-    whose ids continue past the catalog, as the JAX package pads it."""
+    whose ids continue past the catalog, as the JAX package pads it.
+    ``seen``: (query row, candidate row) pairs that score -inf
+    (``_mask_seen``)."""
     n = v.shape[0]
     b = u.shape[0]
     if n_valid is None:
@@ -120,6 +156,8 @@ def _topk_exact_chunked(u, v, k, block=_EXACT_BLOCK, n_valid=None):
         w = s.shape[1]
         if n_valid < base + w:
             s[:, max(n_valid - base, 0):] = -torch.inf
+        if seen is not None:
+            _mask_seen(s, seen, base)
         if w < kb:      # the padding rows this selection would reach
             s = torch.nn.functional.pad(s, (0, kb - w), value=-torch.inf)
         sc, ix = _top_k(s, kb)
@@ -146,13 +184,16 @@ def _filter_seen(sc, ix, exclude, k):
     return sc_k, torch.gather(ix, 1, pos)
 
 
-def _topk_unseen(u, v, k, exclude: Optional[torch.Tensor]):
+def _topk_unseen(u, v, k, exclude: Optional[torch.Tensor] = None,
+                 seen=None):
+    """The top k of ``u``'s scores against ``v``: ``exclude`` (B, E) ids
+    overfetched and filtered, or ``seen`` pairs masked."""
     n_items = v.shape[0]
     overfetch = k if exclude is None else min(k + exclude.shape[1], n_items)
     if n_items <= _SMALL_N:
-        sc, ix = _topk_exact_small(u, v, overfetch)
+        sc, ix = _topk_exact_small(u, v, overfetch, seen)
     else:
-        sc, ix = _topk_exact_chunked(u, v, overfetch)
+        sc, ix = _topk_exact_chunked(u, v, overfetch, seen=seen)
     if exclude is None:
         return sc, ix
     return _filter_seen(sc, ix, exclude, k)
@@ -165,13 +206,16 @@ def topk_scores(
     exclude=None,               # (B, E) int seen items, -1 = none
     method: str = "auto",
     recall_target: float = 0.99,
+    seen=None,                  # (query rows, rows of V) flat, on V's device
 ):
     """Returns (scores (B, k) f32, items (B, k) int64) of the top-k items,
     on V's device.
 
     ``U_rows`` and ``exclude`` may be host arrays; they are moved to V's
     device. ``exclude`` rows may be padded with -1 (no item has id -1, so
-    padding never matches a candidate). ``method`` is validated and
+    padding never matches a candidate): the top ``k + E`` are selected and
+    filtered. ``seen`` pairs (``seen_pairs``) are masked to -inf in the
+    scores instead, and the top k selected. ``method`` is validated and
     ``recall_target`` accepted, as the JAX package's ``approx_max_k`` dials;
     every method selects exactly."""
     if k < 1 or k > V.shape[0]:
@@ -185,7 +229,7 @@ def topk_scores(
         if exclude is not None:
             exclude = torch.as_tensor(exclude, device=V.device)
     with span("serve.select"):
-        return _topk_unseen(U_rows, V, k, exclude)
+        return _topk_unseen(U_rows, V, k, exclude, seen)
 
 
 _PERM_SEED = 0x5EED
@@ -298,6 +342,82 @@ def grouped_exclusion_topk(user_ids, n, indptr, indices, query_rows, topk,
     return out_s, out_i
 
 
+class SeenLists(NamedTuple):
+    """A training matrix's lists on the device, items as serving rows."""
+    indptr: torch.Tensor        # (n_users + 1,) int64
+    rows: torch.Tensor          # (nnz,) int32
+
+
+def seen_lists(indptr, indices, perm_fwd, device) -> SeenLists:
+    """The training lists (CSR ``indptr`` and item ``indices``) on
+    ``device``, each item mapped to its serving row (``perm_fwd``)."""
+    indices = np.asarray(indices)
+    n_items = perm_fwd.shape[0]
+    if indices.size and (indices.min() < 0 or indices.max() >= n_items):
+        raise ValueError(
+            f"training item ids must be in [0, {n_items}); got "
+            f"[{indices.min()}, {indices.max()}]")
+    fwd = torch.as_tensor(perm_fwd.astype(np.int32), device=device)
+    ix = torch.as_tensor(indices.astype(np.int32, copy=False), device=device)
+    return SeenLists(
+        torch.as_tensor(np.asarray(indptr, np.int64), device=device),
+        fwd.index_select(0, ix))
+
+
+def seen_pairs(lists: SeenLists, ids: torch.Tensor, total: int):
+    """The flat (query row int64, serving row int32) pairs of the users
+    ``ids`` (int64, on the lists' device). ``total``, the sum of their
+    degrees, comes from the host's copy of the CSR rows: no size is read
+    back from the device."""
+    lo = lists.indptr[ids]
+    deg = lists.indptr[ids + 1] - lo
+    q = torch.repeat_interleave(deg, output_size=total)
+    first = torch.cumsum(deg, 0) - deg      # each user's first flat slot
+    src = lo[q] + torch.arange(total, device=ids.device) - first[q]
+    return q, lists.rows[src]
+
+
+def masked_exclusion_topk(user_ids, n, indptr, lists, query_rows, topk,
+                          perm_back, fallback):
+    """Exclude-seen serving on one device by masking.
+
+    The batch's seen pairs are gathered on the device from ``lists``
+    (``seen_lists`` over the CSR rows ``indptr``, which the host also
+    holds) and ``topk(Uq, n, seen) -> (sc, rows)`` (``topk_scores`` with
+    ``seen``) masks them and selects the top n, so the selection is n wide
+    whatever the degrees. ``query_rows(ids) -> (B, k)`` gives the query
+    rows and ``perm_back`` each serving row's item. A user whose degree
+    passes ``n_items - n`` may have fewer than n unseen items: such users
+    take ``fallback(ids) -> (scores, items)`` (the overfetch path, which
+    orders their -inf slots) and count in
+    ``serve.exclusion_fallback_users``. Returns NumPy (scores (B, n), items
+    (B, n)) aligned with ``user_ids``."""
+    user_ids = np.atleast_1d(np.asarray(user_ids, np.int64))
+    with span("serve.exclusions"):
+        degs = indptr[user_ids + 1] - indptr[user_ids]
+        short = degs > perm_back.shape[0] - n
+        ids = user_ids[~short]
+        total = int(degs[~short].sum())
+        # asynchronous: a pageable source is staged before the call
+        # returns, and nothing in this step waits for the device
+        dev_ids = torch.from_numpy(ids).to(lists.indptr.device,
+                                           non_blocking=True)
+        seen = seen_pairs(lists, dev_ids, total)
+    count("serve.exclusion_ids", total)
+    count("serve.exclusion_fallback_users", int(short.sum()))
+    sc, it = topk(query_rows(ids), n, seen)
+    with span("serve.readback"):
+        sc, it = _host(sc), _host(it)
+    it = perm_back[it]
+    if not short.any():
+        return sc, it
+    out_s = np.empty((user_ids.shape[0], n), np.float32)
+    out_i = np.empty((user_ids.shape[0], n), np.int64)
+    out_s[~short], out_i[~short] = sc, it
+    out_s[short], out_i[short] = fallback(user_ids[short])
+    return out_s, out_i
+
+
 def sharded_topk(
     U_rows,
     V,
@@ -382,4 +502,5 @@ def sharded_topk(
 
 
 __all__ = ["topk_scores", "sharded_topk", "grouped_exclusion_topk",
+           "masked_exclusion_topk", "seen_lists", "seen_pairs",
            "serving_permutation", "permuted_topk"]

@@ -324,3 +324,52 @@ def test_topk_on_the_card_matches_the_cpu():
         np.testing.assert_array_equal(g[1].cpu().numpy(), c[1].numpy())
         np.testing.assert_allclose(g[0].cpu().numpy(), c[0].numpy(),
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_the_masked_exclusion_on_the_card_makes_no_host_sync():
+    """The exclusion step (the batch's pairs gathered from the device lists
+    and masked into two item blocks) under ``set_sync_debug_mode("error")``,
+    and the masked selection on the card against the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from recommendation_models_tpu_torch.ops.gram import full_f32
+    full_f32()
+    n_items, b = 20_000, 300
+    U, V = _case(11, b=b, n=n_items, k=64)
+    rng = np.random.default_rng(11)
+    degs = rng.integers(0, 400, b + 7)
+    indptr = np.concatenate([[0], np.cumsum(degs)]).astype(np.int64)
+    indices = rng.integers(0, n_items, int(degs.sum())).astype(np.int32)
+    _, pf = port.serving_permutation(n_items)
+    ids = rng.permutation(b + 7)[:b].astype(np.int64)
+    total = int(degs[ids].sum())
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    lists = port.seen_lists(indptr, indices, pf, cuda)
+    u = torch.tensor(U, device=cuda)
+    Vd = torch.tensor(V, device=cuda)
+    blocks = [port._scores(u, Vd[:port._EXACT_BLOCK]),
+              port._scores(u, Vd[port._EXACT_BLOCK:])]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        seen = port.seen_pairs(
+            lists, torch.from_numpy(ids).to(cuda, non_blocking=True), total)
+        port._mask_seen(blocks[0], seen, 0)
+        port._mask_seen(blocks[1], seen, port._EXACT_BLOCK)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    seen_c = port.seen_pairs(port.seen_lists(indptr, indices, pf, cpu),
+                             torch.from_numpy(ids), total)
+    assert seen_c[0].shape[0] == total
+    for x, y in zip(seen, seen_c):
+        np.testing.assert_array_equal(x.cpu().numpy(), y.numpy())
+    masked = torch.cat(blocks, 1).cpu().numpy()
+    q, j = seen_c[0].numpy(), seen_c[1].numpy()
+    assert np.isneginf(masked[q, j]).all()
+    assert np.isneginf(masked).sum() == np.unique(q * n_items + j).shape[0]
+    g = port._topk_unseen(u, Vd, 10, seen=seen)
+    c = port._topk_unseen(torch.tensor(U), torch.tensor(V), 10, seen=seen_c)
+    np.testing.assert_array_equal(g[1].cpu().numpy(), c[1].numpy())
+    np.testing.assert_allclose(g[0].cpu().numpy(), c[0].numpy(),
+                               rtol=1e-5, atol=1e-5)

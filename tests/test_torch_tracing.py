@@ -265,23 +265,24 @@ def serving_estimator(degrees, n_items=300, rank=4, seed=1):
 @pytest.mark.parametrize("exclude_seen", [False, True])
 def test_recommend_records_its_phases_per_level_and_call(fresh,
                                                          exclude_seen):
-    # degrees at two exclusion levels (32 and 128)
+    # degrees at two of the overfetch path's exclusion levels (32 and
+    # 128); the masked path serves them all in one pass
     degrees = [5, 20, 32, 40, 100, 7]
     est = serving_estimator(degrees)
     users = np.arange(len(degrees))
     est.recommend(users, 5, exclude_seen)
-    levels = 2 if exclude_seen else 1
     s = fresh.summary()
     count = {k: v["count"] for k, v in s["spans"].items()}
     assert count["serve.recommend"] == 1
-    # each level's lists are built, then mapped to serving rows
-    assert count.get("serve.exclusions", 0) == (2 * levels if exclude_seen
-                                                else 0)
+    # one exclusion step a call: the degrees and the pairs on the device
+    assert count.get("serve.exclusions", 0) == (1 if exclude_seen else 0)
     for phase in ("serve.upload", "serve.select", "serve.readback"):
-        assert count[phase] == levels
+        assert count[phase] == 1
     assert s["counters"]["serve.users"] == len(degrees)
     assert (s["counters"].get("serve.exclusion_ids", 0)
             == (sum(degrees) if exclude_seen else 0))
+    # every degree is at most n_items - n: no user takes the overfetch path
+    assert s["counters"].get("serve.exclusion_fallback_users", 0) == 0
     recs = fresh.recent()
     (call,) = [r for r in recs if r.name == "serve.recommend"]
     assert call.call == call.id
@@ -345,7 +346,13 @@ def test_the_benchmarks_wraps_still_find_the_ports_functions(traffic,
                 est.recommend(order[:64], 10, True)
     with trace.spans(wraps):
         cap = trace.capture(call, cuda=False)
-    assert set(cap.spans) == {"call"} | {w[2] for w in wraps}
+    if traffic == "train":
+        assert set(cap.spans) == {"call"} | {w[2] for w in wraps}
+    else:
+        # the masked exclusion selects through topk_scores; only users
+        # with fewer than n unseen items take grouped_exclusion_topk, which
+        # stays an attribute of models.als for trace.spans' getattr above
+        assert set(cap.spans) == {"call", "topk_scores"}
     # the wraps are gone after the block
     for mod_name, attr, _ in wraps:
         fn = getattr(sys.modules[mod_name], attr)
