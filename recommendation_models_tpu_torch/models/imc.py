@@ -23,6 +23,15 @@ flag per sweep. ``verbose`` and checkpoints take a host loop over sweeps.
 Serving (``recommend``, ``top_n``) scores the projected catalog ``Y H`` with
 ``ops.topk`` on the estimator's device.
 
+Spans (``utils.profiling``): ``imc.fit`` (a call of the whole fit),
+``imc.sweep``, ``imc.half_sweep``; marks, written only under a profiler,
+around a half-step's grams (``imc.grams``) and its CG with the objective's
+pass (``imc.cg``); counters of the CG's operator passes
+(``imc.cg_matvecs``: ``cg_matvec_count(cg_iters) + 1`` a half-step, the
+objective's pass included), the gather slots the grams walk
+(``imc.gather_slots``, padded rows times P) and the real ratings among them
+(``imc.gather_ratings``).
+
 Sharded fits: ``n_shards > 1`` row-shards the users (W step) and items (H
 step) over ``get_mesh(n_shards, platform=...)`` (``sharded_sweep_fn``):
 each shard accumulates its own rows' grams, and the (d, k) reductions of
@@ -71,6 +80,7 @@ from recommendation_models_tpu_torch.solver.als_sweep import (
 from recommendation_models_tpu_torch.utils.checkpoint import (
     load_latest, save_checkpoint, wait_pending,
 )
+from recommendation_models_tpu_torch.utils.profiling import count, mark, span
 
 
 def _as_triplets(R) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -112,6 +122,9 @@ def _factor_grams(Z, buckets, n_rows: int, chunk: int = 512,
         idx, mask, values, rid = (b["indices"], b["mask"], b["values"],
                                   b["row_ids"])
         bsz, p = idx.shape
+        if "n_ratings" in b:
+            count("imc.gather_slots", bsz * p)
+            count("imc.gather_ratings", b["n_ratings"])
         bb = gram_block_rows(p, k, budget_mb, chunk)
         wr = mask * values
         for s in range(0, bsz, bb):
@@ -156,29 +169,36 @@ def _solve_factor(F, Z, buckets, n_rows: int, M0, reg: float,
                 full[s] = part
             return pmesh.psum(mesh, full)[mesh.local[0]].to(M0.device)
 
-    grams = []
-    for f, z, bk in shards:
-        check_full_f32(f)
-        grams.append(_factor_grams(z, bk, n_rows))
-    b = psum([(f.T @ g[1]).reshape(-1) for (f, _, _), g in zip(shards, grams)])
-    r2 = psum([g[2] for g in grams])
-    shape = M0.shape
+    with span("imc.half_sweep"):
+        grams = []
+        with mark("imc.grams"):
+            for f, z, bk in shards:
+                check_full_f32(f)
+                grams.append(_factor_grams(z, bk, n_rows))
+        b = psum([(f.T @ g[1]).reshape(-1)
+                  for (f, _, _), g in zip(shards, grams)])
+        r2 = psum([g[2] for g in grams])
+        shape = M0.shape
 
-    def row_gram(T, G):         # "ukl,uk->ul": T[u] @ G[u] for every row
-        return torch.bmm(T.unsqueeze(1), G).squeeze(1)
+        def row_gram(T, G):     # "ukl,uk->ul": T[u] @ G[u] for every row
+            return torch.bmm(T.unsqueeze(1), G).squeeze(1)
 
-    def matvec(Mf):
-        M = Mf.view(shape)
-        return (psum([f.T @ row_gram(f @ M.to(f.device), g[0])
-                      for (f, _, _), g in zip(shards, grams)])
-                + reg * M).reshape(-1)
+        def matvec(Mf):
+            count("imc.cg_matvecs")
+            M = Mf.view(shape)
+            return (psum([f.T @ row_gram(f @ M.to(f.device), g[0])
+                          for (f, _, _), g in zip(shards, grams)])
+                    + reg * M).reshape(-1)
 
-    M = _cg(matvec, b, M0.reshape(-1), cg_iters).view(shape)
-    quad = []
-    for (f, _, _), g in zip(shards, grams):
-        T = f @ M.to(f.device)
-        quad.append((row_gram(T, g[0]) * T).sum())
-    sse = r2 - 2.0 * torch.dot(b, M.reshape(-1)) + psum(quad)
+        with mark("imc.cg"):
+            M = _cg(matvec, b, M0.reshape(-1), cg_iters).view(shape)
+            # the objective's pass: one more pass over the row grams
+            count("imc.cg_matvecs")
+            quad = []
+            for (f, _, _), g in zip(shards, grams):
+                T = f @ M.to(f.device)
+                quad.append((row_gram(T, g[0]) * T).sum())
+            sse = r2 - 2.0 * torch.dot(b, M.reshape(-1)) + psum(quad)
     return M, sse
 
 
@@ -187,9 +207,10 @@ def _imc_sweep(W, H, X, Y, ub, ib, reg: float, cg_iters: int, n_users: int,
     """One sweep: W given H, then H given the new W. Returns (W, H, obj)
     with obj = ½ sse + λ/2(‖W‖² + ‖H‖²) at the sweep's end state, a device
     scalar."""
-    W, _ = _solve_factor(X, Y @ H, ub, n_users, W, reg, cg_iters)
-    H, sse = _solve_factor(Y, X @ W, ib, n_items, H, reg, cg_iters)
-    obj = 0.5 * sse + 0.5 * reg * ((W ** 2).sum() + (H ** 2).sum())
+    with span("imc.sweep"):
+        W, _ = _solve_factor(X, Y @ H, ub, n_users, W, reg, cg_iters)
+        H, sse = _solve_factor(Y, X @ W, ib, n_items, H, reg, cg_iters)
+        obj = 0.5 * sse + 0.5 * reg * ((W ** 2).sum() + (H ** 2).sum())
     return W, H, obj
 
 
@@ -200,22 +221,31 @@ def _sweep_loop(sweep, W, H, n_sweeps: int, tol: float = 0.0):
     ``tol == 0`` runs every sweep and reads nothing back. ``tol > 0`` stops
     before sweep i >= 2 once ``|obj[i-2] − obj[i-1]| < tol``, compared in
     f32 on the device values as the JAX package's ``while_loop`` does (one
-    flag read back per sweep); sweeps never run stay -1 in ``hist``."""
-    hist = torch.full((n_sweeps,), -1.0, dtype=torch.float32,
-                      device=W.device)
-    i = 0
-    while i < n_sweeps:
-        if tol > 0 and i >= 2 and not bool(
-                torch.abs(hist[i - 2] - hist[i - 1]) >= tol):
-            break
-        W, H, hist[i] = sweep(W, H)
-        i += 1
+    flag read back per sweep); sweeps never run stay -1 in ``hist``. One
+    call is one ``imc.fit`` span."""
+    with span("imc.fit", call=True):
+        hist = torch.full((n_sweeps,), -1.0, dtype=torch.float32,
+                          device=W.device)
+        i = 0
+        while i < n_sweeps:
+            if tol > 0 and i >= 2 and not bool(
+                    torch.abs(hist[i - 2] - hist[i - 1]) >= tol):
+                break
+            W, H, hist[i] = sweep(W, H)
+            i += 1
     return W, H, hist, i
 
 
-def _imc_fit(W, H, X, Y, ub, ib, reg: float, cg_iters: int, n_sweeps: int,
-             n_users: int, n_items: int, tol: float = 0.0):
-    """The single-device fit, ``_sweep_loop`` over ``_imc_sweep``."""
+def imc_fit(W, H, X, Y, ub, ib, reg: float, cg_iters: int, n_sweeps: int,
+            n_users: int, n_items: int, tol: float = 0.0):
+    """The whole single-device fit that ``IMC.fit`` runs: ``n_sweeps``
+    sweeps of ``_imc_sweep`` from (W, H) on the device, over the users' and
+    items' buckets uploaded by ``device_buckets`` (``ub``, ``ib``) and the
+    device features X (n_users, d_user) and Y (n_items, d_item). Returns
+    (W, H, hist (n_sweeps,) of the objective after each sweep, sweeps
+    run); with ``tol == 0`` nothing is read back (``_sweep_loop``). Turns
+    TF32 off first: the CG's products run in full f32."""
+    full_f32()
     return _sweep_loop(
         lambda W, H: _imc_sweep(W, H, X, Y, ub, ib, reg, cg_iters, n_users,
                                 n_items), W, H, n_sweeps, tol)
@@ -265,12 +295,14 @@ def sharded_sweep_fn(mesh, X, Y, user_layout, item_layout, reg: float,
             mesh, [None if f is None else f @ M.to(f.device) for f in F]))
 
     def sweep(W, H):
-        W, _ = _solve_factor(Xs, tower(Ys, H, n_items), ub, ul.rows_per_shard,
-                             W, reg, cg_iters, sharded=True, mesh=mesh)
-        H, sse = _solve_factor(Ys, tower(Xs, W, n_users), ib,
-                               il.rows_per_shard, H, reg, cg_iters,
-                               sharded=True, mesh=mesh)
-        obj = 0.5 * sse + 0.5 * reg * ((W ** 2).sum() + (H ** 2).sum())
+        with span("imc.sweep"):
+            W, _ = _solve_factor(Xs, tower(Ys, H, n_items), ub,
+                                 ul.rows_per_shard, W, reg, cg_iters,
+                                 sharded=True, mesh=mesh)
+            H, sse = _solve_factor(Ys, tower(Xs, W, n_users), ib,
+                                   il.rows_per_shard, H, reg, cg_iters,
+                                   sharded=True, mesh=mesh)
+            obj = 0.5 * sse + 0.5 * reg * ((W ** 2).sum() + (H ** 2).sum())
         return W, H, obj
 
     mv = cg_matvec_count(cg_iters)
@@ -507,26 +539,28 @@ class IMC(BaseEstimator):
                 W, H, hist, n_done = _sweep_loop(sweep, W, H,
                                                  self._n_sweeps)
             else:
-                W, H, hist, n_done = _imc_fit(W, H, Xd, Yd, ub, ib, reg,
-                                              cg_iters, self._n_sweeps,
-                                              n_users, n_items,
-                                              tol=float(self.tol))
+                W, H, hist, n_done = imc_fit(W, H, Xd, Yd, ub, ib, reg,
+                                             cg_iters, self._n_sweeps,
+                                             n_users, n_items,
+                                             tol=float(self.tol))
             self.history_ = list(hist.cpu().numpy().astype(np.float64)
                                  [:n_done])
         else:
             # tol on the host's floats, async checkpoints, verbose prints
             self.history_ = []
             prev = None
-            for s in range(self._n_sweeps):
-                W, H, obj = sweep(W, H)
-                cur = float(obj)
-                self.history_.append(cur)
-                if self.verbose:
-                    print(f"[IMC] sweep {s + 1}: objective={cur:.6f}")
-                self._maybe_checkpoint(s, W, H)
-                if self.tol > 0 and prev is not None and abs(prev - cur) < self.tol:
-                    break
-                prev = cur
+            with span("imc.fit", call=True):
+                for s in range(self._n_sweeps):
+                    W, H, obj = sweep(W, H)
+                    cur = float(obj)
+                    self.history_.append(cur)
+                    if self.verbose:
+                        print(f"[IMC] sweep {s + 1}: objective={cur:.6f}")
+                    self._maybe_checkpoint(s, W, H)
+                    if (self.tol > 0 and prev is not None
+                            and abs(prev - cur) < self.tol):
+                        break
+                    prev = cur
             self._finish_checkpoints()
 
         self.W_ = W.cpu().numpy()
@@ -801,4 +835,5 @@ class IMC(BaseEstimator):
         return items[0]
 
 
-__all__ = ["IMC", "cg_matvec_count", "gram_block_rows", "sharded_sweep_fn"]
+__all__ = ["IMC", "cg_matvec_count", "gram_block_rows", "imc_fit",
+           "sharded_sweep_fn"]

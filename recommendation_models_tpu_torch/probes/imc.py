@@ -132,10 +132,10 @@ def uploaded(data, device, rank: int = RANK):
 
 def run_sweeps(inputs, n_sweeps: int):
     """The fit's whole-fit loop: (W, H, history on the host, float64)."""
-    from recommendation_models_tpu_torch.models.imc import _imc_fit
+    from recommendation_models_tpu_torch.models.imc import imc_fit
     ub, ib, X, Y, W0, H0, n_users, n_items = inputs
-    W, H, hist, n_done = _imc_fit(W0, H0, X, Y, ub, ib, REG, CG_ITERS,
-                                  n_sweeps, n_users, n_items)
+    W, H, hist, n_done = imc_fit(W0, H0, X, Y, ub, ib, REG, CG_ITERS,
+                                 n_sweeps, n_users, n_items)
     return W, H, hist.cpu().numpy().astype(np.float64)[:n_done]
 
 

@@ -114,7 +114,7 @@ def test_init_bit_equal_to_reference(imc_problem, monkeypatch, seed, scale,
         return W, H, torch.zeros(1), 1
 
     monkeypatch.setattr(ref_imc, "_imc_program", ref_program)
-    monkeypatch.setattr(port_imc, "_imc_fit", port_fit)
+    monkeypatch.setattr(port_imc, "imc_fit", port_fit)
     RefIMC(rank=4, n_sweeps=1, seed=seed, init_scale=scale).fit(
         (users, items, r), X, Y, **kw)
     IMC(rank=4, n_sweeps=1, seed=seed, init_scale=scale,
